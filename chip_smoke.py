@@ -1,0 +1,506 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's FedAvg main path on one CUDA card, and hold
+every hand-written kernel of that path against its plain PyTorch version.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+Phases, in order (any failed check raises, so the exit code is non-zero):
+
+1. the card: name and power limit, as nvidia-smi prints them;
+2. the build: the CUDA kernels under fedml_tpu_torch/csrc are compiled
+   for sm_90a into fedml_tpu_torch/_build (or the build is reused);
+3. each kernel against its plain version at the main path's shapes, with
+   its time, the plain version's time, one library call's time as a
+   yardstick, and its bound from the bytes it must move;
+4. one f32 FedAvg round (2 clients x 2 batches of 32, full ResNet-18-GN
+   width, TF32 off) on the card and on the CPU from the same weights and
+   data: the aggregated models must agree;
+5. the main path: MeshFedAvgEngine(chunk=2, local_dtype=bfloat16) with a
+   bf16 ClientTrainer at lr 0.1, 8 clients of 390 CIFAR-10-shaped
+   samples (13 batches of 32), 3 rounds then one evaluation; the launch
+   counters, zeroed just before, must equal the counts the shapes give;
+   then one more round under torch.profiler: the card's busy share and
+   where its time goes;
+6. one JSON line listing every TPU kernel of the JAX package with its
+   port's numbers, then the last line {"ok": true, "device": {...}}.
+
+It needs one card; it imports nothing of JAX or of fedml_tpu.
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from fedml_tpu_torch.algorithms.fedavg import FedAvgEngine
+from fedml_tpu_torch.core.trainer import ClientTrainer
+from fedml_tpu_torch.data.federated import (FederatedData, build_client_shards,
+                                            build_eval_shard)
+from fedml_tpu_torch.models import create_model
+from fedml_tpu_torch.ops import build, reset_launch_counts
+from fedml_tpu_torch.ops.aggregate import (fold, fold_plain, weighted_mean_flat,
+                                           weighted_mean_flat_plain, wsum)
+from fedml_tpu_torch.ops.groupnorm import (gn_backward, gn_backward_plain,
+                                           gn_forward, gn_forward_plain)
+from fedml_tpu_torch.parallel.engine import MeshFedAvgEngine
+from fedml_tpu_torch.utils.config import FedConfig
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
+F32_FLOPS_PER_S = 67e12        # H100 SXM float32 rate outside the tensor cores
+GN_STAGES = ((32, 32, 32, 64), (32, 16, 16, 128), (32, 8, 8, 256),
+             (32, 4, 4, 512))
+GN_LAYERS_PER_STAGE = 5        # 20 GroupNorm layers, five at each stage shape
+GROUPS, FLAX_EPS = 2, 1e-6
+N_PARAMS = 11_173_962          # ResNet-18-GN at num_filters=64, 10 classes
+BATCH, SAMPLES, BATCHES = 32, 390, 13
+MAIN_CLIENTS, MAIN_CHUNK, MAIN_ROUNDS = 8, 2, 3
+# the TPU kernel each port kernel replaces: (the function that reaches
+# pl.pallas_call, file:line; that function and its kernel body)
+TPU_KERNELS = {
+    "gn_forward": ("fedml_tpu/ops/groupnorm.py:201", "_pallas_fwd -> _fwd_kernel"),
+    "gn_backward": ("fedml_tpu/ops/groupnorm.py:230", "_pallas_dx -> _bwd_kernel"),
+    "wsum": ("fedml_tpu/ops/aggregate.py:100", "_wmean_flat -> _wmean_kernel"),
+}
+STILL_TO_PORT = [
+    {"replaces": "fedml_tpu/ops/aggregate.py:151",
+     "function": "robust_weighted_mean_pallas -> _sqnorm_kernel",
+     "status": "slice 2"},
+    {"replaces": "fedml_tpu/ops/aggregate.py:151",
+     "function": "robust_weighted_mean_pallas -> _clip_agg_kernel",
+     "status": "slice 2"},
+]
+
+
+def cuda_ms(fn, reps: int = 20, trials: int = 7) -> float:
+    """Device time of one call: the median over `trials` of the mean time
+    of `reps` back-to-back calls between two CUDA events, after a warm-up.
+    A spin kernel ahead of the first event holds the card until the host
+    has queued all `reps` calls, so host overhead between launches is not
+    counted."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(50_000_000)          # ~30 ms of spinning
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def host_ms(fn, reps: int = 50) -> float:
+    """Wall time of one call on the host, the card waited for at the end:
+    where it exceeds cuda_ms, launching, not the card, sets the pace."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
+                rtol: float, atol_of_max: float) -> float:
+    """|got - want| <= rtol * |want| + atol_of_max * max|want|, elementwise;
+    returns the max abs error."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    limit = rtol * want.abs() + atol_of_max * float(want.abs().max())
+    bad = int((err > limit).sum())
+    if bad or not torch.isfinite(got).all():
+        raise AssertionError(
+            f"{name}: {bad} elements outside rtol {rtol} + {atol_of_max} x "
+            f"max|want| (max abs err {float(err.max()):.3e})")
+    return float(err.max())
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    path = build.build()
+    build.library()
+    print(f"[build] {path.relative_to(build.PACKAGE_DIR.parent)} ready in "
+          f"{time.perf_counter() - t0:.1f} s (sm_90a, nvcc)")
+
+
+def phase_gn(gen: torch.Generator) -> tuple[dict, dict]:
+    """GN forward and backward at the four stage shapes in bf16.
+    Tolerance: y and dx within one bf16 ulp of the plain version
+    (rtol 2^-7) plus 2^-10 of the largest |value| (the statistics' f32 sums
+    run in another order and can move a rounding); mean, rstd, dgamma and
+    dbeta within rtol 1e-4 + 1e-5 x max (f32 sums of up to 32K terms)."""
+    fwd = {"shapes": []}
+    bwd = {"shapes": []}
+    for shape in GN_STAGES:
+        N, H, W, C = shape
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        gamma = 1 + 0.1 * torch.randn(C, generator=gen, device="cuda")
+        beta = 0.1 * torch.randn(C, generator=gen, device="cuda")
+
+        y, mean, rstd = gn_forward(x, gamma, beta, GROUPS, FLAX_EPS)
+        yp, meanp, rstdp = gn_forward_plain(x, gamma, beta, GROUPS, FLAX_EPS)
+        err_f = check_close(f"gn_fwd y {shape}", y, yp, 2 ** -7, 2 ** -10)
+        check_close(f"gn_fwd mean {shape}", mean, meanp, 1e-4, 1e-5)
+        check_close(f"gn_fwd rstd {shape}", rstd, rstdp, 1e-4, 1e-5)
+        dx, dg, db = gn_backward(x, dy, gamma, meanp, rstdp, GROUPS)
+        dxp, dgp, dbp = gn_backward_plain(x, dy, gamma, meanp, rstdp, GROUPS)
+        err_b = check_close(f"gn_bwd dx {shape}", dx, dxp, 2 ** -7, 2 ** -10)
+        check_close(f"gn_bwd dgamma {shape}", dg, dgp, 1e-4, 1e-5)
+        check_close(f"gn_bwd dbeta {shape}", db, dbp, 1e-4, 1e-5)
+        # the f32 instantiations (eval and f32 training run them): f32
+        # outputs, so rtol 1e-5 + 1e-6 x max
+        x32, dy32 = x.float(), dy.float()
+        y32, m32, r32 = gn_forward(x32, gamma, beta, GROUPS, FLAX_EPS)
+        check_close(f"gn_fwd f32 y {shape}", y32,
+                    gn_forward_plain(x32, gamma, beta, GROUPS, FLAX_EPS)[0],
+                    1e-5, 1e-6)
+        for a, b, what in zip(gn_backward(x32, dy32, gamma, m32, r32, GROUPS),
+                              gn_backward_plain(x32, dy32, gamma, m32, r32,
+                                                GROUPS),
+                              ("dx", "dgamma", "dbeta")):
+            check_close(f"gn_bwd f32 {what} {shape}", a, b, 1e-5, 1e-6)
+
+        # library yardsticks on the same values, in the NCHW contiguous
+        # layout PyTorch's own GroupNorm kernels require
+        x4 = x.permute(0, 3, 1, 2).contiguous()
+        dy4 = dy.permute(0, 3, 1, 2).contiguous()
+        g16, b16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+        _, lmean, lrstd = torch.ops.aten.native_group_norm(
+            x4, g16, b16, N, C, H * W, GROUPS, FLAX_EPS)
+        elems = x.numel()
+        stats_bytes = 2 * N * GROUPS * 4
+        f_bytes = 2 * elems * 2 + 2 * C * 4 + stats_bytes
+        f_flops = 8 * elems             # two sums, a square, normalise, affine
+        b_bytes = 3 * elems * 2 + C * 4 + stats_bytes + 2 * C * 4
+        b_flops = 12 * elems
+        fwd["shapes"].append(dict(
+            shape=list(shape), max_abs_err=err_f,
+            ms=cuda_ms(lambda: gn_forward(x, gamma, beta, GROUPS, FLAX_EPS)),
+            host_ms=host_ms(lambda: gn_forward(x, gamma, beta, GROUPS,
+                                               FLAX_EPS)),
+            plain_ms=cuda_ms(lambda: gn_forward_plain(x, gamma, beta, GROUPS,
+                                                      FLAX_EPS)),
+            library_ms=cuda_ms(lambda: F.group_norm(x4, GROUPS, g16, b16,
+                                                    FLAX_EPS)),
+            bound=bound_ms(f_bytes, f_flops)))
+        bwd["shapes"].append(dict(
+            shape=list(shape), max_abs_err=err_b,
+            ms=cuda_ms(lambda: gn_backward(x, dy, gamma, meanp, rstdp, GROUPS)),
+            host_ms=host_ms(lambda: gn_backward(x, dy, gamma, meanp, rstdp,
+                                                GROUPS)),
+            plain_ms=cuda_ms(lambda: gn_backward_plain(x, dy, gamma, meanp,
+                                                       rstdp, GROUPS)),
+            library_ms=cuda_ms(lambda: torch.ops.aten.native_group_norm_backward(
+                dy4, x4, lmean, lrstd, g16, N, C, H * W, GROUPS,
+                [True, True, True])),
+            bound=bound_ms(b_bytes, b_flops)))
+    for name, rec in (("gn_forward", fwd), ("gn_backward", bwd)):
+        for s in rec["shapes"]:
+            print(f"[kernel] {name} {s['shape']} bf16 G={GROUPS}: max abs err "
+                  f"{s['max_abs_err']:.3e}; {s['ms'] * 1e3:.1f} us on the card "
+                  f"({s['host_ms'] * 1e3:.1f} us a call on the host), plain "
+                  f"{s['plain_ms'] * 1e3:.1f} us, library "
+                  f"{s['library_ms'] * 1e3:.1f} us, bound "
+                  f"{s['bound'][0] * 1e3:.2f} us ({s['bound'][1]})")
+    return fwd, bwd
+
+
+def phase_fold(gen: torch.Generator) -> dict:
+    """The weighted fold at the main path's chunk: a [2, P] bf16 lane
+    matrix into an f32 accumulator; then the finalize form on [8, P] f32.
+    Tolerance: 1e-6 relative to |acc| + sum_k |w_k v_k| per element (f32
+    sums of k + 1 terms in another order)."""
+    P = N_PARAMS + (-N_PARAMS) % 512
+    V = torch.randn(MAIN_CHUNK, P, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.tensor([390.0, 390.0], device="cuda")
+    acc0 = torch.randn(P, generator=gen, device="cuda")
+    acc, accp = acc0.clone(), acc0.clone()
+    fold(acc, V, w)
+    fold_plain(accp, V, w)
+    scale = acc0.abs() + (w[:, None] * V.float()).abs().sum(0)
+    err = float((acc - accp).abs().max())
+    if not bool(((acc - accp).abs() <= 1e-6 * scale).all()):
+        raise AssertionError(f"fold: max abs err {err:.3e} beyond 1e-6 x scale")
+    V8 = torch.randn(8, P, generator=gen, device="cuda")
+    w8 = torch.rand(8, generator=gen, device="cuda") * 400
+    fin, finp = weighted_mean_flat(V8, w8), weighted_mean_flat_plain(V8, w8)
+    fin_scale = (w8[:, None] * V8).abs().sum(0) / w8.sum()
+    fin_err = float((fin - finp).abs().max())
+    if not bool(((fin - finp).abs() <= 1e-6 * fin_scale + 1e-12).all()):
+        raise AssertionError(f"finalize: max abs err {fin_err:.3e}")
+
+    rec = dict(max_abs_err=err,
+               ms=cuda_ms(lambda: wsum(acc, V, w, finalize=False)),
+               host_ms=host_ms(lambda: wsum(acc, V, w, finalize=False)),
+               plain_ms=cuda_ms(lambda: fold_plain(acc, V, w)),
+               library_ms=cuda_ms(lambda: w @ V.float()),
+               bound=bound_ms(MAIN_CHUNK * P * 2 + 2 * P * 4 + MAIN_CHUNK * 4,
+                              2 * MAIN_CHUNK * P),
+               finalize=dict(
+                   shape=[8, P], dtype="float32", max_abs_err=fin_err,
+                   ms=cuda_ms(lambda: weighted_mean_flat(V8, w8)),
+                   plain_ms=cuda_ms(lambda: weighted_mean_flat_plain(V8, w8)),
+                   library_ms=cuda_ms(lambda: (w8 @ V8) / w8.sum()),
+                   bound_ms=bound_ms(8 * P * 4 + P * 4 + 8 * 4, 2 * 8 * P)[0]))
+    f = rec["finalize"]
+    print(f"[kernel] wsum fold [{MAIN_CHUNK}, {P}] bf16 -> f32 acc: max abs err "
+          f"{err:.3e}; {rec['ms'] * 1e3:.1f} us on the card "
+          f"({rec['host_ms'] * 1e3:.1f} us a call on the host), plain "
+          f"{rec['plain_ms'] * 1e3:.1f} us, library (w @ V.float()) "
+          f"{rec['library_ms'] * 1e3:.1f} us, bound {rec['bound'][0] * 1e3:.1f} us "
+          f"({rec['bound'][1]})")
+    print(f"[kernel] wsum finalize [8, {P}] f32: max abs err {fin_err:.3e}; "
+          f"{f['ms'] * 1e3:.1f} us, plain {f['plain_ms'] * 1e3:.1f} us, library "
+          f"{f['library_ms'] * 1e3:.1f} us, bound {f['bound_ms'] * 1e3:.1f} us")
+    return rec
+
+
+def synthetic_data(n_clients: int, per_client: int, seed: int) -> FederatedData:
+    """CIFAR-10-shaped clients made as bench.py makes them: uniform images,
+    uniform labels, equal shards of `per_client` samples."""
+    rs = np.random.RandomState(seed)
+    n = n_clients * per_client
+    x = rs.rand(n, 32, 32, 3).astype(np.float32)
+    y = rs.randint(0, 10, n).astype(np.int64)
+    idx = {i: np.arange(i * per_client, (i + 1) * per_client)
+           for i in range(n_clients)}
+    ev = build_eval_shard(x[:BATCH], y[:BATCH], BATCH)
+    return FederatedData(
+        train_data_num=n, test_data_num=n, train_global=ev, test_global=ev,
+        client_shards=build_client_shards(x, y, idx, BATCH),
+        client_num_samples=np.full(n_clients, per_client, np.float32),
+        test_client_shards=None, class_num=10, synthetic=True)
+
+
+def phase_f32_round() -> None:
+    """One f32 FedAvg round on the card (kernels) and on the CPU (plain
+    versions) from the same weights and data, TF32 off.  Tolerance, on the
+    aggregated update (new - old): the L2 distance between the two devices'
+    updates is at most 1e-3 of the update's norm over the whole model, and
+    at most 1e-2 within any leaf (f32 sums in another order, and other
+    convolution algorithms, through two SGD steps of 20 conv and GroupNorm
+    layers: a few 1e-5 is expected; a wrong kernel moves it to O(1))."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("[f32 round] torch.backends.cudnn.allow_tf32 = False, "
+          "torch.backends.cuda.matmul.allow_tf32 = False")
+    data = synthetic_data(2, 2 * BATCH, seed=1)
+    cfg = FedConfig(model="resnet18_gn", dataset="cifar10",
+                    client_num_in_total=2, client_num_per_round=2, epochs=1,
+                    batch_size=BATCH, lr=0.1)
+    trainer = ClientTrainer(create_model("resnet18_gn", 10), lr=0.1)
+    out = {}
+    for device in ("cuda", "cpu"):
+        engine = FedAvgEngine(trainer, data, cfg, device=device)
+        v0 = engine.init_variables()
+        t0 = time.perf_counter()
+        v1 = engine.run(variables=dict(v0), rounds=1)
+        out[device] = (v0, v1, engine.metrics_history[-1],
+                       time.perf_counter() - t0)
+    (g0, g1, gm, gt), (c0, c1, cm, ct) = out["cuda"], out["cpu"]
+    per_leaf, diff_sq, norm_sq = {}, 0.0, 0.0
+    for name in c1:
+        assert torch.equal(g0[name].cpu(), c0[name]), f"{name}: inits differ"
+        assert torch.isfinite(g1[name]).all(), f"{name}: non-finite on card"
+        dg = g1[name].cpu().double() - g0[name].cpu().double()
+        dc = c1[name].double() - c0[name].double()
+        d, n = float((dg - dc).norm()) ** 2, float(dc.norm()) ** 2
+        per_leaf[name] = math.sqrt(d / max(n, 1e-30))
+        diff_sq, norm_sq = diff_sq + d, norm_sq + n
+    whole = math.sqrt(diff_sq / norm_sq)
+    worst = sorted(per_leaf.items(), key=lambda kv: -kv[1])[:3]
+    print(f"[f32 round] 2 clients x 2 batches of {BATCH}, full width: card "
+          f"{gt:.2f} s, CPU {ct:.2f} s; update distance {whole:.3e} of its "
+          f"norm (limit 1e-3), worst leaves "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst) + " (limit 1e-2); "
+          f"train_loss card {gm['train_loss']:.6f} CPU {cm['train_loss']:.6f}")
+    if whole > 1e-3 or worst[0][1] > 1e-2:
+        raise AssertionError("f32 round: the card's update differs from the "
+                             "CPU's beyond the limits above")
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def phase_main_path() -> dict:
+    """The bench's main path on the port; returns the launch counts."""
+    data = synthetic_data(MAIN_CLIENTS, SAMPLES, seed=0)
+    cfg = FedConfig(model="resnet18_gn", dataset="cifar10",
+                    client_num_in_total=MAIN_CLIENTS,
+                    client_num_per_round=MAIN_CLIENTS, epochs=1,
+                    batch_size=BATCH, lr=0.1, frequency_of_the_test=10_000)
+    trainer = ClientTrainer(create_model("resnet18_gn", 10), lr=cfg.lr,
+                            train_dtype=torch.bfloat16)
+    engine = MeshFedAvgEngine(trainer, data, cfg, chunk=MAIN_CHUNK,
+                              local_dtype=torch.bfloat16)
+    variables = engine.init_variables()
+    v0 = {k: v.clone() for k, v in variables.items()}
+    server_state = engine.server_init(variables)
+    cohort, weights = engine.stream_cohort(0)
+    assert cohort["x"].shape == (MAIN_CLIENTS, BATCHES, BATCH, 32, 32, 3)
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    round_s, losses = [], []
+    for _ in range(MAIN_ROUNDS):
+        t0 = time.perf_counter()
+        variables, server_state, m = engine.round_fn_streaming(
+            variables, server_state, cohort, weights)
+        losses.append(float(m["train_loss"]))      # waits for the round
+        round_s.append(time.perf_counter() - t0)
+    stats = engine.evaluate(variables)
+    torch.cuda.synchronize()
+    counts = {"gn_forward": gn_forward.launches,
+              "gn_backward": gn_backward.launches, "wsum": wsum.launches}
+
+    steps = MAIN_ROUNDS * MAIN_CLIENTS * BATCHES
+    eval_batches = 2                  # the train and test eval shards
+    expected = {"gn_forward": 20 * (steps + eval_batches),
+                "gn_backward": 20 * steps,
+                "wsum": MAIN_ROUNDS * (MAIN_CLIENTS // MAIN_CHUNK)}
+    if counts != expected:
+        raise AssertionError(f"launch counts {counts} != expected {expected}")
+    if not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    changed = sum(int(not torch.equal(variables[k], v0[k])) for k in v0)
+    if changed != len(v0) or any(v.dtype != torch.float32
+                                 for v in variables.values()):
+        raise AssertionError(f"{len(v0) - changed} of {len(v0)} global leaves "
+                             "unchanged, or the global model left f32")
+    steady = statistics.mean(round_s[1:])
+    print(f"[main path] MeshFedAvgEngine(chunk={MAIN_CHUNK}, local_dtype=bf16), "
+          f"{MAIN_CLIENTS} clients x {BATCHES} batches of {BATCH}, "
+          f"ResNet-18-GN full width ({N_PARAMS} params)")
+    print(f"[main path] train_loss per round {losses}; eval {stats}")
+    print(f"[main path] s/round {round_s} -> {steady:.4f} s/round over rounds "
+          f"2-{MAIN_ROUNDS} ({card_line()})")
+    print(f"[main path] launches {counts} == expected")
+    profile_round(engine, variables, server_state, cohort, weights, steady)
+    return counts
+
+
+def profile_round(engine, variables, server_state, cohort, weights,
+                  steady_s: float) -> None:
+    """One more main-path round under torch.profiler: the card's busy time
+    (kernels, copies and fills, summed) against the unprofiled round's wall
+    time, and where that device time goes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.round_fn_streaming(variables, server_state, cohort, weights)
+        torch.cuda.synchronize()
+    # device-side events only (kernels, copies, fills): the host ops that
+    # launched them carry the same time again
+    rows = [(e.key, e.self_device_time_total / 1e6, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(r[1] for r in rows)
+    if not rows:
+        print("[profile] the profiler saw no device time on this card")
+        return
+    kinds = {"port kernels (fedml)": ("fedml",),
+             "convolutions (cuDNN)": ("conv", "cudnn", "xmma", "gemm", "wgrad",
+                                      "dgrad", "fprop", "cutlass")}
+    share = {k: 0.0 for k in (*kinds, "other (elementwise, reductions, copies)")}
+    for name, s, _ in rows:
+        kind = next((k for k, keys in kinds.items()
+                     if any(t in name.lower() for t in keys)),
+                    "other (elementwise, reductions, copies)")
+        share[kind] += s
+    print(f"[profile] one main-path round: device busy {busy:.4f} s of the "
+          f"unprofiled {steady_s:.4f} s/round ({busy / steady_s:.1%} busy, "
+          f"{1 - busy / steady_s:.1%} idle)")
+    for k, s in share.items():
+        print(f"[profile]   {k}: {s:.4f} s ({s / busy:.1%} of device time)")
+    for name, s, n in sorted(rows, key=lambda r: -r[1])[:8]:
+        print(f"[profile]   {s * 1e3:9.2f} ms {n:6d}x {name[:110]}")
+
+
+def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict,
+                counts: dict) -> dict:
+    """One entry per ported kernel.  GroupNorm's numbers are per training
+    step: its 20 launches, five at each stage shape, summed."""
+    entries = []
+    for name, rec in (("gn_forward", gn_fwd), ("gn_backward", gn_bwd)):
+        sh = rec["shapes"]
+        per_step = lambda key: GN_LAYERS_PER_STAGE * sum(s[key] for s in sh)
+        entries.append(dict(
+            name=name, route="cuda", source="fedml_tpu_torch/csrc/groupnorm.cu",
+            replaces=TPU_KERNELS[name][0], function=TPU_KERNELS[name][1],
+            status="ported",
+            launches=counts[name],
+            max_abs_err=max(s["max_abs_err"] for s in sh),
+            ms=per_step("ms"), host_ms=per_step("host_ms"),
+            plain_ms=per_step("plain_ms"),
+            bound_ms=GN_LAYERS_PER_STAGE * sum(s["bound"][0] for s in sh),
+            bound_by="bytes" if all(s["bound"][1] == "bytes" for s in sh)
+            else "operations",
+            library_ms=per_step("library_ms"),
+            unit="one training step: 20 launches, 5 at each stage shape",
+            shapes=[{k: v for k, v in s.items()} for s in sh]))
+    entries.append(dict(
+        name="wsum", route="cuda", source="fedml_tpu_torch/csrc/aggregate.cu",
+        replaces=TPU_KERNELS["wsum"][0], function=TPU_KERNELS["wsum"][1],
+        status="ported",
+        launches=counts["wsum"], max_abs_err=fold_rec["max_abs_err"],
+        ms=fold_rec["ms"], host_ms=fold_rec["host_ms"],
+        plain_ms=fold_rec["plain_ms"],
+        bound_ms=fold_rec["bound"][0], bound_by=fold_rec["bound"][1],
+        library_ms=fold_rec["library_ms"],
+        unit=f"one chunk fold: [{MAIN_CHUNK}, P] bf16 into f32 acc",
+        finalize=fold_rec["finalize"]))
+    return {"kernels": entries, "still_to_port": STILL_TO_PORT}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    card = card_line()
+    print(card)
+    phase_build()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    gn_fwd, gn_bwd = phase_gn(gen)
+    fold_rec = phase_fold(gen)
+    phase_f32_round()
+    counts = phase_main_path()
+    print(json.dumps(kernel_line(gn_fwd, gn_bwd, fold_rec, counts)))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,123 @@
+"""Federated dataset container (port of fedml_tpu/data/federated.py).
+
+All client shards live as ONE stacked, padded numpy array set on the host
+
+    x    [C, B, bs, ...]    C = clients, B = batches/client, bs = batch size
+    y    [C, B, bs, ...]
+    mask [C, B, bs]         1.0 for real samples, 0.0 for padding
+
+so unequal client sizes become padding and masking.  The host side is the
+JAX package's numpy code, bitwise; tensors are made on the device the
+caller names.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from fedml_tpu_torch.utils.device import to_device
+
+
+def pad_to_batches(x: np.ndarray, y: np.ndarray, batch_size: int,
+                   n_batches: Optional[int] = None):
+    """Pad (x, y) up to n_batches full batches; returns (x, y, mask) with
+    leading shape [B, bs]."""
+    n = x.shape[0]
+    need = n_batches if n_batches is not None else max(1, -(-n // batch_size))
+    total = need * batch_size
+    pad = total - n
+    mask = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
+    if pad > 0:
+        x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+        y = np.concatenate([y, np.zeros((pad,) + y.shape[1:], y.dtype)])
+    rs = lambda a: a.reshape((need, batch_size) + a.shape[1:])
+    return rs(x), rs(y), mask.reshape(need, batch_size)
+
+
+def build_client_shards(x: np.ndarray, y: np.ndarray,
+                        net_dataidx_map: dict[int, np.ndarray],
+                        batch_size: int,
+                        max_batches: Optional[int] = None,
+                        shuffle_seed: Optional[int] = None) -> dict[str, np.ndarray]:
+    """Stack every client's padded shard into one array set [C, B, bs, ...].
+
+    B = max batches over clients (optionally capped at `max_batches`;
+    clients with more data are truncated to B*bs samples).  One [C, B*bs]
+    index matrix and one gather; the per-client rng draws happen in client
+    order, so the output is the JAX package's bit for bit for any
+    shuffle_seed."""
+    n_clients = len(net_dataidx_map)
+    sizes = np.fromiter((len(net_dataidx_map[i]) for i in range(n_clients)),
+                        np.int64, n_clients)
+    B = max(1, int(np.max(-(-sizes // batch_size))))
+    if max_batches is not None:
+        B = min(B, max_batches)
+    cap = B * batch_size
+    keep = np.minimum(sizes, cap)
+    rng = (np.random.RandomState(shuffle_seed)
+           if shuffle_seed is not None else None)
+    idx = np.zeros((n_clients, cap), np.int64)
+    for i in range(n_clients):          # cheap: index bookkeeping only
+        ci = np.asarray(net_dataidx_map[i])
+        if rng is not None:
+            ci = ci[rng.permutation(len(ci))]
+        idx[i, :keep[i]] = ci[:keep[i]]
+    mask = (np.arange(cap)[None, :] < keep[:, None])
+    gx = x[idx.reshape(-1)].reshape((n_clients, cap) + x.shape[1:])
+    gy = y[idx.reshape(-1)].reshape((n_clients, cap) + y.shape[1:])
+    # padding rows pointed at sample 0 for the gather; zero them to match
+    # pad_to_batches' zero padding
+    gx[~mask] = 0
+    gy[~mask] = 0
+    rs = lambda a: a.reshape((n_clients, B, batch_size) + a.shape[2:])
+    return {"x": rs(gx), "y": rs(gy),
+            "mask": rs(mask.astype(np.float32))}
+
+
+def build_eval_shard(x: np.ndarray, y: np.ndarray, batch_size: int) -> dict[str, np.ndarray]:
+    """Single padded shard [B, bs, ...] for global eval."""
+    cx, cy, cm = pad_to_batches(x, y, batch_size)
+    return {"x": cx, "y": cy, "mask": cm}
+
+
+@dataclasses.dataclass
+class FederatedData:
+    """All state the algorithms need; mirrors the reference 8-tuple."""
+    train_data_num: int
+    test_data_num: int
+    train_global: dict[str, np.ndarray]      # padded eval shard
+    test_global: dict[str, np.ndarray]       # padded eval shard
+    client_shards: dict[str, np.ndarray]     # stacked [C, B, bs, ...]
+    client_num_samples: np.ndarray           # [C] true sample counts
+    test_client_shards: Optional[dict[str, np.ndarray]]  # [C, Bt, bs, ...] or None
+    class_num: int
+    synthetic: bool = False   # True when a stand-in replaced missing files
+    _device_cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def client_num(self) -> int:
+        return int(self.client_shards["mask"].shape[0])
+
+    def device_shards(self, device) -> tuple[dict, torch.Tensor]:
+        """Client shards + weights as tensors on `device`, uploaded once per
+        device and cached."""
+        key = str(torch.device(device))
+        if key not in self._device_cache:
+            self._device_cache[key] = (
+                to_device(self.client_shards, device),
+                torch.as_tensor(np.asarray(self.client_num_samples,
+                                           np.float32)).to(device))
+        return self._device_cache[key]
+
+    def cohort(self, client_indices: np.ndarray,
+               device) -> tuple[dict, torch.Tensor]:
+        """A round's cohort: ({x, y, mask} [K, B, bs, ...], weights [K]),
+        gathered on `device` from the cached device stack."""
+        shards, weights = self.device_shards(device)
+        idx = torch.as_tensor(np.asarray(client_indices, np.int64),
+                              device=weights.device)
+        return ({k: v.index_select(0, idx) for k, v in shards.items()},
+                weights.index_select(0, idx))

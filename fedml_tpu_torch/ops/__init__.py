@@ -1,0 +1,19 @@
+"""The port's hand-written CUDA kernels, each beside its plain PyTorch
+version and a launch counter."""
+from fedml_tpu_torch.ops.aggregate import (fold, weighted_mean,
+                                           weighted_mean_flat, wsum)
+from fedml_tpu_torch.ops.groupnorm import (GroupNorm, gn_backward, gn_forward,
+                                           group_norm)
+
+# every kernel wrapper whose `launches` counts its kernel's launches
+KERNEL_WRAPPERS = (gn_forward, gn_backward, wsum)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+
+
+__all__ = ["GroupNorm", "group_norm", "gn_forward", "gn_backward", "fold",
+           "weighted_mean", "weighted_mean_flat", "wsum", "KERNEL_WRAPPERS",
+           "reset_launch_counts"]

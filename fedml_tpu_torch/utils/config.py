@@ -1,0 +1,84 @@
+"""Unified run configuration (a copy of fedml_tpu/utils/config.py, so that
+configurations read the same in both packages).
+
+The reference scatters ~20 argparse flags per entry point plus three sidecar
+files (gpu_mapping.yaml, grpc_ipconfig.csv, trpc_master_config.csv —
+SURVEY.md §5).  Here one dataclass covers the canonical flag set
+(main_fedavg.py:46-135) and is consumed by every algorithm and entry point;
+`from_args` adapts an argparse namespace.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass
+class FedConfig:
+    # task
+    model: str = "lr"
+    dataset: str = "mnist"
+    data_dir: Optional[str] = None
+    partition_method: str = "hetero"
+    partition_alpha: float = 0.5
+    # federation
+    client_num_in_total: int = 10
+    client_num_per_round: int = 10
+    comm_round: int = 10
+    epochs: int = 1                      # local epochs E
+    batch_size: int = 10
+    # client optimizer
+    client_optimizer: str = "sgd"
+    lr: float = 0.03
+    momentum: float = 0.0
+    wd: float = 0.0
+    # per-local-round LR schedule (reference fedseg LR_Scheduler parity):
+    # None | "poly" | "cos" | "step"; step decays 0.1x every lr_step epochs
+    lr_scheduler: Optional[str] = None
+    lr_step: int = 0
+    warmup_epochs: int = 0
+    # loss override (None = dataset-derived) and segmentation void label
+    loss_type: Optional[str] = None
+    train_ignore_id: Optional[int] = None
+    # server optimizer (FedOpt)
+    server_optimizer: str = "sgd"
+    server_lr: float = 1.0
+    server_momentum: float = 0.0
+    # fedprox
+    prox_mu: float = 0.0
+    # unroll factor of the JAX package's local batch scan; the port runs
+    # its batches as a Python loop and does not read it
+    batch_unroll: int = 1
+    # robust aggregation
+    norm_bound: float = 5.0
+    stddev: float = 0.0
+    # eval cadence
+    frequency_of_the_test: int = 5
+    # observability: flight-recorder dump when one round overruns this
+    # many seconds (needs --obs_dir; None = no watchdog — fedml_tpu/obs)
+    round_deadline_s: Optional[float] = None
+    # auto per-client test eval during evaluate() (the reference's
+    # _local_test_on_all_clients); opt out to skip its upload + cost
+    local_test_eval: bool = True
+    # compute precision: "float32" | "bfloat16" (masters and aggregation
+    # stay f32)
+    train_dtype: str = "float32"
+    # training-time image augmentation (crop+flip+cutout inside the jitted
+    # train step, data/augment.py; reference cifar10/data_loader.py:57-98)
+    augment: bool = False
+    # misc
+    seed: int = 0
+    max_batches_per_client: Optional[int] = None
+    synthetic_scale: float = 1.0
+    ci: bool = False
+
+    @classmethod
+    def from_args(cls, args) -> "FedConfig":
+        """None-valued namespace entries fall back to the dataclass
+        default — the CLI uses default=None as an "unset" sentinel for
+        flags (server_*) whose effective default depends on the
+        algorithm; a command line cannot express an explicit None."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        defaults = {f.name: f.default for f in dataclasses.fields(cls)}
+        return cls(**{k: (defaults[k] if v is None else v)
+                      for k, v in vars(args).items() if k in known})
