@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FedAvg main path on one CUDA card, and hold
-every hand-written kernel of that path against its plain PyTorch version.
+"""Drive the PyTorch port's FedAvg and robust-aggregation paths on one
+CUDA card, and hold every hand-written kernel against its plain PyTorch
+version.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -9,9 +10,10 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
 1. the card: name and power limit, as nvidia-smi prints them;
 2. the build: the CUDA kernels under fedml_tpu_torch/csrc are compiled
    for sm_90a into fedml_tpu_torch/_build (or the build is reused);
-3. each kernel against its plain version at the main path's shapes, with
+3. each kernel against its plain version at the main paths' shapes, with
    its time, the plain version's time, one library call's time as a
-   yardstick, and its bound from the bytes it must move;
+   yardstick, and its bound from the bytes it must move; the squared-
+   distance kernel must give bitwise the same norms on a second launch;
 4. one f32 FedAvg round (2 clients x 2 batches of 32, full ResNet-18-GN
    width, TF32 off) on the card and on the CPU from the same weights and
    data: the aggregated models must agree;
@@ -21,7 +23,19 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    counters, zeroed just before, must equal the counts the shapes give;
    then one more round under torch.profiler: the card's busy share and
    where its time goes;
-6. one JSON line listing every TPU kernel of the JAX package with its
+6. one f32 norm-clipped FedAvgRobustEngine round (3 clients x 2 batches
+   of 32, full width, TF32 off) on the card and on the CPU, with the bound
+   set so that some clients are clipped and some are not;
+7. MeshRobustEngine's order-statistic defenses (krum, multi-krum, median,
+   trimmed mean): one f32 round each, 4 clients x 1 batch of 32, on the
+   card and on the CPU;
+8. the robust main path: MeshRobustEngine(norm_clip, chunk=2, bf16 local
+   masters) on phase 5's clients, 3 rounds then one evaluation, with
+   exact launch counts (the squared-distance and clipped-fold kernels,
+   no weighted fold);
+9. one bf16 round each of MeshFedOptEngine, MeshFedProxEngine and
+   MeshFedNovaEngine at 4 clients, full width, with their launch counts;
+10. one JSON line listing every TPU kernel of the JAX package with its
    port's numbers, then the last line {"ok": true, "device": {...}}.
 
 It needs one card; it imports nothing of JAX or of fedml_tpu.
@@ -40,16 +54,26 @@ import torch
 import torch.nn.functional as F
 
 from fedml_tpu_torch.algorithms.fedavg import FedAvgEngine
+from fedml_tpu_torch.algorithms.fedavg_robust import FedAvgRobustEngine
+from fedml_tpu_torch.core import robust as robust_ops
+from fedml_tpu_torch.core.pytree import clip_scale
 from fedml_tpu_torch.core.trainer import ClientTrainer
 from fedml_tpu_torch.data.federated import (FederatedData, build_client_shards,
                                             build_eval_shard)
 from fedml_tpu_torch.models import create_model
-from fedml_tpu_torch.ops import build, reset_launch_counts
-from fedml_tpu_torch.ops.aggregate import (fold, fold_plain, weighted_mean_flat,
+from fedml_tpu_torch.ops import build, launch_counts, reset_launch_counts
+from fedml_tpu_torch.ops.aggregate import (clip_agg, clip_agg_plain, fold,
+                                           fold_plain, sqnorm, sqnorm_plain,
+                                           weighted_mean_flat,
                                            weighted_mean_flat_plain, wsum)
 from fedml_tpu_torch.ops.groupnorm import (gn_backward, gn_backward_plain,
                                            gn_forward, gn_forward_plain)
-from fedml_tpu_torch.parallel.engine import MeshFedAvgEngine
+from fedml_tpu_torch.parallel.engine import (MeshFedAvgEngine,
+                                             MeshFedNovaEngine,
+                                             MeshFedOptEngine,
+                                             MeshFedProxEngine,
+                                             MeshRobustEngine,
+                                             chunked_weighted_train)
 from fedml_tpu_torch.utils.config import FedConfig
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
@@ -59,23 +83,22 @@ GN_STAGES = ((32, 32, 32, 64), (32, 16, 16, 128), (32, 8, 8, 256),
 GN_LAYERS_PER_STAGE = 5        # 20 GroupNorm layers, five at each stage shape
 GROUPS, FLAX_EPS = 2, 1e-6
 N_PARAMS = 11_173_962          # ResNet-18-GN at num_filters=64, 10 classes
+P_PADDED = N_PARAMS + (-N_PARAMS) % 512
 BATCH, SAMPLES, BATCHES = 32, 390, 13
 MAIN_CLIENTS, MAIN_CHUNK, MAIN_ROUNDS = 8, 2, 3
-# the TPU kernel each port kernel replaces: (the function that reaches
-# pl.pallas_call, file:line; that function and its kernel body)
+SIDE_CLIENTS = 4               # phases 7 and 9
+# the TPU kernel each port kernel replaces: (the pl.pallas_call that
+# launches it, file:line; the function that reaches it and its kernel body)
 TPU_KERNELS = {
     "gn_forward": ("fedml_tpu/ops/groupnorm.py:201", "_pallas_fwd -> _fwd_kernel"),
     "gn_backward": ("fedml_tpu/ops/groupnorm.py:230", "_pallas_dx -> _bwd_kernel"),
     "wsum": ("fedml_tpu/ops/aggregate.py:100", "_wmean_flat -> _wmean_kernel"),
+    "sqnorm": ("fedml_tpu/ops/aggregate.py:165",
+               "robust_weighted_mean_pallas -> _sqnorm_kernel"),
+    "clip_agg": ("fedml_tpu/ops/aggregate.py:186",
+                 "robust_weighted_mean_pallas -> _clip_agg_kernel"),
 }
-STILL_TO_PORT = [
-    {"replaces": "fedml_tpu/ops/aggregate.py:151",
-     "function": "robust_weighted_mean_pallas -> _sqnorm_kernel",
-     "status": "slice 2"},
-    {"replaces": "fedml_tpu/ops/aggregate.py:151",
-     "function": "robust_weighted_mean_pallas -> _clip_agg_kernel",
-     "status": "slice 2"},
-]
+STILL_TO_PORT: list = []
 
 
 def cuda_ms(fn, reps: int = 20, trials: int = 7) -> float:
@@ -302,6 +325,29 @@ def synthetic_data(n_clients: int, per_client: int, seed: int) -> FederatedData:
         test_client_shards=None, class_num=10, synthetic=True)
 
 
+def update_distance(tag: str, g0: dict, g1: dict, c0: dict, c1: dict):
+    """The L2 distance between the card's update (g1 - g0) and the CPU's
+    (c1 - c0), relative to the CPU update's norm: (over the whole model,
+    the three worst leaves).  The inits must be equal, the card's result
+    finite."""
+    per_leaf, diff_sq, norm_sq = {}, 0.0, 0.0
+    for name in c1:
+        assert torch.equal(g0[name].cpu(), c0[name]), f"{tag} {name}: inits differ"
+        assert torch.isfinite(g1[name]).all(), f"{tag} {name}: non-finite on card"
+        dg = g1[name].cpu().double() - g0[name].cpu().double()
+        dc = c1[name].double() - c0[name].double()
+        d, n = float((dg - dc).norm()) ** 2, float(dc.norm()) ** 2
+        per_leaf[name] = math.sqrt(d / max(n, 1e-30))
+        diff_sq, norm_sq = diff_sq + d, norm_sq + n
+    worst = sorted(per_leaf.items(), key=lambda kv: -kv[1])[:3]
+    return math.sqrt(diff_sq / norm_sq), worst
+
+
+def f32_off() -> None:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def phase_f32_round() -> None:
     """One f32 FedAvg round on the card (kernels) and on the CPU (plain
     versions) from the same weights and data, TF32 off.  Tolerance, on the
@@ -310,8 +356,7 @@ def phase_f32_round() -> None:
     at most 1e-2 within any leaf (f32 sums in another order, and other
     convolution algorithms, through two SGD steps of 20 conv and GroupNorm
     layers: a few 1e-5 is expected; a wrong kernel moves it to O(1))."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    f32_off()
     print("[f32 round] torch.backends.cudnn.allow_tf32 = False, "
           "torch.backends.cuda.matmul.allow_tf32 = False")
     data = synthetic_data(2, 2 * BATCH, seed=1)
@@ -328,17 +373,7 @@ def phase_f32_round() -> None:
         out[device] = (v0, v1, engine.metrics_history[-1],
                        time.perf_counter() - t0)
     (g0, g1, gm, gt), (c0, c1, cm, ct) = out["cuda"], out["cpu"]
-    per_leaf, diff_sq, norm_sq = {}, 0.0, 0.0
-    for name in c1:
-        assert torch.equal(g0[name].cpu(), c0[name]), f"{name}: inits differ"
-        assert torch.isfinite(g1[name]).all(), f"{name}: non-finite on card"
-        dg = g1[name].cpu().double() - g0[name].cpu().double()
-        dc = c1[name].double() - c0[name].double()
-        d, n = float((dg - dc).norm()) ** 2, float(dc.norm()) ** 2
-        per_leaf[name] = math.sqrt(d / max(n, 1e-30))
-        diff_sq, norm_sq = diff_sq + d, norm_sq + n
-    whole = math.sqrt(diff_sq / norm_sq)
-    worst = sorted(per_leaf.items(), key=lambda kv: -kv[1])[:3]
+    whole, worst = update_distance("f32 round", g0, g1, c0, c1)
     print(f"[f32 round] 2 clients x 2 batches of {BATCH}, full width: card "
           f"{gt:.2f} s, CPU {ct:.2f} s; update distance {whole:.3e} of its "
           f"norm (limit 1e-3), worst leaves "
@@ -378,14 +413,14 @@ def phase_main_path() -> dict:
         round_s.append(time.perf_counter() - t0)
     stats = engine.evaluate(variables)
     torch.cuda.synchronize()
-    counts = {"gn_forward": gn_forward.launches,
-              "gn_backward": gn_backward.launches, "wsum": wsum.launches}
+    counts = launch_counts()
 
     steps = MAIN_ROUNDS * MAIN_CLIENTS * BATCHES
     eval_batches = 2                  # the train and test eval shards
     expected = {"gn_forward": 20 * (steps + eval_batches),
                 "gn_backward": 20 * steps,
-                "wsum": MAIN_ROUNDS * (MAIN_CLIENTS // MAIN_CHUNK)}
+                "wsum": MAIN_ROUNDS * (MAIN_CLIENTS // MAIN_CHUNK),
+                "sqnorm": 0, "clip_agg": 0}
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != expected {expected}")
     if not all(math.isfinite(l) for l in losses):
@@ -446,10 +481,322 @@ def profile_round(engine, variables, server_state, cohort, weights,
         print(f"[profile]   {s * 1e3:9.2f} ms {n:6d}x {name[:110]}")
 
 
-def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict,
-                counts: dict) -> dict:
+def terms_scale(V: torch.Tensor, g: torch.Tensor, cf: torch.Tensor, base,
+                acc0: torch.Tensor | None = None) -> torch.Tensor:
+    """|acc| + |base * g| + sum_k |cf_k (v_k - g)| per element: the scale
+    the clipped fold's f32 rounding is relative to."""
+    s = (cf[:, None].abs() * (V.float() - g.float()).abs()).sum(0) \
+        + abs(float(base)) * g.float().abs()
+    return s if acc0 is None else s + acc0.abs()
+
+
+def phase_robust_kernels(gen: torch.Generator) -> dict:
+    """The squared-distance and clipped-fold kernels at the slice's shapes:
+    a mesh chunk ([2, P] bf16 lanes, bf16 g, the accumulate form into an
+    f32 carry) and FedAvgRobustEngine's cohort ([8, P] f32, the in-place
+    form through an aliased buffer).  The clients sit near g, as trained
+    clients do.  Tolerance: norms within rtol 1e-5 (f32 sums in another
+    order); the fold within 1e-6 of the sum of |terms| per element.  Two
+    squared-distance launches on one input must agree bitwise."""
+    P = P_PADDED
+    recs = {"sqnorm": [], "clip_agg": []}
+    for k, dtype, where in ((MAIN_CHUNK, torch.bfloat16, "mesh chunk fold"),
+                            (8, torch.float32, "FedAvgRobustEngine")):
+        g = torch.randn(P, generator=gen, device="cuda").to(dtype)
+        V = (g.float() + 0.01 * torch.randn(k, P, generator=gen, device="cuda")
+             ).to(dtype)
+        sq = sqnorm(V, g)
+        if not torch.equal(sq, sqnorm(V, g)):
+            raise AssertionError("sqnorm: two launches on one input differ")
+        err_sq = check_close(f"sqnorm [{k}, P] {dtype}", sq, sqnorm_plain(V, g),
+                             1e-5, 0.0)
+        esz = V.element_size()
+        recs["sqnorm"].append(dict(
+            shape=[k, P], dtype=str(dtype).split(".")[-1], where=where,
+            max_abs_err=err_sq,
+            ms=cuda_ms(lambda: sqnorm(V, g)), host_ms=host_ms(lambda: sqnorm(V, g)),
+            plain_ms=cuda_ms(lambda: sqnorm_plain(V, g)),
+            library="torch.cdist(V.float(), g[None].float())",
+            library_ms=cuda_ms(lambda: torch.cdist(V.float(), g[None].float())),
+            bound=bound_ms((k + 1) * P * esz + 4 * k, 3 * k * P)))
+
+        w = torch.rand(k, generator=gen, device="cuda") * 400 + 1
+        s_clip = clip_scale(sq, float(sq.sqrt().median()))
+        D = V.float() - g.float()                  # the yardstick's input
+        if dtype == torch.bfloat16:                # accumulate, as the mesh
+            cf, base = (w * s_clip).contiguous(), w.sum()
+            acc0 = torch.randn(P, generator=gen, device="cuda")
+            acc, accp = acc0.clone(), acc0.clone()
+            clip_agg(acc, V, g, cf, base, accumulate=True)
+            clip_agg_plain(accp, V, g, cf, base, accumulate=True)
+            scale = terms_scale(V, g, cf, base, acc0)
+            got, want = acc, accp
+            call = lambda: clip_agg(acc, V, g, cf, base, accumulate=True)
+            plain = lambda: clip_agg_plain(accp, V, g, cf, base, accumulate=True)
+            library = lambda: torch.addmv(acc, D.t(), cf)
+            n_bytes, form = k * P * esz + P * esz + 2 * 4 * P, "accumulate"
+        else:                                      # in place into g
+            cf, base = (w / w.sum() * s_clip).contiguous(), 1.0
+            got, want = g.clone(), g.clone()
+            clip_agg(got, V, got, cf, base, accumulate=False)
+            clip_agg_plain(want, V, g, cf, base, accumulate=False)
+            scale = terms_scale(V, g, cf, base)
+            buf, bufp = g.clone(), g.clone()
+            call = lambda: clip_agg(buf, V, buf, cf, base, accumulate=False)
+            plain = lambda: clip_agg_plain(bufp, V, bufp, cf, base,
+                                           accumulate=False)
+            library = lambda: torch.addmv(g, D.t(), cf)
+            n_bytes, form = k * P * esz + P * esz + 4 * P, "in place"
+        err = float((got - want).abs().max())
+        if not bool(((got - want).abs() <= 1e-6 * scale + 1e-30).all()):
+            raise AssertionError(f"clip_agg {form} [{k}, P]: max abs err "
+                                 f"{err:.3e} beyond 1e-6 x sum|terms|")
+        recs["clip_agg"].append(dict(
+            shape=[k, P], dtype=str(dtype).split(".")[-1], where=where,
+            form=form, max_abs_err=err, ms=cuda_ms(call), host_ms=host_ms(call),
+            plain_ms=cuda_ms(plain), library="torch.addmv(acc, (V - g).T, cf)",
+            library_ms=cuda_ms(library),
+            bound=bound_ms(n_bytes, 3 * k * P + 2 * P)))
+        del D
+    for name, rs in recs.items():
+        for r in rs:
+            print(f"[kernel] {name} {r.get('form', '')} {r['shape']} {r['dtype']} "
+                  f"({r['where']}): max abs err {r['max_abs_err']:.3e}; "
+                  f"{r['ms'] * 1e3:.1f} us on the card ({r['host_ms'] * 1e3:.1f} "
+                  f"us a call on the host), plain {r['plain_ms'] * 1e3:.1f} us, "
+                  f"library ({r['library']}) {r['library_ms'] * 1e3:.1f} us, "
+                  f"bound {r['bound'][0] * 1e3:.1f} us ({r['bound'][1]})")
+    print("[kernel] sqnorm: two launches on one input gave bitwise equal norms")
+    return recs
+
+
+def phase_robust_f32_round() -> None:
+    """One f32 norm-clipped FedAvgRobustEngine round on the card (kernels)
+    and on the CPU (plain versions) from the same weights and data, TF32
+    off.  The bound is the median of the clients' update norms, measured
+    on the card first, so that the largest update is clipped and the
+    smallest is not.  Limits as in the f32 FedAvg round."""
+    f32_off()
+    n_clients = 3
+    data = synthetic_data(n_clients, 2 * BATCH, seed=2)
+    trainer = ClientTrainer(create_model("resnet18_gn", 10), lr=0.1)
+    probe = FedAvgEngine(trainer, data, FedConfig(
+        client_num_in_total=n_clients, client_num_per_round=n_clients,
+        batch_size=BATCH, lr=0.1), device="cuda")
+    flat = trainer.flatten(probe.init_variables())
+    cohort, _ = data.cohort(probe.sampler.sample(0), "cuda")
+    norms = [float((trainer.local_train(flat, {k: t[i] for k, t in cohort.items()},
+                                        1)[0] - flat).norm())
+             for i in range(n_clients)]
+    tau = statistics.median(norms)
+    factors = [min(1.0, tau / n) for n in norms]
+    if not (min(factors) < 1.0 and max(factors) == 1.0):
+        raise AssertionError(f"robust round: factors {factors} do not both "
+                             "clip and pass")
+    cfg = FedConfig(model="resnet18_gn", dataset="cifar10",
+                    client_num_in_total=n_clients,
+                    client_num_per_round=n_clients, epochs=1,
+                    batch_size=BATCH, lr=0.1, norm_bound=tau)
+    out = {}
+    for device in ("cuda", "cpu"):
+        engine = FedAvgRobustEngine(trainer, data, cfg, defense="norm_clip",
+                                    device=device)
+        v0 = engine.init_variables()
+        t0 = time.perf_counter()
+        v1, _, m = engine.round_fn(dict(v0), (), *engine._round_args(0))
+        out[device] = (v0, v1, float(m["train_loss"]), time.perf_counter() - t0)
+    (g0, g1, gl, gt), (c0, c1, cl, ct) = out["cuda"], out["cpu"]
+    whole, worst = update_distance("robust round", g0, g1, c0, c1)
+    print(f"[robust f32 round] FedAvgRobustEngine(norm_clip), {n_clients} "
+          f"clients x 2 batches of {BATCH}, full width: update norms "
+          f"{[round(n, 4) for n in norms]}, bound {tau:.4f}, clip factors "
+          f"{[round(f, 4) for f in factors]}; card {gt:.2f} s, CPU {ct:.2f} s; "
+          f"update distance {whole:.3e} of its norm (limit 1e-3), worst "
+          "leaves " + ", ".join(f"{k} {v:.3e}" for k, v in worst)
+          + f" (limit 1e-2); train_loss card {gl:.6f} CPU {cl:.6f}")
+    if whole > 1e-3 or worst[0][1] > 1e-2:
+        raise AssertionError("robust f32 round: the card's update differs "
+                             "from the CPU's beyond the limits above")
+
+
+def phase_orderstat() -> None:
+    """MeshRobustEngine's order-statistic defenses, one f32 round each on
+    the card and on the CPU, 4 clients x 1 batch of 32, full width, TF32
+    off; limits as in the f32 FedAvg round.  Where krum or multi-krum picks
+    another client on the card, both score vectors are printed, and the
+    phase fails only if they differ by more than 1e-4 relative."""
+    f32_off()
+    data = synthetic_data(SIDE_CLIENTS, BATCH, seed=3)
+    cfg = FedConfig(model="resnet18_gn", dataset="cifar10",
+                    client_num_in_total=SIDE_CLIENTS,
+                    client_num_per_round=SIDE_CLIENTS, epochs=1,
+                    batch_size=BATCH, lr=0.1)
+    trainer = ClientTrainer(create_model("resnet18_gn", 10), lr=0.1)
+    for defense in ("krum", "multi_krum", "median", "trimmed_mean"):
+        out = {}
+        for device in ("cuda", "cpu"):
+            eng = MeshRobustEngine(trainer, data, cfg, defense=defense,
+                                   chunk=MAIN_CHUNK, device=device)
+            v0 = eng.init_variables()
+            v1, _, m = eng.round_fn_streaming(dict(v0), (), *eng.stream_cohort(0))
+            out[device] = (eng, v0, v1, float(m["train_loss"]))
+        (ge, g0, g1, gl), (ce, c0, c1, cl) = out["cuda"], out["cpu"]
+        whole, worst = update_distance(defense, g0, g1, c0, c1)
+        ok = whole <= 1e-3 and worst[0][1] <= 1e-2
+        print(f"[order stats] {defense}: update distance {whole:.3e} of its "
+              f"norm (limit 1e-3), worst leaf {worst[0][0]} {worst[0][1]:.3e} "
+              f"(limit 1e-2); train_loss card {gl:.6f} CPU {cl:.6f}")
+        if ok:
+            continue
+        if defense not in ("krum", "multi_krum"):
+            raise AssertionError(f"{defense}: the card's round differs from "
+                                 "the CPU's beyond the limits above")
+        scores = {}
+        for device, (eng, v0, _, _) in out.items():
+            cohort, w = eng.stream_cohort(0)
+            flats = chunked_weighted_train(
+                eng.trainer, eng.trainer.flatten(v0), cohort, w, 1,
+                chunk_cap=MAIN_CHUNK, fold_fn=None, emit_flat_params=True)[3]
+            scores[device] = robust_ops.krum_scores_flat(
+                flats, eng.n_byzantine).double().cpu()
+        rel = float(((scores["cuda"] - scores["cpu"]).abs()
+                     / scores["cpu"].abs()).max())
+        print(f"[order stats] {defense} picked other clients: krum scores card "
+              f"{scores['cuda'].tolist()}, CPU {scores['cpu'].tolist()} "
+              f"(max relative difference {rel:.3e}, limit 1e-4)")
+        if rel > 1e-4:
+            raise AssertionError(f"{defense}: krum scores differ by {rel:.3e}")
+
+
+def phase_robust_main_path() -> dict:
+    """The robust main path: MeshRobustEngine(norm_clip, chunk=2, bf16
+    local masters) on phase 5's 8 clients x 13 batches, 3 rounds then one
+    evaluation.  Per chunk: one squared-distance and one clipped-fold
+    launch, and no weighted fold.  Then FedAvg and norm-clip rounds in
+    turns (F R, R F, F R) on the same clients and model, so that drift in
+    the host's speed falls on both alike."""
+    torch.backends.cudnn.allow_tf32 = True
+    data = synthetic_data(MAIN_CLIENTS, SAMPLES, seed=0)
+    cfg = FedConfig(model="resnet18_gn", dataset="cifar10",
+                    client_num_in_total=MAIN_CLIENTS,
+                    client_num_per_round=MAIN_CLIENTS, epochs=1,
+                    batch_size=BATCH, lr=0.1, frequency_of_the_test=10_000)
+    trainer = ClientTrainer(create_model("resnet18_gn", 10), lr=cfg.lr,
+                            train_dtype=torch.bfloat16)
+    engine = MeshRobustEngine(trainer, data, cfg, defense="norm_clip",
+                              chunk=MAIN_CHUNK, local_dtype=torch.bfloat16)
+    variables = engine.init_variables()
+    v0 = {k: v.clone() for k, v in variables.items()}
+    server_state = engine.server_init(variables)
+    cohort, weights = engine.stream_cohort(0)
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    round_s, losses = [], []
+    for _ in range(MAIN_ROUNDS):
+        t0 = time.perf_counter()
+        variables, server_state, m = engine.round_fn_streaming(
+            variables, server_state, cohort, weights)
+        losses.append(float(m["train_loss"]))
+        round_s.append(time.perf_counter() - t0)
+    stats = engine.evaluate(variables)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+
+    steps = MAIN_ROUNDS * MAIN_CLIENTS * BATCHES
+    chunks = MAIN_ROUNDS * (MAIN_CLIENTS // MAIN_CHUNK)
+    expected = {"gn_forward": 20 * (steps + 2), "gn_backward": 20 * steps,
+                "wsum": 0, "sqnorm": chunks, "clip_agg": chunks}
+    if counts != expected:
+        raise AssertionError(f"robust launch counts {counts} != {expected}")
+    if not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"non-finite robust train loss: {losses}")
+    changed = sum(int(not torch.equal(variables[k], v0[k])) for k in v0)
+    if changed != len(v0) or any(v.dtype != torch.float32
+                                 for v in variables.values()):
+        raise AssertionError(f"{len(v0) - changed} of {len(v0)} global leaves "
+                             "unchanged, or the global model left f32")
+    steady = statistics.mean(round_s[1:])
+    print(f"[robust path] MeshRobustEngine(norm_clip, bound "
+          f"{cfg.norm_bound}, chunk={MAIN_CHUNK}, local_dtype=bf16), "
+          f"{MAIN_CLIENTS} clients x {BATCHES} batches of {BATCH}")
+    print(f"[robust path] train_loss per round {losses}; eval {stats}")
+    print(f"[robust path] s/round {round_s} -> {steady:.4f} s/round over "
+          f"rounds 2-{MAIN_ROUNDS} ({card_line()})")
+    print(f"[robust path] launches {counts} == expected")
+
+    fedavg = MeshFedAvgEngine(trainer, data, cfg, chunk=MAIN_CHUNK,
+                              local_dtype=torch.bfloat16)
+    float(fedavg.round_fn_streaming(variables, (), cohort, weights)[2]
+          ["train_loss"])                       # its first-call cost
+    turns = {"fedavg": [], "norm_clip": []}
+    for order in (("fedavg", "norm_clip"), ("norm_clip", "fedavg"),
+                  ("fedavg", "norm_clip")):
+        for name in order:
+            eng = fedavg if name == "fedavg" else engine
+            t0 = time.perf_counter()
+            float(eng.round_fn_streaming(variables, (), cohort, weights)[2]
+                  ["train_loss"])
+            turns[name].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    print(f"[robust path] in turns: FedAvg s/round {turns['fedavg']}, "
+          f"norm_clip {turns['norm_clip']}; medians {med['fedavg']:.4f} and "
+          f"{med['norm_clip']:.4f} ({med['norm_clip'] / med['fedavg'] - 1:+.1%})")
+    return counts
+
+
+def phase_side_engines() -> None:
+    """One bf16 round each of MeshFedOptEngine (adam), MeshFedProxEngine
+    and MeshFedNovaEngine at 4 clients x 13 batches, full width: FedOpt
+    and FedProx fold with the weighted fold, FedNova with the clipped
+    fold's accumulate form."""
+    data = synthetic_data(SIDE_CLIENTS, SAMPLES, seed=4)
+    cfg = FedConfig(model="resnet18_gn", dataset="cifar10",
+                    client_num_in_total=SIDE_CLIENTS,
+                    client_num_per_round=SIDE_CLIENTS, epochs=1,
+                    batch_size=BATCH, lr=0.1, server_optimizer="adam",
+                    server_lr=0.01, prox_mu=0.01)
+    trainer = ClientTrainer(create_model("resnet18_gn", 10), lr=cfg.lr,
+                            train_dtype=torch.bfloat16)
+    steps, chunks = SIDE_CLIENTS * BATCHES, SIDE_CLIENTS // MAIN_CHUNK
+    for cls, folds in ((MeshFedOptEngine, {"wsum": chunks}),
+                       (MeshFedProxEngine, {"wsum": chunks}),
+                       (MeshFedNovaEngine, {"clip_agg": chunks})):
+        eng = cls(trainer, data, cfg, chunk=MAIN_CHUNK,
+                  local_dtype=torch.bfloat16)
+        v0 = eng.init_variables()
+        state = eng.server_init(v0)
+        cohort, weights = eng.stream_cohort(0)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        v1, state, m = eng.round_fn_streaming(v0, state, cohort, weights)
+        loss = float(m["train_loss"])
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        expected = {"gn_forward": 20 * steps, "gn_backward": 20 * steps,
+                    "wsum": 0, "sqnorm": 0, "clip_agg": 0, **folds}
+        if counts != expected:
+            raise AssertionError(f"{cls.__name__}: launches {counts} != "
+                                 f"{expected}")
+        if not math.isfinite(loss) or not all(
+                torch.isfinite(v).all() and not torch.equal(v, v0[k])
+                for k, v in v1.items()):
+            raise AssertionError(f"{cls.__name__}: non-finite loss {loss} or "
+                                 "an unchanged or non-finite global leaf")
+        print(f"[{cls.__name__}] one bf16 round, {SIDE_CLIENTS} clients x "
+              f"{BATCHES} batches: train_loss {loss:.6f}, {dt:.3f} s (first "
+              f"round), launches {counts} == expected")
+
+
+def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
+                counts: dict, robust_counts: dict) -> dict:
     """One entry per ported kernel.  GroupNorm's numbers are per training
-    step: its 20 launches, five at each stage shape, summed."""
+    step: its 20 launches, five at each stage shape, summed.  The fold,
+    squared-distance and clipped-fold numbers are one call at the mesh
+    chunk's shape ([2, P] bf16); launches are those of the FedAvg main path
+    (phase 5) for GroupNorm and the fold, of the robust main path (phase 8)
+    for the two robust kernels."""
     entries = []
     for name, rec in (("gn_forward", gn_fwd), ("gn_backward", gn_bwd)):
         sh = rec["shapes"]
@@ -479,6 +826,19 @@ def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict,
         library_ms=fold_rec["library_ms"],
         unit=f"one chunk fold: [{MAIN_CHUNK}, P] bf16 into f32 acc",
         finalize=fold_rec["finalize"]))
+    for name in ("sqnorm", "clip_agg"):
+        main, other = robust[name]
+        entries.append(dict(
+            name=name, route="cuda", source="fedml_tpu_torch/csrc/robust.cu",
+            replaces=TPU_KERNELS[name][0], function=TPU_KERNELS[name][1],
+            status="ported", launches=robust_counts[name],
+            max_abs_err=max(main["max_abs_err"], other["max_abs_err"]),
+            ms=main["ms"], host_ms=main["host_ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound"][0], bound_by=main["bound"][1],
+            library_ms=main["library_ms"], library=main["library"],
+            unit=f"one call at the mesh chunk: [{MAIN_CHUNK}, P] bf16"
+                 + (", accumulate form" if name == "clip_agg" else ""),
+            fedavg_robust={k: v for k, v in other.items()}))
     return {"kernels": entries, "still_to_port": STILL_TO_PORT}
 
 
@@ -492,9 +852,15 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     gn_fwd, gn_bwd = phase_gn(gen)
     fold_rec = phase_fold(gen)
+    robust_rec = phase_robust_kernels(gen)
     phase_f32_round()
     counts = phase_main_path()
-    print(json.dumps(kernel_line(gn_fwd, gn_bwd, fold_rec, counts)))
+    phase_robust_f32_round()
+    phase_orderstat()
+    robust_counts = phase_robust_main_path()
+    phase_side_engines()
+    print(json.dumps(kernel_line(gn_fwd, gn_bwd, fold_rec, robust_rec, counts,
+                                 robust_counts)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,3 +1,8 @@
 from fedml_tpu_torch.algorithms.fedavg import FedAvgEngine
+from fedml_tpu_torch.algorithms.fedavg_robust import FedAvgRobustEngine
+from fedml_tpu_torch.algorithms.fednova import FedNovaEngine
+from fedml_tpu_torch.algorithms.fedopt import FedOptEngine
+from fedml_tpu_torch.algorithms.fedprox import FedProxEngine
 
-__all__ = ["FedAvgEngine"]
+__all__ = ["FedAvgEngine", "FedAvgRobustEngine", "FedNovaEngine",
+           "FedOptEngine", "FedProxEngine"]

@@ -67,16 +67,23 @@ class FedAvgEngine:
         return weighted_mean(stacked_variables, weights), server_state
 
     # ---- one federated round ------------------------------------------------
-    def _round(self, variables: dict, server_state, cohort: dict):
-        flat = self.trainer.flatten(variables)
+    def _train_cohort(self, flat: torch.Tensor, cohort: dict):
+        """Every client's local training from the global flat vector:
+        (trained rows, losses [K], sample counts [K])."""
+        global_params = flat if self.trainer.prox_mu > 0 else None
         rows, losses, ns = [], [], []
         for i in range(cohort["mask"].shape[0]):
             v, loss, n = self.trainer.local_train(
-                flat, {k: t[i] for k, t in cohort.items()}, self.cfg.epochs)
+                flat, {k: t[i] for k, t in cohort.items()}, self.cfg.epochs,
+                global_params=global_params)
             rows.append(v)
             losses.append(loss)
             ns.append(n)
-        losses, ns = torch.stack(losses), torch.stack(ns)
+        return rows, torch.stack(losses), torch.stack(ns)
+
+    def _round(self, variables: dict, server_state, cohort: dict):
+        rows, losses, ns = self._train_cohort(self.trainer.flatten(variables),
+                                              cohort)
         new_variables, server_state = self.aggregate(
             stack_rows(self.trainer, rows), ns, variables, server_state)
         train_loss = (losses * ns).sum() / ns.sum()

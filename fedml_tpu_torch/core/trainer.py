@@ -19,6 +19,9 @@ Parity with the JAX trainer, where it is not obvious:
   scalar is.
 * An all-padding batch scales the update by ``has_data`` = 0 and reports
   loss 0 (trainer.py:336-349).
+* FedProx: with ``prox_mu`` > 0 and the round's global vector passed as
+  ``global_params``, the loss gains (mu/2) * ||p - g||^2 over the
+  parameters (trainer.py:298-308); the zero pad tail adds nothing.
 """
 from __future__ import annotations
 
@@ -89,15 +92,19 @@ class ClientTrainer:
       loss: "ce" (the only loss ported so far).
       optimizer / lr / momentum / weight_decay: client-side SGD config.
       train_dtype: compute dtype of the training forward/backward.
+      prox_mu: FedProx proximal coefficient; when > 0, local_train takes
+        the round's global flat vector and adds (mu/2)||p - g||^2.
     """
 
     def __init__(self, model: nn.Module, loss: str = "ce",
                  optimizer: str = "sgd", lr=0.03, momentum: float = 0.0,
-                 weight_decay: float = 0.0, train_dtype=torch.float32):
+                 weight_decay: float = 0.0, train_dtype=torch.float32,
+                 prox_mu: float = 0.0):
         if loss != "ce":
             raise ValueError(f"loss {loss!r} is not ported yet (only 'ce')")
         self.model = model
         self.tx = make_optimizer(optimizer, lr, momentum, weight_decay)
+        self.prox_mu = prox_mu
         self.train_dtype = train_dtype
         self.spec = spec_of(dict(model.named_parameters()))
 
@@ -122,21 +129,26 @@ class ClientTrainer:
         return unflatten_to_tree(flat, self.spec, dtype or flat.dtype)
 
     # -- loss ---------------------------------------------------------------
-    def _loss(self, flat: torch.Tensor, batch: dict) -> torch.Tensor:
+    def _loss(self, flat: torch.Tensor, batch: dict,
+              global_params: torch.Tensor | None = None) -> torch.Tensor:
         x, y, mask = batch["x"], batch["y"], batch["mask"]
         half = self.train_dtype != torch.float32
         params = self.unflatten(flat, self.train_dtype if half else None)
         if half and x.is_floating_point():
             x = x.to(self.train_dtype)
         logits = functional_call(self.model, params, (x,)).float()
-        return masked_cross_entropy(logits, y, mask)
+        loss = masked_cross_entropy(logits, y, mask)
+        if self.prox_mu > 0.0 and global_params is not None:
+            loss = loss + 0.5 * self.prox_mu * (flat - global_params).square().sum()
+        return loss
 
     # -- one SGD step -------------------------------------------------------
-    def train_step(self, flat: torch.Tensor, batch: dict):
+    def train_step(self, flat: torch.Tensor, batch: dict,
+                   global_params: torch.Tensor | None = None):
         """(new flat, loss) after one SGD step on `batch`; the loss is 0 and
         the params unchanged when the batch holds no real sample."""
         leaf = flat.detach().requires_grad_()
-        loss = self._loss(leaf, batch)
+        loss = self._loss(leaf, batch, global_params)
         (grad,) = torch.autograd.grad(loss, leaf)
         has_data = batch["mask"].sum() > 0
         flat = flat.detach()
@@ -145,18 +157,20 @@ class ClientTrainer:
                                            torch.zeros_like(loss))
 
     # -- local training -----------------------------------------------------
-    def local_train(self, flat: torch.Tensor, shard: dict, epochs: int):
+    def local_train(self, flat: torch.Tensor, shard: dict, epochs: int,
+                    global_params: torch.Tensor | None = None):
         """E local epochs of SGD over one client's padded shard
         ({"x": [B, bs, ...], "y": [B, bs], "mask": [B, bs]}).  Returns
         (new flat, mean over epochs of the sample-weighted epoch loss,
-        number of real samples)."""
+        number of real samples).  `global_params` is the round's global
+        flat vector, read by the FedProx term."""
         n_batches = shard["mask"].shape[0]
         epoch_losses = []
         for _ in range(epochs):
             losses, counts = [], []
             for b in range(n_batches):
                 batch = {k: v[b] for k, v in shard.items()}
-                flat, loss = self.train_step(flat, batch)
+                flat, loss = self.train_step(flat, batch, global_params)
                 losses.append(loss)
                 counts.append(batch["mask"].sum())
             losses, counts = torch.stack(losses), torch.stack(counts)

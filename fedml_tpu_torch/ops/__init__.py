@@ -1,12 +1,14 @@
 """The port's hand-written CUDA kernels, each beside its plain PyTorch
 version and a launch counter."""
-from fedml_tpu_torch.ops.aggregate import (fold, weighted_mean,
-                                           weighted_mean_flat, wsum)
+from fedml_tpu_torch.ops.aggregate import (clip_agg, clip_fold, fold,
+                                           robust_weighted_mean, sqnorm,
+                                           weighted_mean, weighted_mean_flat,
+                                           wsum)
 from fedml_tpu_torch.ops.groupnorm import (GroupNorm, gn_backward, gn_forward,
                                            group_norm)
 
 # every kernel wrapper whose `launches` counts its kernel's launches
-KERNEL_WRAPPERS = (gn_forward, gn_backward, wsum)
+KERNEL_WRAPPERS = (gn_forward, gn_backward, wsum, sqnorm, clip_agg)
 
 
 def reset_launch_counts() -> None:
@@ -14,6 +16,11 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
 __all__ = ["GroupNorm", "group_norm", "gn_forward", "gn_backward", "fold",
-           "weighted_mean", "weighted_mean_flat", "wsum", "KERNEL_WRAPPERS",
-           "reset_launch_counts"]
+           "weighted_mean", "weighted_mean_flat", "wsum", "sqnorm",
+           "clip_agg", "clip_fold", "robust_weighted_mean", "KERNEL_WRAPPERS",
+           "reset_launch_counts", "launch_counts"]

@@ -38,6 +38,13 @@ SIGNATURES = {
     "fedml_gn_bwd": [_P] * 8 + [_I] * 4 + [_I, _I, _P],
     # out, V, w, k, P, ld, finalize, dtype, vec, stream
     "fedml_wsum": [_P, _P, _P, _I, _L, _L, _I, _I, _I, _P],
+    # k * this many floats of partials for fedml_sqnorm
+    "fedml_sqnorm_max_blocks": [],
+    # out, partial, V, g, k, P, ld, dtype, vec, stream
+    "fedml_sqnorm": [_P, _P, _P, _P, _I, _L, _L, _I, _I, _P],
+    # out, V, g, cf, base_ptr, base_const, k, P, ld, accumulate, dtype, vec,
+    # stream
+    "fedml_clip_agg": [_P, _P, _P, _P, _P, _F, _I, _L, _L, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,13 +1,19 @@
-"""The chunked FedAvg engine on one card (the single-device subset of
-fedml_tpu/parallel/engine.py::MeshFedAvgEngine).
+"""The chunked engines on one card: the single-device subset of
+fedml_tpu/parallel/engine.py (MeshFedAvgEngine, MeshFedProxEngine,
+MeshFedOptEngine, MeshFedNovaEngine, MeshRobustEngine).
 
 A round trains the cohort in chunks of at most `chunk` clients.  Every
 client of a chunk trains from the round's global model (cast once to the
 local dtype: bf16 local masters on the main path), its trained flat vector
-becomes one row of a [chunk, P] lane matrix, and the fold kernel adds
-sum_k w_k * row_k into ONE flat f32 accumulator.  Beside it ride sum(w) and
-sum(w * loss); finalize divides in f32 and casts back to the global
-model's dtype (engine.py:653-660), so the global model stays f32.
+becomes one row of a [chunk, P] lane matrix, and a fold folds the chunk
+into ONE flat f32 accumulator: FedAvg's fold kernel adds sum_k w_k * row_k;
+norm_clip's squared-distance and clipped-fold kernels add the clipped
+rows; FedNova's clipped-fold adds sum_k (w_k / tau_k) * (g - row_k).
+Beside it ride sum(w) and sum(w * loss); finalize divides in f32 and casts
+back to the global model's dtype (engine.py:653-660), so the global model
+stays f32.  The order-statistic defenses (krum, multi-krum, median,
+trimmed mean) keep the chunk's rows instead, as the [K, P] f32 matrix they
+need.
 
 The JAX engine vmaps a chunk's clients; ``torch.func.vmap`` cannot map
 over a ctypes kernel, so here a chunk's lanes run one after another.
@@ -16,13 +22,21 @@ of the port (ROADMAP.md).
 """
 from __future__ import annotations
 
+import copy
+from typing import Callable, Optional
+
 import numpy as np
 import torch
 
 from fedml_tpu_torch.algorithms.fedavg import FedAvgEngine
+from fedml_tpu_torch.algorithms.fedavg_robust import check_defense
+from fedml_tpu_torch.algorithms.fednova import fednova_tau
+from fedml_tpu_torch.algorithms.fedopt import make_server_optimizer, server_step
+from fedml_tpu_torch.core import robust as robust_ops
+from fedml_tpu_torch.core.pytree import clip_scale
 from fedml_tpu_torch.core.trainer import ClientTrainer
 from fedml_tpu_torch.data.federated import FederatedData
-from fedml_tpu_torch.ops.aggregate import fold
+from fedml_tpu_torch.ops.aggregate import client_sqnorms, clip_fold, fold
 from fedml_tpu_torch.utils.config import FedConfig
 
 
@@ -59,28 +73,52 @@ def default_chunk(local_dtype) -> int:
     return 2 if local_dtype == torch.bfloat16 else 8
 
 
-def chunked_weighted_train(trainer: ClientTrainer, variables: dict,
+def fedavg_fold(num: torch.Tensor, lanes: torch.Tensor, w: torch.Tensor,
+                chunk_shards: dict) -> None:
+    """FedAvg's chunk fold: num += sum_k w_k * lanes[k] (the fold kernel)."""
+    fold(num, lanes, w)
+
+
+def chunked_weighted_train(trainer: ClientTrainer, flat: torch.Tensor,
                            cohort: dict, weights: torch.Tensor, epochs: int,
-                           chunk_cap: int = 8):
-    """Train the cohort chunk by chunk, folding each chunk's trained lanes
-    into the flat f32 carry.  Returns (num [P] f32 = sum w*v, den = sum w,
-    lsum = sum w*loss)."""
-    flat = trainer.flatten(variables)
+                           chunk_cap: int = 8,
+                           fold_fn: Optional[Callable] = fedavg_fold,
+                           emit_flat_params: bool = False):
+    """Train the cohort chunk by chunk from the round's flat vector `flat`
+    (in the local dtype), folding each chunk's trained [chunk, P] lanes
+    into the flat f32 carry with ``fold_fn(num, lanes, w, chunk_shards)``.
+    Returns (num [P] f32, den = sum w, lsum = sum w*loss).
+
+    With `emit_flat_params` it also returns the [K, P] f32 matrix of
+    trained params, chunk-pad lanes dropped (engine.py:1339), for the
+    order-statistic defenses; those pass ``fold_fn=None`` (no fold: the
+    port's variables are params only, so nothing else needs the sum)."""
+    k = weights.shape[0]
+    global_params = flat if trainer.prox_mu > 0 else None
     cohort, weights = pad_and_chunk(cohort, weights.float(), chunk_cap)
     num = torch.zeros(flat.shape[0], dtype=torch.float32, device=flat.device)
     den = torch.zeros((), dtype=torch.float32, device=flat.device)
     lsum = torch.zeros_like(den)
+    rows = []
     for c in range(weights.shape[0]):
+        chunk_shards = {key: t[c] for key, t in cohort.items()}
         lanes, losses = [], []
         for j in range(weights.shape[1]):
             v, loss, _ = trainer.local_train(
-                flat, {k: t[c, j] for k, t in cohort.items()}, epochs)
+                flat, {key: t[j] for key, t in chunk_shards.items()}, epochs,
+                global_params=global_params)
             lanes.append(v)
             losses.append(loss)
+        lanes = torch.stack(lanes)
         cw = weights[c].contiguous()
-        fold(num, torch.stack(lanes), cw)
+        if fold_fn is not None:
+            fold_fn(num, lanes, cw, chunk_shards)
+        if emit_flat_params:
+            rows.append(lanes.float())
         den = den + cw.sum()
         lsum = lsum + (torch.stack(losses) * cw).sum()
+    if emit_flat_params:
+        return num, den, lsum, torch.cat(rows)[:k]
     return num, den, lsum
 
 
@@ -113,11 +151,15 @@ class MeshFedAvgEngine(FedAvgEngine):
         return self.stream_cohort(round_idx)
 
     # -- the round ------------------------------------------------------------
+    def _local_flat(self, variables: dict) -> torch.Tensor:
+        """The round's global model as one flat vector in the local dtype."""
+        return self.trainer.flatten(cast_local(variables, self.local_dtype))
+
     def _shard_sums(self, variables: dict, cohort: dict, weights: torch.Tensor):
         """(sum w*v as a flat f32 vector, sum w, sum w*loss) over the cohort."""
         return chunked_weighted_train(
-            self.trainer, cast_local(variables, self.local_dtype), cohort,
-            weights, self.cfg.epochs, chunk_cap=self.chunk)
+            self.trainer, self._local_flat(variables), cohort, weights,
+            self.cfg.epochs, chunk_cap=self.chunk)
 
     def _finalize_from_sums(self, variables: dict, sums):
         """(aggregated model, mean loss): divide in f32, cast each leaf back
@@ -127,14 +169,169 @@ class MeshFedAvgEngine(FedAvgEngine):
         return ({k: v.to(variables[k].dtype) for k, v in avg.items()},
                 lsum / den)
 
+    def _shard_body(self, variables: dict, cohort: dict, weights: torch.Tensor):
+        """(aggregated model, mean loss) of the cohort: sums, then divide."""
+        return self._finalize_from_sums(
+            variables, self._shard_sums(variables, cohort, weights))
+
     def round_fn_streaming(self, variables: dict, server_state, cohort: dict,
                            weights: torch.Tensor):
         """One round on an uploaded cohort (stream_cohort): returns
         (new variables, server state, {"train_loss"})."""
-        avg, train_loss = self._finalize_from_sums(
-            variables, self._shard_sums(variables, cohort, weights))
+        avg, train_loss = self._shard_body(variables, cohort, weights)
         new_variables, server_state = self.server_update(avg, variables,
                                                          server_state)
         return new_variables, server_state, {"train_loss": train_loss}
 
     round_fn = round_fn_streaming
+
+
+class MeshFedProxEngine(MeshFedAvgEngine):
+    """FedProx on the chunked engine: the proximal term lives in the
+    trainer's loss; the aggregation is FedAvg's."""
+
+    def __init__(self, trainer: ClientTrainer, data: FederatedData,
+                 cfg: FedConfig, **kw):
+        if trainer.prox_mu <= 0:
+            # never mutate the caller's trainer: another engine may share it
+            trainer = copy.copy(trainer)
+            trainer.prox_mu = cfg.prox_mu
+        super().__init__(trainer, data, cfg, **kw)
+
+
+class MeshFedOptEngine(MeshFedAvgEngine):
+    """Server-optimizer FL: the pseudo-gradient w_global - w_avg goes to
+    `cfg.server_optimizer` (FedOptAggregator.py:94-123); its state persists
+    across rounds in server_state."""
+
+    def __init__(self, trainer: ClientTrainer, data: FederatedData,
+                 cfg: FedConfig, **kw):
+        self.server_tx = make_server_optimizer(
+            cfg.server_optimizer, cfg.server_lr, cfg.server_momentum)
+        super().__init__(trainer, data, cfg, **kw)
+
+    def server_init(self, variables: dict):
+        return self.server_tx.init(variables)
+
+    def server_update(self, avg_variables: dict, global_variables: dict,
+                      server_state):
+        return server_step(self.server_tx, avg_variables, global_variables,
+                           server_state)
+
+
+class MeshFedNovaEngine(MeshFedAvgEngine):
+    """FedNova on the chunked engine (engine.py:1106-1194):
+    d = sum_i w_i (g - v_i) / tau_i, w_new = g - tau_eff * d / sum(w) with
+    tau_eff = sum_i w_i tau_i / sum(w).  The d-fold is the clipped-fold
+    kernel's accumulate form with base 0 and cf = -w / max(tau, 1); g is
+    the round's model in the local dtype, as the JAX engine's chunk body
+    reads it."""
+
+    def _shard_sums(self, variables: dict, cohort: dict, weights: torch.Tensor):
+        """(sum w*(g - v)/tau, sum w, sum w*tau, sum w*loss)."""
+        g = self._local_flat(variables)
+        epochs = self.cfg.epochs
+
+        def nova_fold(num, lanes, w, chunk_shards):
+            tau = fednova_tau(chunk_shards, epochs)
+            clip_fold(num, lanes, g, (-w / torch.clamp(tau, min=1.0)).contiguous(),
+                      0.0)
+
+        dsum, den, lsum = chunked_weighted_train(
+            self.trainer, g, cohort, weights, epochs, chunk_cap=self.chunk,
+            fold_fn=nova_fold)
+        tsum = (weights.float() * fednova_tau(cohort, epochs)).sum()
+        return dsum, den, tsum, lsum
+
+    def _finalize_from_sums(self, variables: dict, sums):
+        dsum, den, tsum, lsum = sums
+        tau_eff = tsum / den
+        g = self.trainer.flatten(variables, torch.float32)
+        new = self.trainer.unflatten(g - tau_eff * dsum / den)
+        return ({k: v.to(variables[k].dtype) for k, v in new.items()},
+                lsum / den)
+
+
+class MeshRobustEngine(MeshFedAvgEngine):
+    """Byzantine-robust FedAvg on the chunked engine (engine.py:1197-1375).
+
+    defense="norm_clip" (the reference's clip + weak DP) clips each client
+    inside the chunk fold: sqnorm(lanes, g) -> s = clip_scale -> the
+    clipped fold's accumulate form num += sum(w) * g + sum_k w_k s_k
+    (v_k - g), which is the JAX engine's client_transform followed by its
+    fold, with g the round's model in the local dtype.  Zero-weight pad
+    lanes add nothing.  With cfg.stddev > 0 the server adds weak-DP noise
+    from a generator the engine owns, seeded from cfg.seed.
+
+    defense in {"krum", "multi_krum", "median", "trimmed_mean"} needs order
+    statistics over the whole cohort's parameter vectors, which a weighted
+    sum cannot express: the chunk loop keeps every client's trained row as
+    the [K, P] f32 matrix and the defense runs there.
+
+    `stream_block` (the two-phase beyond-HBM order-statistic path) is a
+    later slice of the port."""
+
+    def __init__(self, trainer: ClientTrainer, data: FederatedData,
+                 cfg: FedConfig, defense: str = "norm_clip",
+                 n_byzantine: int = 0, multi_krum_m: Optional[int] = None,
+                 stream_block: Optional[int] = None, **kw):
+        check_defense(defense)
+        if stream_block is not None:
+            raise NotImplementedError(
+                "MeshRobustEngine(stream_block=...), the block-streamed "
+                "order-statistic path, is not ported yet (slice 6 of the port)")
+        self.defense = defense
+        self.n_byzantine = n_byzantine
+        self.multi_krum_m = robust_ops.default_multi_krum_m(
+            min(cfg.client_num_per_round, data.client_num), n_byzantine,
+            multi_krum_m)
+        super().__init__(trainer, data, cfg, **kw)
+        self.noise_generator = torch.Generator(device=self.device).manual_seed(
+            cfg.seed)
+
+    def server_update(self, avg_variables: dict, global_variables: dict,
+                      server_state):
+        if self.defense == "norm_clip" and self.cfg.stddev > 0:
+            avg_variables = robust_ops.add_weak_dp_noise(
+                avg_variables, self.noise_generator, self.cfg.stddev)
+        return avg_variables, server_state
+
+    def _shard_sums(self, variables: dict, cohort: dict, weights: torch.Tensor):
+        g = self._local_flat(variables)
+        bound, row = self.cfg.norm_bound, self.trainer.spec.padded
+
+        def clipped_fold(num, lanes, w, chunk_shards):
+            # the norm is over params only: a row must be the trainer's
+            # params layout and nothing else
+            if lanes.shape[1] != row:
+                raise ValueError(f"norm_clip lanes hold {lanes.shape[1]} "
+                                 f"elements, the params layout {row}")
+            s = clip_scale(client_sqnorms(lanes, g), bound)
+            clip_fold(num, lanes, g, (w * s).contiguous(), w.sum())
+
+        return chunked_weighted_train(
+            self.trainer, g, cohort, weights, self.cfg.epochs,
+            chunk_cap=self.chunk, fold_fn=clipped_fold)
+
+    def _shard_body(self, variables: dict, cohort: dict, weights: torch.Tensor):
+        if self.defense == "norm_clip":
+            return super()._shard_body(variables, cohort, weights)
+        _, den, lsum, flats = chunked_weighted_train(
+            self.trainer, self._local_flat(variables), cohort, weights,
+            self.cfg.epochs, chunk_cap=self.chunk, fold_fn=None,
+            emit_flat_params=True)
+        if self.defense == "krum":
+            new_flat = flats[robust_ops.krum_select_flat(flats,
+                                                         self.n_byzantine)]
+        elif self.defense == "multi_krum":
+            idx = robust_ops.multi_krum_select_flat(flats, self.n_byzantine,
+                                                    self.multi_krum_m)
+            new_flat = flats[idx].mean(dim=0)
+        elif self.defense == "median":
+            new_flat = robust_ops.median_axis0(flats)
+        else:
+            new_flat = robust_ops.trimmed_mean_axis0(
+                flats, max(self.n_byzantine, 1))
+        new = self.trainer.unflatten(new_flat)
+        return ({k: v.to(variables[k].dtype) for k, v in new.items()},
+                lsum / den)
