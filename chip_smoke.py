@@ -12,8 +12,14 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    for sm_90a into fedml_tpu_torch/_build (or the build is reused);
 3. each kernel against its plain version at the main paths' shapes, with
    its time, the plain version's time, one library call's time as a
-   yardstick, and its bound from the bytes it must move; the squared-
-   distance kernel must give bitwise the same norms on a second launch;
+   yardstick, and its bound from the bytes it must move.  GroupNorm runs
+   with bf16 x and bf16 gamma/beta as the main path holds them, and also
+   in the other three pairings of bf16 and f32; its kernels and the
+   squared-distance kernel must give bitwise the same outputs on a second
+   launch; one GroupNorm layer's forward and backward must issue exactly
+   the two GroupNorm kernels and no other device work, and its device
+   time is printed per stage shape; the streaming variant of the
+   GroupNorm kernels is checked at a shape too large to hold on the chip;
 4. one f32 FedAvg round (2 clients x 2 batches of 32, full ResNet-18-GN
    width, TF32 off) on the card and on the CPU from the same weights and
    data: the aggregated models must agree;
@@ -44,6 +50,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -60,6 +67,10 @@ from fedml_tpu_torch.core.pytree import clip_scale
 from fedml_tpu_torch.core.trainer import ClientTrainer
 from fedml_tpu_torch.data.federated import (FederatedData, build_client_shards,
                                             build_eval_shard)
+from fedml_tpu_torch.gn_timing import (FLAX_EPS, GN_LAYERS_PER_STAGE,
+                                       GN_STAGES, GROUPS, cuda_ms,
+                                       device_kernels, host_ms, layer_call,
+                                       stage_inputs)
 from fedml_tpu_torch.models import create_model
 from fedml_tpu_torch.ops import build, launch_counts, reset_launch_counts
 from fedml_tpu_torch.ops.aggregate import (clip_agg, clip_agg_plain, fold,
@@ -67,7 +78,8 @@ from fedml_tpu_torch.ops.aggregate import (clip_agg, clip_agg_plain, fold,
                                            weighted_mean_flat,
                                            weighted_mean_flat_plain, wsum)
 from fedml_tpu_torch.ops.groupnorm import (gn_backward, gn_backward_plain,
-                                           gn_forward, gn_forward_plain)
+                                           gn_forward, gn_forward_plain,
+                                           group_norm, launch_plan)
 from fedml_tpu_torch.parallel.engine import (MeshFedAvgEngine,
                                              MeshFedNovaEngine,
                                              MeshFedOptEngine,
@@ -78,10 +90,7 @@ from fedml_tpu_torch.utils.config import FedConfig
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 rate outside the tensor cores
-GN_STAGES = ((32, 32, 32, 64), (32, 16, 16, 128), (32, 8, 8, 256),
-             (32, 4, 4, 512))
-GN_LAYERS_PER_STAGE = 5        # 20 GroupNorm layers, five at each stage shape
-GROUPS, FLAX_EPS = 2, 1e-6
+GN_STREAMING_SHAPE = (2, 224, 224, 64)   # a group too large for 8 blocks' smem
 N_PARAMS = 11_173_962          # ResNet-18-GN at num_filters=64, 10 classes
 P_PADDED = N_PARAMS + (-N_PARAMS) % 512
 BATCH, SAMPLES, BATCHES = 32, 390, 13
@@ -90,8 +99,8 @@ SIDE_CLIENTS = 4               # phases 7 and 9
 # the TPU kernel each port kernel replaces: (the pl.pallas_call that
 # launches it, file:line; the function that reaches it and its kernel body)
 TPU_KERNELS = {
-    "gn_forward": ("fedml_tpu/ops/groupnorm.py:201", "_pallas_fwd -> _fwd_kernel"),
-    "gn_backward": ("fedml_tpu/ops/groupnorm.py:230", "_pallas_dx -> _bwd_kernel"),
+    "gn_forward": ("fedml_tpu/ops/groupnorm.py:208", "_pallas_fwd -> _fwd_kernel"),
+    "gn_backward": ("fedml_tpu/ops/groupnorm.py:237", "_pallas_dx -> _bwd_kernel"),
     "wsum": ("fedml_tpu/ops/aggregate.py:100", "_wmean_flat -> _wmean_kernel"),
     "sqnorm": ("fedml_tpu/ops/aggregate.py:165",
                "robust_weighted_mean_pallas -> _sqnorm_kernel"),
@@ -99,40 +108,6 @@ TPU_KERNELS = {
                  "robust_weighted_mean_pallas -> _clip_agg_kernel"),
 }
 STILL_TO_PORT: list = []
-
-
-def cuda_ms(fn, reps: int = 20, trials: int = 7) -> float:
-    """Device time of one call: the median over `trials` of the mean time
-    of `reps` back-to-back calls between two CUDA events, after a warm-up.
-    A spin kernel ahead of the first event holds the card until the host
-    has queued all `reps` calls, so host overhead between launches is not
-    counted."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(trials):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda._sleep(50_000_000)          # ~30 ms of spinning
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
-
-
-def host_ms(fn, reps: int = 50) -> float:
-    """Wall time of one call on the host, the card waited for at the end:
-    where it exceeds cuda_ms, launching, not the card, sets the pace."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / reps * 1e3
 
 
 def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
@@ -168,93 +143,183 @@ def card_line() -> str:
 
 
 def phase_build() -> None:
+    """Build (or reuse) the kernels, and read the compiler's -Xptxas -v
+    report: every kernel entry and which of them spill registers."""
     t0 = time.perf_counter()
     path = build.build()
     build.library()
+    log = path.with_suffix(".log").read_text()
+    entries = log.count("Compiling entry function")
+    spills, name = [], None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[-1].strip()
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if found and (int(found.group(1)) or int(found.group(2))):
+            spills.append(f"{name}: {found.group(0)}")
     print(f"[build] {path.relative_to(build.PACKAGE_DIR.parent)} ready in "
-          f"{time.perf_counter() - t0:.1f} s (sm_90a, nvcc)")
+          f"{time.perf_counter() - t0:.1f} s (sm_90a, nvcc); ptxas: {entries} "
+          f"kernel entries, {len(spills)} with register spills"
+          + "".join(f"\n[build]   {s}" for s in spills))
+
+
+def gn_check(x, dy, gamma, beta, tag: str) -> tuple[float, float]:
+    """The GroupNorm kernels against their plain versions on one input, and
+    a second launch of each bitwise equal to the first; returns the max abs
+    error of y and of dx.  Tolerances: y and dx in bf16 within one bf16 ulp
+    of the plain version (rtol 2^-7) plus 2^-10 of the largest |value|
+    (the statistics' f32 sums run in another order and can move a
+    rounding), in f32 within rtol 1e-5 + 1e-6 x max; mean and rstd within
+    rtol 1e-4 + 1e-5 x max (f32 sums of up to 32K terms); dgamma and dbeta,
+    which come out in gamma's dtype, within one bf16 ulp (rtol 2^-7) +
+    1e-5 x max for bf16 gamma, and as f32 within rtol 1e-4 + 1e-5 x max
+    from bf16 x or 1e-5 + 1e-6 x max from f32 x."""
+    out_tol = (2 ** -7, 2 ** -10) if x.dtype == torch.bfloat16 else (1e-5, 1e-6)
+    if gamma.dtype == torch.bfloat16:
+        par_tol = (2 ** -7, 1e-5)
+    else:
+        par_tol = (1e-4, 1e-5) if x.dtype == torch.bfloat16 else (1e-5, 1e-6)
+    fwd = gn_forward(x, gamma, beta, GROUPS, FLAX_EPS)
+    yp, meanp, rstdp = gn_forward_plain(x, gamma, beta, GROUPS, FLAX_EPS)
+    err_f = check_close(f"gn_fwd y {tag}", fwd[0], yp, *out_tol)
+    check_close(f"gn_fwd mean {tag}", fwd[1], meanp, 1e-4, 1e-5)
+    check_close(f"gn_fwd rstd {tag}", fwd[2], rstdp, 1e-4, 1e-5)
+    bwd = gn_backward(x, dy, gamma, meanp, rstdp, GROUPS)
+    dxp, dgp, dbp = gn_backward_plain(x, dy, gamma, meanp, rstdp, GROUPS)
+    err_b = check_close(f"gn_bwd dx {tag}", bwd[0], dxp, *out_tol)
+    check_close(f"gn_bwd dgamma {tag}", bwd[1], dgp, *par_tol)
+    check_close(f"gn_bwd dbeta {tag}", bwd[2], dbp, *par_tol)
+    if not bwd[1].dtype == bwd[2].dtype == gamma.dtype:
+        raise AssertionError(f"gn_bwd {tag}: dgamma/dbeta in {bwd[1].dtype}, "
+                             f"not gamma's {gamma.dtype}")
+    again = (*gn_forward(x, gamma, beta, GROUPS, FLAX_EPS),
+             *gn_backward(x, dy, gamma, meanp, rstdp, GROUPS))
+    for name, a, b in zip(("y", "mean", "rstd", "dx", "dgamma", "dbeta"),
+                          (*fwd, *bwd), again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"gn {tag}: two launches gave other {name}")
+    return err_f, err_b
+
+
+def gn_layer_kernels(x, dy, gamma, beta, tag: str) -> tuple[float, list]:
+    """One GroupNorm layer's forward and backward as training runs it
+    (group_norm, then autograd): its device time per call, and its device
+    work under the profiler, which must be exactly one launch each of the
+    forward and backward kernels and nothing else.  Any other device work
+    fails at once; a profile whose counts come up short (the tracer
+    sometimes loses records) is taken again, at most three times."""
+    layer = layer_call(group_norm, *(t.detach().clone().requires_grad_()
+                                     for t in (x, gamma, beta)), dy)
+    ours = ("gn_fwd_kernel", "gn_bwd_kernel")
+    for _ in range(3):
+        rows = device_kernels(layer)
+        if any(not any(k in r["name"] for k in ours) for r in rows):
+            raise AssertionError(f"one GroupNorm layer {tag} issued other "
+                                 f"device work than its two kernels: {rows}")
+        if (len(rows) == 2 and all(r["launches"] == 1 for r in rows)
+                and all(any(k in r["name"] for r in rows) for k in ours)):
+            return cuda_ms(layer), rows
+        # the tracer lost some kernel records (it never adds any): again
+    raise AssertionError(f"one GroupNorm layer {tag}: no profile in three "
+                         f"showed one launch of each of its kernels: {rows}")
 
 
 def phase_gn(gen: torch.Generator) -> tuple[dict, dict]:
-    """GN forward and backward at the four stage shapes in bf16.
-    Tolerance: y and dx within one bf16 ulp of the plain version
-    (rtol 2^-7) plus 2^-10 of the largest |value| (the statistics' f32 sums
-    run in another order and can move a rounding); mean, rstd, dgamma and
-    dbeta within rtol 1e-4 + 1e-5 x max (f32 sums of up to 32K terms)."""
+    """GN forward and backward at the four stage shapes: bf16 x with bf16
+    gamma/beta (the main path's layers), checked, timed, and as one layer
+    under the profiler; then bf16 x with f32 gamma (timed too: the
+    yardstick the first port's numbers were taken with), f32 x with f32
+    and with bf16 gamma; then the streaming variant at a larger shape.
+    Tolerances in gn_check."""
     fwd = {"shapes": []}
     bwd = {"shapes": []}
     for shape in GN_STAGES:
         N, H, W, C = shape
-        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-        dy = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-        gamma = 1 + 0.1 * torch.randn(C, generator=gen, device="cuda")
-        beta = 0.1 * torch.randn(C, generator=gen, device="cuda")
-
-        y, mean, rstd = gn_forward(x, gamma, beta, GROUPS, FLAX_EPS)
-        yp, meanp, rstdp = gn_forward_plain(x, gamma, beta, GROUPS, FLAX_EPS)
-        err_f = check_close(f"gn_fwd y {shape}", y, yp, 2 ** -7, 2 ** -10)
-        check_close(f"gn_fwd mean {shape}", mean, meanp, 1e-4, 1e-5)
-        check_close(f"gn_fwd rstd {shape}", rstd, rstdp, 1e-4, 1e-5)
-        dx, dg, db = gn_backward(x, dy, gamma, meanp, rstdp, GROUPS)
-        dxp, dgp, dbp = gn_backward_plain(x, dy, gamma, meanp, rstdp, GROUPS)
-        err_b = check_close(f"gn_bwd dx {shape}", dx, dxp, 2 ** -7, 2 ** -10)
-        check_close(f"gn_bwd dgamma {shape}", dg, dgp, 1e-4, 1e-5)
-        check_close(f"gn_bwd dbeta {shape}", db, dbp, 1e-4, 1e-5)
-        # the f32 instantiations (eval and f32 training run them): f32
-        # outputs, so rtol 1e-5 + 1e-6 x max
+        x, dy, gamma, beta = stage_inputs(shape, gen, param_dtype=torch.float32)
+        g16, b16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
         x32, dy32 = x.float(), dy.float()
-        y32, m32, r32 = gn_forward(x32, gamma, beta, GROUPS, FLAX_EPS)
-        check_close(f"gn_fwd f32 y {shape}", y32,
-                    gn_forward_plain(x32, gamma, beta, GROUPS, FLAX_EPS)[0],
-                    1e-5, 1e-6)
-        for a, b, what in zip(gn_backward(x32, dy32, gamma, m32, r32, GROUPS),
-                              gn_backward_plain(x32, dy32, gamma, m32, r32,
-                                                GROUPS),
-                              ("dx", "dgamma", "dbeta")):
-            check_close(f"gn_bwd f32 {what} {shape}", a, b, 1e-5, 1e-6)
+        err_f, err_b = gn_check(x, dy, g16, b16, f"{shape} bf16 x, bf16 gamma")
+        gn_check(x, dy, gamma, beta, f"{shape} bf16 x, f32 gamma")
+        gn_check(x32, dy32, gamma, beta, f"{shape} f32 x, f32 gamma")
+        gn_check(x32, dy32, g16, b16, f"{shape} f32 x, bf16 gamma")
+        layer_ms, layer_rows = gn_layer_kernels(x, dy, g16, b16, str(shape))
+        _, mean, rstd = gn_forward_plain(x, g16, b16, GROUPS, FLAX_EPS)
 
         # library yardsticks on the same values, in the NCHW contiguous
         # layout PyTorch's own GroupNorm kernels require
         x4 = x.permute(0, 3, 1, 2).contiguous()
         dy4 = dy.permute(0, 3, 1, 2).contiguous()
-        g16, b16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
         _, lmean, lrstd = torch.ops.aten.native_group_norm(
             x4, g16, b16, N, C, H * W, GROUPS, FLAX_EPS)
         elems = x.numel()
         stats_bytes = 2 * N * GROUPS * 4
-        f_bytes = 2 * elems * 2 + 2 * C * 4 + stats_bytes
+        f_bytes = 2 * elems * 2 + 2 * C * 2 + stats_bytes
         f_flops = 8 * elems             # two sums, a square, normalise, affine
-        b_bytes = 3 * elems * 2 + C * 4 + stats_bytes + 2 * C * 4
+        b_bytes = 3 * elems * 2 + C * 2 + stats_bytes + 2 * C * 2
         b_flops = 12 * elems
         fwd["shapes"].append(dict(
             shape=list(shape), max_abs_err=err_f,
-            ms=cuda_ms(lambda: gn_forward(x, gamma, beta, GROUPS, FLAX_EPS)),
-            host_ms=host_ms(lambda: gn_forward(x, gamma, beta, GROUPS,
-                                               FLAX_EPS)),
-            plain_ms=cuda_ms(lambda: gn_forward_plain(x, gamma, beta, GROUPS,
+            ms=cuda_ms(lambda: gn_forward(x, g16, b16, GROUPS, FLAX_EPS)),
+            ms_f32_gamma=cuda_ms(lambda: gn_forward(x, gamma, beta, GROUPS,
+                                                    FLAX_EPS)),
+            host_ms=host_ms(lambda: gn_forward(x, g16, b16, GROUPS, FLAX_EPS)),
+            plain_ms=cuda_ms(lambda: gn_forward_plain(x, g16, b16, GROUPS,
                                                       FLAX_EPS)),
             library_ms=cuda_ms(lambda: F.group_norm(x4, GROUPS, g16, b16,
                                                     FLAX_EPS)),
-            bound=bound_ms(f_bytes, f_flops)))
+            bound=bound_ms(f_bytes, f_flops),
+            layer_ms=layer_ms, layer_kernels=layer_rows))
         bwd["shapes"].append(dict(
             shape=list(shape), max_abs_err=err_b,
-            ms=cuda_ms(lambda: gn_backward(x, dy, gamma, meanp, rstdp, GROUPS)),
-            host_ms=host_ms(lambda: gn_backward(x, dy, gamma, meanp, rstdp,
-                                                GROUPS)),
-            plain_ms=cuda_ms(lambda: gn_backward_plain(x, dy, gamma, meanp,
-                                                       rstdp, GROUPS)),
+            ms=cuda_ms(lambda: gn_backward(x, dy, g16, mean, rstd, GROUPS)),
+            ms_f32_gamma=cuda_ms(lambda: gn_backward(x, dy, gamma, mean, rstd,
+                                                     GROUPS)),
+            host_ms=host_ms(lambda: gn_backward(x, dy, g16, mean, rstd, GROUPS)),
+            plain_ms=cuda_ms(lambda: gn_backward_plain(x, dy, g16, mean, rstd,
+                                                       GROUPS)),
             library_ms=cuda_ms(lambda: torch.ops.aten.native_group_norm_backward(
                 dy4, x4, lmean, lrstd, g16, N, C, H * W, GROUPS,
                 [True, True, True])),
             bound=bound_ms(b_bytes, b_flops)))
     for name, rec in (("gn_forward", fwd), ("gn_backward", bwd)):
         for s in rec["shapes"]:
-            print(f"[kernel] {name} {s['shape']} bf16 G={GROUPS}: max abs err "
-                  f"{s['max_abs_err']:.3e}; {s['ms'] * 1e3:.1f} us on the card "
-                  f"({s['host_ms'] * 1e3:.1f} us a call on the host), plain "
-                  f"{s['plain_ms'] * 1e3:.1f} us, library "
+            print(f"[kernel] {name} {s['shape']} bf16 x, bf16 gamma, G={GROUPS}: "
+                  f"max abs err {s['max_abs_err']:.3e}; {s['ms'] * 1e3:.1f} us "
+                  f"on the card ({s['ms_f32_gamma'] * 1e3:.1f} us with f32 "
+                  f"gamma; {s['host_ms'] * 1e3:.1f} us a call on the host), "
+                  f"plain {s['plain_ms'] * 1e3:.1f} us, library "
                   f"{s['library_ms'] * 1e3:.1f} us, bound "
                   f"{s['bound'][0] * 1e3:.2f} us ({s['bound'][1]})")
+    for s in fwd["shapes"]:
+        print(f"[kernel] one GroupNorm layer {s['shape']} bf16, forward and "
+              f"backward: {s['layer_ms'] * 1e3:.1f} us of device time, device "
+              "work " + ", ".join(f"{r['name'].split('<')[0].split('::')[-1]} "
+                                  f"{r['us']:.1f} us" for r in s["layer_kernels"]))
+    print("[kernel] GroupNorm: bf16 and f32 x with bf16 and f32 gamma within "
+          "tolerance; two launches gave bitwise equal y, mean, rstd, dx, "
+          "dgamma and dbeta; one layer issued exactly its two kernels")
+
+    shape = GN_STREAMING_SHAPE
+    N, S, C = shape[0], shape[1] * shape[2], shape[3]
+    for backward in (False, True):
+        if launch_plan(N, S, C, GROUPS, torch.bfloat16, backward=backward).resident:
+            raise AssertionError(f"{shape}: the plan holds the group on chip")
+    x, dy, g16, b16 = stage_inputs(shape, gen)
+    err_f, err_b = gn_check(x, dy, g16, b16, f"{shape} streaming")
+    _, mean, rstd = gn_forward_plain(x, g16, b16, GROUPS, FLAX_EPS)
+    streaming = dict(
+        shape=list(shape), max_abs_err=[err_f, err_b],
+        fwd_ms=cuda_ms(lambda: gn_forward(x, g16, b16, GROUPS, FLAX_EPS)),
+        bwd_ms=cuda_ms(lambda: gn_backward(x, dy, g16, mean, rstd, GROUPS)),
+        bound_ms=[bound_ms(2 * x.numel() * 2, 0)[0],
+                  bound_ms(3 * x.numel() * 2, 0)[0]])
+    fwd["streaming"] = bwd["streaming"] = streaming
+    print(f"[kernel] GroupNorm streaming variant {list(shape)} bf16: max abs "
+          f"err y {err_f:.3e}, dx {err_b:.3e}; forward "
+          f"{streaming['fwd_ms'] * 1e3:.1f} us (bound "
+          f"{streaming['bound_ms'][0] * 1e3:.1f}), backward "
+          f"{streaming['bwd_ms'] * 1e3:.1f} us (bound "
+          f"{streaming['bound_ms'][1] * 1e3:.1f}); bitwise repeats")
     return fwd, bwd
 
 
@@ -792,8 +857,10 @@ def phase_side_engines() -> None:
 def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
                 counts: dict, robust_counts: dict) -> dict:
     """One entry per ported kernel.  GroupNorm's numbers are per training
-    step: its 20 launches, five at each stage shape, summed.  The fold,
-    squared-distance and clipped-fold numbers are one call at the mesh
+    step: its 20 launches, five at each stage shape, summed, with bf16
+    gamma/beta (ms_f32_gamma: with f32 gamma; layer_ms_per_step: the
+    forward and backward of 20 layers with all device work they issue).
+    The fold, squared-distance and clipped-fold numbers are one call at the mesh
     chunk's shape ([2, P] bf16); launches are those of the FedAvg main path
     (phase 5) for GroupNorm and the fold, of the robust main path (phase 8)
     for the two robust kernels."""
@@ -813,8 +880,13 @@ def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
             bound_by="bytes" if all(s["bound"][1] == "bytes" for s in sh)
             else "operations",
             library_ms=per_step("library_ms"),
-            unit="one training step: 20 launches, 5 at each stage shape",
-            shapes=[{k: v for k, v in s.items()} for s in sh]))
+            ms_f32_gamma=per_step("ms_f32_gamma"),
+            unit="one training step: 20 launches, 5 at each stage shape, "
+                 "bf16 x and bf16 gamma/beta",
+            layer_ms_per_step=GN_LAYERS_PER_STAGE * sum(
+                s["layer_ms"] for s in gn_fwd["shapes"]),
+            shapes=[{k: v for k, v in s.items()} for s in sh],
+            streaming=rec["streaming"]))
     entries.append(dict(
         name="wsum", route="cuda", source="fedml_tpu_torch/csrc/aggregate.cu",
         replaces=TPU_KERNELS["wsum"][0], function=TPU_KERNELS["wsum"][1],

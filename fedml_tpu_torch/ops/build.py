@@ -31,11 +31,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # argtypes of every C entry; each returns a cudaError_t as int
 SIGNATURES = {
-    # x, gamma, beta, y, mean, rstd, N, S, C, G, eps, dtype, vec, stream
-    "fedml_gn_fwd": [_P] * 6 + [_I] * 4 + [_F, _I, _I, _P],
-    # x, dy, gamma, mean, rstd, dx, dgamma_part, dbeta_part, N, S, C, G,
-    # dtype, vec, stream
-    "fedml_gn_bwd": [_P] * 8 + [_I] * 4 + [_I, _I, _P],
+    # x, gamma, beta, y, mean, rstd, N, S, C, G, eps, dtype, param_dtype,
+    # then the launch plan (vec, K, threads, rows, smem, resident), stream
+    "fedml_gn_fwd": [_P] * 6 + [_I] * 4 + [_F] + [_I] * 8 + [_P],
+    # x, dy, gamma, mean, rstd, dx, dgamma, dbeta, part, counter, N, S, C,
+    # G, dtype, param_dtype, then the launch plan as above, stream
+    "fedml_gn_bwd": [_P] * 10 + [_I] * 12 + [_P],
     # out, V, w, k, P, ld, finalize, dtype, vec, stream
     "fedml_wsum": [_P, _P, _P, _I, _L, _L, _I, _I, _I, _P],
     # k * this many floats of partials for fedml_sqnorm

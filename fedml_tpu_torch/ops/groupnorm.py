@@ -3,24 +3,31 @@ kernels for the forward and the backward (``csrc/groupnorm.cu``).
 
 Replaces fedml_tpu/ops/groupnorm.py: ``_fwd_kernel`` (driven by
 ``_pallas_fwd``) and ``_bwd_kernel`` (driven by ``_pallas_dx``), exposed
-there as the ``group_norm`` custom VJP.
+there as the ``group_norm`` custom VJP, and the dgamma/dbeta reduction
+beside them (``_channel_grads``).
 
 Layout: x is [N, ..., C] with channels last and contiguous, as in the JAX
 package; channel c belongs to group c // (C / G).  A ResNet in PyTorch's
 ``channels_last`` memory format hands its NCHW activations here as a
 ``permute(0, 2, 3, 1)`` view, which is exactly this layout, with no copy.
+gamma and beta may be float32 or bfloat16 (both the same), in any pairing
+with x; dgamma and dbeta come back in gamma's dtype, rounded once from
+their f32 sums, on both paths.
 
 Bound on the H100 (3.35 TB/s): bytes.  The forward reads x once and writes
-y once; the backward reads x and dy and writes dx.  The kernels keep each
-(sample, group)'s statistics inside one block and fold the dgamma/dbeta
-channel sums into the backward's first pass (design notes in the CUDA
-source).
+y once; the backward reads x and dy and writes dx, and finishes dgamma and
+dbeta in the same launch.  Each (sample, group) is one thread-block
+cluster of up to 8 blocks that holds the group in shared memory;
+``launch_plan`` sizes it (design notes in the CUDA source).
 
 On a CPU tensor the wrappers run the plain PyTorch version below; on a CUDA
 tensor they launch the kernel or raise.  ``gn_forward.launches`` and
 ``gn_backward.launches`` count kernel launches.
 """
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -29,7 +36,12 @@ from fedml_tpu_torch.ops import build
 from fedml_tpu_torch.ops.build import on_card
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-THREADS = 512      # kThreads in csrc/groupnorm.cu
+MAX_THREADS = 512       # kMaxThreads in csrc/groupnorm.cu
+MAX_CLUSTER = 8         # the portable cluster size, kMaxCluster
+SMEM_BYTES = 232_448 - 1_024   # a block's 227 KB, less room for static smem
+MIN_BLOCKS = 132               # a block for each of the H100's SMs at least
+BLOCK_BYTES = 16 * 1024        # bytes of x a block aims to hold
+BLOCK_THREADS = 128            # threads a block aims for
 
 
 # ---------------------------------------------------------------------------
@@ -53,7 +65,8 @@ def gn_forward_plain(x, gamma, beta, num_groups: int, eps: float):
 
 
 def gn_backward_plain(x, dy, gamma, mean, rstd, num_groups: int):
-    """(dx, dgamma, dbeta) from the saved statistics; dgamma/dbeta in f32."""
+    """(dx, dgamma, dbeta) from the saved statistics; dgamma/dbeta in
+    gamma's dtype, rounded once from their f32 sums."""
     C = x.shape[-1]
     Cg = C // num_groups
     xg = _grouped(x, num_groups)
@@ -67,7 +80,93 @@ def gn_backward_plain(x, dy, gamma, mean, rstd, num_groups: int):
         * rstd[:, None, :, None]
     dgamma = (dyg * xhat).sum(dim=(0, 1)).reshape(C)
     dbeta = dyg.sum(dim=(0, 1)).reshape(C)
-    return dx.reshape(x.shape).to(x.dtype), dgamma, dbeta
+    return (dx.reshape(x.shape).to(x.dtype), dgamma.to(gamma.dtype),
+            dbeta.to(gamma.dtype))
+
+
+# ---------------------------------------------------------------------------
+# launch plan
+# ---------------------------------------------------------------------------
+
+class LaunchPlan(NamedTuple):
+    """How the kernels cover [N, S, C] in G groups: one cluster of `K`
+    blocks per (sample, group); block rank r owns spatial rows
+    [r * rows, (r + 1) * rows); `threads` threads a block, thread t on the
+    `vec` channels at column t % vpr (vpr = Cg / vec) of rows t // vpr,
+    then every threads // vpr rows; `smem` bytes of dynamic shared memory;
+    `resident`: the slice is held in shared memory (else later passes
+    re-read it)."""
+    clusters: int
+    K: int
+    threads: int
+    rows: int
+    smem: int
+    resident: bool
+    vec: int
+
+    @property
+    def blocks(self) -> int:
+        return self.clusters * self.K
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _smem_bytes(rows: int, Cg: int, esize: int, rpp: int, backward: bool,
+                resident: bool) -> int:
+    """The kernels' dynamic shared memory (fwd_smem and bwd_smem in the
+    CUDA source): the held slices of x (and dy), then in the backward the
+    per-row and per-block channel partials of dgamma and dbeta."""
+    held = _round16(rows * Cg * esize) if resident else 0
+    if not backward:
+        return held
+    return 2 * held + _round16(2 * rpp * Cg * 4) + _round16(2 * Cg * 4)
+
+
+def launch_plan(N: int, S: int, C: int, G: int, dtype: torch.dtype, *,
+                backward: bool, vec: int | None = None) -> LaunchPlan:
+    """The kernels' launch plan for x of [N, S, C] in `dtype` and G groups.
+
+    K, the blocks per cluster, is the smallest that gives each SM a block
+    and each block at most BLOCK_BYTES of x (capped at 8, the portable
+    cluster size, and at S), then raised while a block's slice does not
+    fit in its shared memory; where it does not fit even at 8, the slice
+    is streamed.  A block has BLOCK_THREADS threads (a streamed one
+    MAX_THREADS, to keep more loads in flight), fewer where its slice has
+    fewer 16-byte vectors, and at least one row's worth.
+    (Both knobs were chosen by ``gn_timing.py --sweep`` on the H100: a
+    cluster barrier costs about a microsecond, so small groups take few
+    blocks.)  `vec` defaults to the widest load that divides Cg (the
+    wrappers pass the one their pointers allow)."""
+    Cg = C // G
+    esize = dtype.itemsize
+    if vec is None:
+        vec = build.vector_width(esize, Cg)
+    vpr = Cg // vec
+    if C % G or Cg % vec or vpr > MAX_THREADS:
+        raise ValueError(f"group of {Cg} channels in vectors of {vec} does "
+                         f"not fit the kernel's {MAX_THREADS} threads")
+    clusters = N * G
+
+    def sized(K: int, resident: bool) -> LaunchPlan:
+        rows = -(-S // K)
+        K = -(-S // rows)                  # no block without rows
+        row_threads = -(-vpr // 32) * 32
+        aim = BLOCK_THREADS if resident else MAX_THREADS   # streamed: loads in flight
+        threads = min(MAX_THREADS, max(row_threads, min(
+            aim, -(-rows * vpr // 32) * 32)))
+        smem = _smem_bytes(rows, Cg, esize, threads // vpr, backward, resident)
+        return LaunchPlan(clusters, K, threads, rows, smem, resident, vec)
+
+    k_max = min(MAX_CLUSTER, S)
+    k0 = min(k_max, max(1, -(-MIN_BLOCKS // clusters),
+                        -(-S * Cg * esize // BLOCK_BYTES)))
+    for K in range(k0, k_max + 1):
+        plan = sized(K, True)
+        if plan.smem <= SMEM_BYTES:
+            return plan
+    return sized(k_max, False)
 
 
 # ---------------------------------------------------------------------------
@@ -104,14 +203,43 @@ def _check_side(x: torch.Tensor, shape: tuple, **tensors) -> None:
                              f"on {t.device}")
 
 
+def _check_params(gamma: torch.Tensor, beta: torch.Tensor | None = None) -> None:
+    """gamma (and beta) in a dtype the kernels take, both the same."""
+    if gamma.dtype not in _DTYPES:
+        raise TypeError("group_norm kernel takes float32 or bfloat16 gamma "
+                        f"and beta, got {gamma.dtype}")
+    if beta is not None and beta.dtype != gamma.dtype:
+        raise TypeError(f"group_norm kernel: gamma ({gamma.dtype}) and beta "
+                        f"({beta.dtype}) must share a dtype")
+
+
 def _vector_width(x: torch.Tensor, num_groups: int, *tensors) -> int:
     Cg = x.shape[-1] // num_groups
     vec = build.vector_width(x.element_size(), Cg,
                              *(t.data_ptr() for t in (x, *tensors)))
-    if Cg // vec > THREADS:
+    if Cg // vec > MAX_THREADS:
         raise ValueError(f"group of {Cg} channels is wider than the kernel's "
-                         f"{THREADS} threads x {vec} elements")
+                         f"{MAX_THREADS} threads x {vec} elements")
     return vec
+
+
+_FINISH_COUNTERS: dict = {}
+
+
+def _finish_counter(device: torch.device, num_groups: int) -> torch.Tensor:
+    """The backward's arrival counters on `device`, one per (group, block
+    rank of a cluster): allocated zeroed once (grown if a layer has more
+    groups); each launch leaves them at zero again."""
+    need = num_groups * MAX_CLUSTER
+    buf = _FINISH_COUNTERS.get(device)
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros(max(need, 64), dtype=torch.int32, device=device)
+        _FINISH_COUNTERS[device] = buf
+    return buf
+
+
+def _plan_args(plan: LaunchPlan) -> tuple:
+    return plan.vec, plan.K, plan.threads, plan.rows, plan.smem, int(plan.resident)
 
 
 def gn_forward(x, gamma, beta, num_groups: int, eps: float):
@@ -121,17 +249,19 @@ def gn_forward(x, gamma, beta, num_groups: int, eps: float):
         return gn_forward_plain(x, gamma, beta, num_groups, eps)
     N, S, C = _check(x, num_groups)
     _check_side(x, (C,), gamma=gamma, beta=beta)
-    g = gamma.detach().to(torch.float32).contiguous()
-    b = beta.detach().to(torch.float32).contiguous()
+    _check_params(gamma, beta)
+    g, b = gamma.detach().contiguous(), beta.detach().contiguous()
     y = torch.empty_like(x)
     mean = torch.empty(N, num_groups, device=x.device, dtype=torch.float32)
     rstd = torch.empty_like(mean)
-    vec = _vector_width(x, num_groups, y)
+    plan = launch_plan(N, S, C, num_groups, x.dtype, backward=False,
+                       vec=_vector_width(x, num_groups, y))
     with torch.cuda.device(x.device):
         rc = build.library().fedml_gn_fwd(
             x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), N, S, C, num_groups, float(eps),
-            _DTYPES[x.dtype], vec, torch.cuda.current_stream().cuda_stream)
+            _DTYPES[x.dtype], _DTYPES[g.dtype], *_plan_args(plan),
+            torch.cuda.current_stream().cuda_stream)
     build.check(rc, "gn_fwd")
     gn_forward.launches += 1
     return y, mean, rstd
@@ -141,30 +271,35 @@ gn_forward.launches = 0
 
 
 def gn_backward(x, dy, gamma, mean, rstd, num_groups: int):
-    """(dx, dgamma, dbeta): the backward kernel on a CUDA tensor (dgamma and
-    dbeta from its [N, C] partials, summed over N here), the plain version
-    on a CPU tensor."""
+    """(dx, dgamma, dbeta): the backward kernel on a CUDA tensor (dgamma
+    and dbeta finished in the same launch, in gamma's dtype), the plain
+    version on a CPU tensor."""
     if not on_card(x):
         return gn_backward_plain(x, dy, gamma, mean, rstd, num_groups)
     N, S, C = _check(x, num_groups, dy)
     _check_side(x, (C,), gamma=gamma)
     _check_side(x, (N, num_groups), mean=mean, rstd=rstd)
+    _check_params(gamma)
     if mean.dtype != torch.float32 or rstd.dtype != torch.float32:
         raise TypeError("group_norm kernel: mean and rstd must be float32")
     mean, rstd = mean.contiguous(), rstd.contiguous()
-    g = gamma.detach().to(torch.float32).contiguous()
+    g = gamma.detach().contiguous()
     dx = torch.empty_like(x)
+    dgamma = torch.empty(C, device=x.device, dtype=g.dtype)
+    dbeta = torch.empty_like(dgamma)
     part = torch.empty(2, N, C, device=x.device, dtype=torch.float32)
-    vec = _vector_width(x, num_groups, dy, dx)
+    plan = launch_plan(N, S, C, num_groups, x.dtype, backward=True,
+                       vec=_vector_width(x, num_groups, dy, dx))
     with torch.cuda.device(x.device):
+        counter = _finish_counter(x.device, num_groups)
         rc = build.library().fedml_gn_bwd(
             x.data_ptr(), dy.data_ptr(), g.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), dx.data_ptr(), part[0].data_ptr(),
-            part[1].data_ptr(), N, S, C, num_groups, _DTYPES[x.dtype], vec,
+            rstd.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
+            dbeta.data_ptr(), part.data_ptr(), counter.data_ptr(), N, S, C,
+            num_groups, _DTYPES[x.dtype], _DTYPES[g.dtype], *_plan_args(plan),
             torch.cuda.current_stream().cuda_stream)
     build.check(rc, "gn_bwd")
     gn_backward.launches += 1
-    dgamma, dbeta = part.sum(dim=1)
     return dx, dgamma, dbeta
 
 
@@ -190,7 +325,7 @@ class _GroupNormFn(torch.autograd.Function):
         # same layout as x (a no-op when it already matches)
         dx, dgamma, dbeta = gn_backward(x, dy.contiguous(), gamma, mean,
                                         rstd, ctx.num_groups)
-        return dx, dgamma.to(gamma.dtype), dbeta.to(gamma.dtype), None, None
+        return dx, dgamma, dbeta, None, None
 
 
 def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
