@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FedAvg and robust-aggregation paths on one
-CUDA card, and hold every hand-written kernel against its plain PyTorch
-version.
+"""Drive the PyTorch port's FedAvg, robust-aggregation and model-zoo
+paths on one CUDA card, and hold every hand-written kernel against its
+plain PyTorch version.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -41,8 +41,22 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    no weighted fold);
 9. one bf16 round each of MeshFedOptEngine, MeshFedProxEngine and
    MeshFedNovaEngine at 4 clients, full width, with their launch counts;
-10. one JSON line listing every TPU kernel of the JAX package with its
-   port's numbers, then the last line {"ok": true, "device": {...}}.
+10. the model zoo (slice 3a): every family of create_model at its
+   published width, one f32 FedAvg round on the card and on the CPU
+   (TF32 off), or, for the two models with fixed dropout rates, one
+   batch's logits and gradients in eval mode; each family's update
+   distance against its limit;
+11. the ResNet-56 path: MeshFedAvgEngine with the main path's recipe on
+   ResNet-56 (BatchNorm statistics in the row), 3 rounds then one
+   evaluation, the fold's launches exact, the fold against its plain
+   version at the row's [2, 860,160], the global statistics against the
+   plain weighted mean of the clients', and a profiled round: busy share
+   and device time by kind (convolutions, BatchNorm, copies, other);
+12. a word-LSTM round on MeshFedAvgEngine at full width, with the
+   sequence axis and <pad> left out of the eval;
+13. one JSON line of the zoo's numbers, one listing every TPU kernel of
+   the JAX package with its port's numbers, then the last line
+   {"ok": true, "device": {...}}.
 
 It needs one card; it imports nothing of JAX or of fedml_tpu.
 """
@@ -81,6 +95,7 @@ from fedml_tpu_torch.ops.groupnorm import (gn_backward, gn_backward_plain,
                                            gn_forward, gn_forward_plain,
                                            group_norm, launch_plan)
 from fedml_tpu_torch.parallel.engine import (MeshFedAvgEngine,
+                                             fedavg_fold,
                                              MeshFedNovaEngine,
                                              MeshFedOptEngine,
                                              MeshFedProxEngine,
@@ -96,12 +111,13 @@ P_PADDED = N_PARAMS + (-N_PARAMS) % 512
 BATCH, SAMPLES, BATCHES = 32, 390, 13
 MAIN_CLIENTS, MAIN_CHUNK, MAIN_ROUNDS = 8, 2, 3
 SIDE_CLIENTS = 4               # phases 7 and 9
+BN_RANGE = "fedml_batch_norm"  # the profiled BatchNorm forwards' range
 # the TPU kernel each port kernel replaces: (the pl.pallas_call that
 # launches it, file:line; the function that reaches it and its kernel body)
 TPU_KERNELS = {
     "gn_forward": ("fedml_tpu/ops/groupnorm.py:208", "_pallas_fwd -> _fwd_kernel"),
     "gn_backward": ("fedml_tpu/ops/groupnorm.py:237", "_pallas_dx -> _bwd_kernel"),
-    "wsum": ("fedml_tpu/ops/aggregate.py:100", "_wmean_flat -> _wmean_kernel"),
+    "wsum": ("fedml_tpu/ops/aggregate.py:103", "_wmean_flat -> _wmean_kernel"),
     "sqnorm": ("fedml_tpu/ops/aggregate.py:165",
                "robust_weighted_mean_pallas -> _sqnorm_kernel"),
     "clip_agg": ("fedml_tpu/ops/aggregate.py:186",
@@ -323,12 +339,11 @@ def phase_gn(gen: torch.Generator) -> tuple[dict, dict]:
     return fwd, bwd
 
 
-def phase_fold(gen: torch.Generator) -> dict:
-    """The weighted fold at the main path's chunk: a [2, P] bf16 lane
-    matrix into an f32 accumulator; then the finalize form on [8, P] f32.
-    Tolerance: 1e-6 relative to |acc| + sum_k |w_k v_k| per element (f32
-    sums of k + 1 terms in another order)."""
-    P = N_PARAMS + (-N_PARAMS) % 512
+def fold_check(gen: torch.Generator, P: int) -> dict:
+    """The weighted fold at a mesh chunk: a [2, P] bf16 lane matrix into an
+    f32 accumulator, against its plain version, timed.  Tolerance: 1e-6
+    relative to |acc| + sum_k |w_k v_k| per element (f32 sums of k + 1
+    terms in another order)."""
     V = torch.randn(MAIN_CHUNK, P, generator=gen, device="cuda").to(torch.bfloat16)
     w = torch.tensor([390.0, 390.0], device="cuda")
     acc0 = torch.randn(P, generator=gen, device="cuda")
@@ -338,7 +353,32 @@ def phase_fold(gen: torch.Generator) -> dict:
     scale = acc0.abs() + (w[:, None] * V.float()).abs().sum(0)
     err = float((acc - accp).abs().max())
     if not bool(((acc - accp).abs() <= 1e-6 * scale).all()):
-        raise AssertionError(f"fold: max abs err {err:.3e} beyond 1e-6 x scale")
+        raise AssertionError(f"fold [{MAIN_CHUNK}, {P}]: max abs err {err:.3e} "
+                             "beyond 1e-6 x scale")
+    return dict(shape=[MAIN_CHUNK, P], max_abs_err=err,
+                ms=cuda_ms(lambda: wsum(acc, V, w, finalize=False)),
+                host_ms=host_ms(lambda: wsum(acc, V, w, finalize=False)),
+                plain_ms=cuda_ms(lambda: fold_plain(acc, V, w)),
+                library_ms=cuda_ms(lambda: w @ V.float()),
+                bound=bound_ms(MAIN_CHUNK * P * 2 + 2 * P * 4 + MAIN_CHUNK * 4,
+                               2 * MAIN_CHUNK * P))
+
+
+def fold_line(tag: str, rec: dict) -> str:
+    return (f"[kernel] wsum fold {rec['shape']} bf16 -> f32 acc ({tag}): max "
+            f"abs err {rec['max_abs_err']:.3e}; {rec['ms'] * 1e3:.2f} us on the "
+            f"card ({rec['host_ms'] * 1e3:.1f} us a call on the host), plain "
+            f"{rec['plain_ms'] * 1e3:.2f} us, library (w @ V.float()) "
+            f"{rec['library_ms'] * 1e3:.2f} us, bound {rec['bound'][0] * 1e3:.2f} "
+            f"us ({rec['bound'][1]}) ({card_line()})")
+
+
+def phase_fold(gen: torch.Generator) -> dict:
+    """The weighted fold at the main path's chunk ([2, P] bf16 into an f32
+    accumulator, fold_check); then the finalize form on [8, P] f32, within
+    1e-6 of sum_k |w_k v_k| / sum(w)."""
+    P = P_PADDED
+    rec = fold_check(gen, P)
     V8 = torch.randn(8, P, generator=gen, device="cuda")
     w8 = torch.rand(8, generator=gen, device="cuda") * 400
     fin, finp = weighted_mean_flat(V8, w8), weighted_mean_flat_plain(V8, w8)
@@ -346,27 +386,14 @@ def phase_fold(gen: torch.Generator) -> dict:
     fin_err = float((fin - finp).abs().max())
     if not bool(((fin - finp).abs() <= 1e-6 * fin_scale + 1e-12).all()):
         raise AssertionError(f"finalize: max abs err {fin_err:.3e}")
-
-    rec = dict(max_abs_err=err,
-               ms=cuda_ms(lambda: wsum(acc, V, w, finalize=False)),
-               host_ms=host_ms(lambda: wsum(acc, V, w, finalize=False)),
-               plain_ms=cuda_ms(lambda: fold_plain(acc, V, w)),
-               library_ms=cuda_ms(lambda: w @ V.float()),
-               bound=bound_ms(MAIN_CHUNK * P * 2 + 2 * P * 4 + MAIN_CHUNK * 4,
-                              2 * MAIN_CHUNK * P),
-               finalize=dict(
-                   shape=[8, P], dtype="float32", max_abs_err=fin_err,
-                   ms=cuda_ms(lambda: weighted_mean_flat(V8, w8)),
-                   plain_ms=cuda_ms(lambda: weighted_mean_flat_plain(V8, w8)),
-                   library_ms=cuda_ms(lambda: (w8 @ V8) / w8.sum()),
-                   bound_ms=bound_ms(8 * P * 4 + P * 4 + 8 * 4, 2 * 8 * P)[0]))
+    rec["finalize"] = dict(
+        shape=[8, P], dtype="float32", max_abs_err=fin_err,
+        ms=cuda_ms(lambda: weighted_mean_flat(V8, w8)),
+        plain_ms=cuda_ms(lambda: weighted_mean_flat_plain(V8, w8)),
+        library_ms=cuda_ms(lambda: (w8 @ V8) / w8.sum()),
+        bound_ms=bound_ms(8 * P * 4 + P * 4 + 8 * 4, 2 * 8 * P)[0])
     f = rec["finalize"]
-    print(f"[kernel] wsum fold [{MAIN_CHUNK}, {P}] bf16 -> f32 acc: max abs err "
-          f"{err:.3e}; {rec['ms'] * 1e3:.1f} us on the card "
-          f"({rec['host_ms'] * 1e3:.1f} us a call on the host), plain "
-          f"{rec['plain_ms'] * 1e3:.1f} us, library (w @ V.float()) "
-          f"{rec['library_ms'] * 1e3:.1f} us, bound {rec['bound'][0] * 1e3:.1f} us "
-          f"({rec['bound'][1]})")
+    print(fold_line("ResNet-18-GN main path", rec))
     print(f"[kernel] wsum finalize [8, {P}] f32: max abs err {fin_err:.3e}; "
           f"{f['ms'] * 1e3:.1f} us, plain {f['plain_ms'] * 1e3:.1f} us, library "
           f"{f['library_ms'] * 1e3:.1f} us, bound {f['bound_ms'] * 1e3:.1f} us")
@@ -490,11 +517,10 @@ def phase_main_path() -> dict:
         raise AssertionError(f"launch counts {counts} != expected {expected}")
     if not all(math.isfinite(l) for l in losses):
         raise AssertionError(f"non-finite train loss: {losses}")
-    changed = sum(int(not torch.equal(variables[k], v0[k])) for k in v0)
-    if changed != len(v0) or any(v.dtype != torch.float32
-                                 for v in variables.values()):
-        raise AssertionError(f"{len(v0) - changed} of {len(v0)} global leaves "
-                             "unchanged, or the global model left f32")
+    same = [k for k in v0 if torch.equal(variables[k], v0[k])]
+    if same or any(v.dtype != torch.float32 for v in variables.values()):
+        raise AssertionError(f"{len(same)} of {len(v0)} global leaves "
+                             f"unchanged ({same}), or the global model left f32")
     steady = statistics.mean(round_s[1:])
     print(f"[main path] MeshFedAvgEngine(chunk={MAIN_CHUNK}, local_dtype=bf16), "
           f"{MAIN_CLIENTS} clients x {BATCHES} batches of {BATCH}, "
@@ -507,43 +533,91 @@ def phase_main_path() -> dict:
     return counts
 
 
-def profile_round(engine, variables, server_state, cohort, weights,
-                  steady_s: float) -> None:
-    """One more main-path round under torch.profiler: the card's busy time
-    (kernels, copies and fills, summed) against the unprofiled round's wall
-    time, and where that device time goes."""
+def kernel_kinds(prof) -> dict:
+    """Device seconds by kind from the profiler's op tree: every kernel
+    launched under a BatchNorm forward (the BN_RANGE ranges) or backward
+    (its autograd node) is BatchNorm; the others go by name."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    share = {k: 0.0 for k in ("convolutions (cuDNN)", "BatchNorm",
+                              "copies and casts", "port kernels (fedml)",
+                              "other")}
+
+    def kind(name: str, in_bn: bool) -> str:
+        low = name.lower()
+        if in_bn:
+            return "BatchNorm"
+        if "fedml" in low:
+            return "port kernels (fedml)"
+        if any(t in low for t in ("conv", "cudnn", "xmma", "gemm", "wgrad",
+                                  "dgrad", "fprop", "cutlass", "sm90")):
+            return "convolutions (cuDNN)"
+        if any(t in low for t in ("copy", "memcpy", "memset", "catarray")):
+            return "copies and casts"
+        return "other"
+
+    def visit(e, in_bn: bool) -> None:
+        in_bn = in_bn or e.name == BN_RANGE or "BatchNormTrainBackward" in e.name
+        for k in e.kernels:
+            share[kind(k.name, in_bn)] += k.duration / 1e6
+        for c in e.cpu_children:
+            visit(c, in_bn)
+
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.cpu_parent is None:
+            visit(e, False)
+    return share
+
+
+def profile_round(engine, variables, server_state, cohort, weights,
+                  steady_s: float, tag: str = "profile") -> dict:
+    """One more round under torch.profiler, with each BatchNorm forward in
+    a named range: the card's busy time (kernels, copies and fills,
+    summed) against the unprofiled round's wall time, the device time by
+    kind from the op tree, and the largest items."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from fedml_tpu_torch.models.norms import BatchNorm
+    forward = BatchNorm.forward
+
+    def named_forward(self, x, train=False):
+        with record_function(BN_RANGE):
+            return forward(self, x, train)
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        engine.round_fn_streaming(variables, server_state, cohort, weights)
-        torch.cuda.synchronize()
-    # device-side events only (kernels, copies, fills): the host ops that
-    # launched them carry the same time again
+    BatchNorm.forward = named_forward
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            engine.round_fn_streaming(variables, server_state, cohort, weights)
+            torch.cuda.synchronize()
+    finally:
+        BatchNorm.forward = forward
+    # the range's own device-side row is an annotation spanning its
+    # kernels and the gaps between them, not device work
     rows = [(e.key, e.self_device_time_total / 1e6, e.count)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(r[1] for r in rows)
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and e.key != BN_RANGE]
     if not rows:
-        print("[profile] the profiler saw no device time on this card")
-        return
-    kinds = {"port kernels (fedml)": ("fedml",),
-             "convolutions (cuDNN)": ("conv", "cudnn", "xmma", "gemm", "wgrad",
-                                      "dgrad", "fprop", "cutlass")}
-    share = {k: 0.0 for k in (*kinds, "other (elementwise, reductions, copies)")}
-    for name, s, _ in rows:
-        kind = next((k for k, keys in kinds.items()
-                     if any(t in name.lower() for t in keys)),
-                    "other (elementwise, reductions, copies)")
-        share[kind] += s
-    print(f"[profile] one main-path round: device busy {busy:.4f} s of the "
-          f"unprofiled {steady_s:.4f} s/round ({busy / steady_s:.1%} busy, "
-          f"{1 - busy / steady_s:.1%} idle)")
-    for k, s in share.items():
-        print(f"[profile]   {k}: {s:.4f} s ({s / busy:.1%} of device time)")
-    for name, s, n in sorted(rows, key=lambda r: -r[1])[:8]:
-        print(f"[profile]   {s * 1e3:9.2f} ms {n:6d}x {name[:110]}")
+        print(f"[{tag}] the profiler saw no device time on this card")
+        return {}
+    busy = sum(r[1] for r in rows)
+    kinds = kernel_kinds(prof)
+    rec = dict(busy_s=busy, steady_s=steady_s, busy_share=busy / steady_s,
+               kinds=kinds, attributed_s=sum(kinds.values()),
+               top=[dict(name=n[:120], s=t, launches=c) for n, t, c in
+                    sorted(rows, key=lambda r: -r[1])[:8]])
+    print(f"[{tag}] one round: device busy {busy:.4f} s of the unprofiled "
+          f"{steady_s:.4f} s/round ({busy / steady_s:.1%} busy, "
+          f"{1 - busy / steady_s:.1%} idle); {rec['attributed_s']:.4f} s of "
+          f"it attributed by the op tree ({card_line()}):")
+    for k, t in kinds.items():
+        print(f"[{tag}]   {k}: {t:.4f} s "
+              f"({t / max(rec['attributed_s'], 1e-12):.1%})")
+    for r in rec["top"]:
+        print(f"[{tag}]   {r['s'] * 1e3:9.2f} ms {r['launches']:7d}x "
+              f"{r['name']}")
+    return rec
 
 
 def terms_scale(V: torch.Tensor, g: torch.Tensor, cf: torch.Tensor, base,
@@ -854,8 +928,387 @@ def phase_side_engines() -> None:
               f"round), launches {counts} == expected")
 
 
+# ---------------------------------------------------------------------------
+# slice 3a: the model zoo
+# ---------------------------------------------------------------------------
+
+# family: (create_model name, output_dim, kwargs, data kind); each at the
+# width FedML's benchmark table runs it
+ZOO = {
+    "LR": ("lr", 10, {}, "mnist"),
+    "CNN": ("cnn", 62, {}, "femnist"),
+    "CNNDropOut": ("cnn_dropout", 62, {}, "femnist"),
+    "char-LSTM": ("rnn", 90, {}, "shakespeare"),
+    "word-LSTM": ("rnn_stackoverflow", 10004, {}, "stackoverflow"),
+    "TransformerLM": ("transformer", 10004, {}, "stackoverflow"),
+    "ResNet-56": ("resnet56", 10, {}, "cifar10"),
+    "MobileNet": ("mobilenet", 10, {}, "cifar10"),
+    "MobileNetV3-large": ("mobilenet_v3", 10, {"dropout": 0.0}, "cifar10"),
+    "EfficientNet-B0": ("efficientnet-b0", 10, {"drop_connect_rate": 0.0},
+                        "cifar10"),
+    "VGG-11": ("vgg11", 10, {}, "cifar10"),
+}
+ZOO_EVAL_MODE = ("CNNDropOut", "VGG-11")    # dropout at a fixed rate
+LM_KINDS = {"shakespeare": (90, 80), "stackoverflow": (10004, 20)}
+RESNET56_PARAMS, RESNET56_STATS, RESNET56_ROW = 855_770, 4_256, 860_160
+
+
+def zoo_data(kind: str, n_clients: int, per_client: int, batch: int,
+             seed: int) -> FederatedData:
+    """Clients of `per_client` samples shaped as `kind`'s data: uniform
+    images (MNIST 28x28, FEMNIST 28x28x1, CIFAR-10 32x32x3) with uniform
+    labels, or uniform tokens with the next token as each position's label
+    (Shakespeare's 90 characters at T = 80, StackOverflow's 10,004 words at
+    T = 20; id 0 is <pad>, and the second half of every fourth sequence is
+    padding)."""
+    rs = np.random.RandomState(seed)
+    n = n_clients * per_client
+    if kind in LM_KINDS:
+        vocab, T = LM_KINDS[kind]
+        tok = rs.randint(1, vocab, (n, T + 1)).astype(np.int64)
+        tok[::4, T // 2:] = 0
+        x, y = tok[:, :T], tok[:, 1:]
+    else:
+        shape, classes = {"mnist": ((28, 28), 10), "femnist": ((28, 28, 1), 62),
+                          "cifar10": ((32, 32, 3), 10)}[kind]
+        x = rs.rand(n, *shape).astype(np.float32)
+        y = rs.randint(0, classes, n).astype(np.int64)
+    idx = {i: np.arange(i * per_client, (i + 1) * per_client)
+           for i in range(n_clients)}
+    ev = build_eval_shard(x[:batch], y[:batch], batch)
+    return FederatedData(
+        train_data_num=n, test_data_num=batch, train_global=ev, test_global=ev,
+        client_shards=build_client_shards(x, y, idx, batch),
+        client_num_samples=np.full(n_clients, per_client, np.float32),
+        test_client_shards=None, class_num=int(y.max()) + 1, synthetic=True)
+
+
+def zoo_trainer(family: str, **kw) -> ClientTrainer:
+    name, out, model_kw, kind = ZOO[family]
+    model = create_model(name, out, **model_kw)
+    if family == "EfficientNet-B0":
+        model.Dropout_0.rate = 0.0          # the variant's head rate: off
+    return ClientTrainer(model, has_time_axis=kind in LM_KINDS, **kw)
+
+
+def eval_mode_distance(trainer: ClientTrainer, data: FederatedData) -> tuple:
+    """One batch's logits and CE gradients in eval mode on the card and on
+    the CPU from the same weights: (max |logit error| / max |logit|,
+    ||grad_card - grad_cpu|| / ||grad_cpu||)."""
+    v0 = trainer.init(torch.Generator().manual_seed(0), "cpu")
+    out = {}
+    for device in ("cuda", "cpu"):
+        params = {k: t.to(device).requires_grad_(k in trainer.param_names)
+                  for k, t in v0.items()}
+        x = torch.from_numpy(data.client_shards["x"][0, 0]).to(device)
+        y = torch.from_numpy(data.client_shards["y"][0, 0]).to(device)
+        logits = torch.func.functional_call(trainer.model, params, (x,))
+        F.cross_entropy(logits, y).backward()
+        out[device] = (logits.detach().cpu().double(), torch.cat(
+            [params[k].grad.reshape(-1).cpu().double()
+             for k in trainer.param_names]))
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    return (float((lg - lc).abs().max() / lc.abs().max()),
+            float((gg - gc).norm() / gc.norm()))
+
+
+def f64_round(trainer: ClientTrainer, data: FederatedData, v0: dict) -> dict:
+    """The zoo phase's FedAvg round (every client, one epoch) on the CPU in
+    float64: each client's local training from v0, then the sample-weighted
+    mean."""
+    flat = trainer.flatten({k: v.double() for k, v in v0.items()})
+    shards = {k: torch.from_numpy(v) for k, v in data.client_shards.items()}
+    w = torch.from_numpy(data.client_num_samples).double()
+    rows = torch.stack([trainer.local_train(
+        flat, {k: t[i] for k, t in shards.items()}, 1)[0] for i in range(len(w))])
+    return trainer.unflatten((w[:, None] * rows).sum(0) / w.sum())
+
+
+def leaf_distances(a0: dict, a1: dict, b0: dict, b1: dict) -> tuple:
+    """(||(a1 - a0) - (b1 - b0)|| per leaf, ||b1 - b0|| per leaf), in f64."""
+    d, n = {}, {}
+    for k in b1:
+        da = a1[k].cpu().double() - a0[k].cpu().double()
+        db = b1[k].cpu().double() - b0[k].cpu().double()
+        d[k], n[k] = float((da - db).norm()), float(db.norm())
+    return d, n
+
+
+def phase_zoo() -> dict:
+    """Every family of the zoo at its published width: one f32 FedAvg round
+    (2 clients x 1 batch of 32, lr 0.1, TF32 off) on the card and on the
+    CPU from the same weights and data, and the CPU's round in float64 as
+    the exact one.  The card's update must lie within 1e-3 of the update's
+    norm of the CPU's, as phase 4, or within twice the distance f32
+    rounding itself puts between the CPU's f32 and f64 rounds (the
+    noise), whichever is larger; within any leaf (BatchNorm statistics
+    included), within 1e-2 or ten times the noise.  At init, ResNet-56's
+    and MobileNet's f32 gradients already sit 2e-3 to 5e-3 from the exact
+    ones (the BatchNorm backwards of 28 to 55 layers cancel), and the
+    worst of their ~300 leaves a few times farther, where a wrong layer
+    moves the distance to O(1).  A leaf whose update is under
+    1e-3 of the model's (the attention key bias, whose gradient is zero in
+    exact arithmetic, so that both devices' updates are rounding noise) is
+    measured against 1e-3 of the model's update instead.  CNNDropOut and
+    VGG-11, whose dropout rates are fixed,
+    compare one batch's logits (within 1e-4 of their largest) and
+    gradients (within 1e-3 in L2) in eval mode, then train one round on
+    the card with dropout on, which must stay finite."""
+    f32_off()
+    out = {}
+    for family, (name, out_dim, _, kind) in ZOO.items():
+        trainer = zoo_trainer(family, lr=0.1)
+        data = zoo_data(kind, 2, BATCH, BATCH, seed=6)
+        n = sum(p.numel() for p in trainer.model.parameters())
+        cfg = FedConfig(model=name, client_num_in_total=2,
+                        client_num_per_round=2, epochs=1, batch_size=BATCH,
+                        lr=0.1)
+        t0 = time.perf_counter()
+        if family in ZOO_EVAL_MODE:
+            logit_err, grad_err = eval_mode_distance(trainer, data)
+            engine = FedAvgEngine(trainer, data, cfg, device="cuda")
+            v1, _, m = engine.round_fn(engine.init_variables(), (),
+                                       *engine._round_args(0))
+            if not (math.isfinite(float(m["train_loss"])) and all(
+                    torch.isfinite(t).all() for t in v1.values())):
+                raise AssertionError(f"zoo {family}: a dropout round on the "
+                                     "card is not finite")
+            out[family] = dict(params=n, mode="eval", logit_err=logit_err,
+                               grad_err=grad_err)
+            print(f"[zoo] {family} ({n} params), eval mode: logits {logit_err:.3e} "
+                  f"of their largest (limit 1e-4), gradients {grad_err:.3e} of "
+                  f"their norm (limit 1e-3); a dropout round on the card: "
+                  f"train_loss {float(m['train_loss']):.6f} "
+                  f"({time.perf_counter() - t0:.1f} s, {card_line()})")
+            if logit_err > 1e-4 or grad_err > 1e-3:
+                raise AssertionError(f"zoo {family}: the card differs from the "
+                                     "CPU beyond the limits above")
+            continue
+        res = {}
+        for device in ("cuda", "cpu"):
+            engine = FedAvgEngine(trainer, data, cfg, device=device)
+            v0 = engine.init_variables()
+            v1, _, m = engine.round_fn(dict(v0), (), *engine._round_args(0))
+            res[device] = (v0, v1, float(m["train_loss"]))
+        (g0, g1, gl), (c0, c1, cl) = res["cuda"], res["cpu"]
+        update_distance(f"zoo {family}", g0, g1, c0, c1)   # inits, finite
+        d_card, norms = leaf_distances(g0, g1, c0, c1)
+        d_f32, _ = leaf_distances(c0, c1, c0, f64_round(trainer, data, c0))
+        whole_norm = math.sqrt(sum(v * v for v in norms.values()))
+        l2 = lambda d: math.sqrt(sum(v * v for v in d.values())) / whole_norm
+        whole, noise = l2(d_card), l2(d_f32)
+        limit = max(1e-3, 2 * noise)
+        rel = lambda d, k: d[k] / max(norms[k], 1e-3 * whole_norm)
+        leaf_limit = max(1e-2, 10 * noise)
+        worst, worst_name = max((rel(d_card, k), k) for k in norms)
+        out[family] = dict(params=n, stats=trainer.n_stats, mode="train",
+                           update_distance=whole, limit=limit, f32_noise=noise,
+                           worst_leaf=[worst_name, worst, leaf_limit])
+        print(f"[zoo] {family} ({n} params, {trainer.n_stats} statistics): "
+              f"update distance {whole:.3e} of its norm (limit {limit:.1e}; "
+              f"f32 against f64 on the CPU {noise:.3e}), worst leaf "
+              f"{worst_name} {worst:.3e} (limit {leaf_limit:.1e}); "
+              f"train_loss card {gl:.6f} CPU {cl:.6f} "
+              f"({time.perf_counter() - t0:.1f} s, {card_line()})")
+        if whole > limit or worst > leaf_limit:
+            raise AssertionError(f"zoo {family}: the card's round differs from "
+                                 "the CPU's beyond the limits above")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    return out
+
+
+def bn_layer_ms() -> list:
+    """One BatchNorm layer's training forward and backward at ResNet-56's
+    three stage shapes (bf16 x and scale, batch 32), device time a call
+    (cuda_ms over 5 calls: the ~40 launches of 20 calls take the host
+    longer to queue than cuda_ms's spin kernel lasts, and the card would
+    wait on the host inside the timed window), beside cuDNN's batch_norm
+    forward and backward on the same tensors as a yardstick."""
+    from fedml_tpu_torch.models.norms import BatchNorm
+    out = []
+    for c, hw in ((16, 32), (32, 16), (64, 8)):
+        bn = BatchNorm(c).to("cuda").to(torch.bfloat16)   # as on bf16 masters
+        x = torch.randn(BATCH, c, hw, hw, device="cuda", dtype=torch.bfloat16
+                        ).contiguous(memory_format=torch.channels_last)
+        x.requires_grad_()
+        dy = torch.randn_like(x)
+        ours = lambda: torch.autograd.backward(bn(x, True), dy)
+        lib = lambda: torch.autograd.backward(F.batch_norm(
+            x, None, None, bn.scale, bn.bias, True, 0.1, 1e-5), dy)
+        out.append(dict(shape=[BATCH, c, hw, hw], ms=cuda_ms(ours, reps=5),
+                        library_ms=cuda_ms(lib, reps=5)))
+        print(f"[resnet56 path] one BatchNorm layer {out[-1]['shape']} bf16, "
+              f"forward and backward: {out[-1]['ms'] * 1e3:.1f} us of device "
+              f"time (F.batch_norm: {out[-1]['library_ms'] * 1e3:.1f} us) "
+              f"({card_line()})")
+    return out
+
+
+def phase_resnet56_path(gen: torch.Generator) -> dict:
+    """ResNet-56 on CIFAR-10-shaped clients through MeshFedAvgEngine with
+    the main path's recipe (8 clients x 13 batches of 32, one epoch of SGD
+    at lr 0.1, bf16 compute on bf16 local masters, chunk 2), 3 rounds then
+    one evaluation.  Its row is 855,770 parameters and 4,256 BatchNorm
+    statistics, padded to 860,160; the fold kernel must run exactly once a
+    chunk (4 a round) and nothing else of the port's.  Then: the fold
+    against its plain version at [2, 860,160]; a round whose global
+    statistics must equal the plain weighted mean of the clients' trained
+    statistics rows (within 1e-6 of sum_k |w_k v_k| / sum(w), computed in
+    f64 on the host); and a profiled round."""
+    torch.backends.cudnn.allow_tf32 = True
+    data = synthetic_data(MAIN_CLIENTS, SAMPLES, seed=5)
+    cfg = FedConfig(model="resnet56", dataset="cifar10",
+                    client_num_in_total=MAIN_CLIENTS,
+                    client_num_per_round=MAIN_CLIENTS, epochs=1,
+                    batch_size=BATCH, lr=0.1, frequency_of_the_test=10_000)
+    trainer = ClientTrainer(create_model("resnet56", 10), lr=cfg.lr,
+                            train_dtype=torch.bfloat16)
+    row = (trainer.n_params, trainer.n_stats, trainer.spec.padded)
+    if row != (RESNET56_PARAMS, RESNET56_STATS, RESNET56_ROW):
+        raise AssertionError(f"ResNet-56 row {row}")
+    engine = MeshFedAvgEngine(trainer, data, cfg, chunk=MAIN_CHUNK,
+                              local_dtype=torch.bfloat16)
+    variables = engine.init_variables()
+    v0 = {k: v.clone() for k, v in variables.items()}
+    cohort, weights = engine.stream_cohort(0)
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    round_s, losses = [], []
+    for r in range(MAIN_ROUNDS):
+        t0 = time.perf_counter()
+        variables, _, m = engine.round_fn_streaming(variables, (), cohort,
+                                                    weights, r)
+        losses.append(float(m["train_loss"]))
+        round_s.append(time.perf_counter() - t0)
+    stats = engine.evaluate(variables)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expected = {"gn_forward": 0, "gn_backward": 0,
+                "wsum": MAIN_ROUNDS * (MAIN_CLIENTS // MAIN_CHUNK),
+                "sqnorm": 0, "clip_agg": 0}
+    if counts != expected:
+        raise AssertionError(f"resnet56 launches {counts} != {expected}")
+    if not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"resnet56: non-finite train loss {losses}")
+    if any(v.dtype != torch.float32 or not torch.isfinite(v).all()
+           for v in variables.values()):
+        raise AssertionError("resnet56: the global model left f32 or is not "
+                             "finite")
+    same = [k for k in v0 if torch.equal(variables[k], v0[k])]
+    if any(k in trainer.stat_names for k in same):
+        raise AssertionError(f"resnet56: statistics unchanged: {same}")
+    steady = statistics.mean(round_s[1:])
+    print(f"[resnet56 path] MeshFedAvgEngine(chunk={MAIN_CHUNK}, "
+          f"local_dtype=bf16), {MAIN_CLIENTS} clients x {BATCHES} batches of "
+          f"{BATCH}, ResNet-56 ({RESNET56_PARAMS} params + {RESNET56_STATS} "
+          f"statistics, row {RESNET56_ROW})")
+    print(f"[resnet56 path] train_loss per round {losses}; eval {stats}")
+    print(f"[resnet56 path] s/round {round_s} -> {steady:.4f} s/round over "
+          f"rounds 2-{MAIN_ROUNDS} ({card_line()})")
+    print(f"[resnet56 path] launches {counts} == expected (one fold a chunk); "
+          f"every statistics leaf moved, {len(same)} of "
+          f"{len(trainer.param_names)} parameter leaves did not (updates "
+          "under half a bf16 ulp on the bf16 local masters): "
+          + ", ".join(same[:4]))
+
+    fold_rec = fold_check(gen, RESNET56_ROW)
+    fold_rec["launches"] = counts["wsum"]
+    print(fold_line("ResNet-56 path", fold_rec))
+
+    n_p, n = trainer.train_len, trainer.spec.n
+    rows = []
+
+    def recording_fold(num, lanes, w, chunk_shards):
+        rows.append((lanes[:, n_p:n].double().cpu(), w.double().cpu()))
+        fedavg_fold(num, lanes, w, chunk_shards)
+
+    sums = engine._chunked(engine._local_flat(variables), cohort, weights,
+                           MAIN_ROUNDS, fold_fn=recording_fold)
+    new, _ = engine._finalize_from_sums(variables, sums)
+    got = trainer.flatten(new)[n_p:n].double().cpu()
+    V = torch.cat([r for r, _ in rows])
+    w = torch.cat([w for _, w in rows])
+    want = (w[:, None] * V).sum(0) / w.sum()
+    err = float((got - want).abs().max())
+    scale = (w[:, None] * V).abs().sum(0) / w.sum()
+    if not bool(((got - want).abs() <= 1e-6 * scale + 1e-12).all()):
+        raise AssertionError(f"resnet56: the global statistics are not the "
+                             f"weighted mean of the clients' (max err {err:.3e})")
+    print(f"[resnet56 path] global statistics segment ({n - n_p} values) = the "
+          f"plain weighted mean of the {len(V)} clients' statistics rows: max "
+          f"abs err {err:.3e} (limit 1e-6 of sum|w v| / sum w)")
+    prof = profile_round(engine, variables, (), cohort, weights, steady,
+                         tag="resnet56 path")
+    return dict(s_per_round=round_s, steady_s=steady, losses=losses,
+                eval=stats, launches=counts, fold=fold_rec,
+                stats_fold_max_abs_err=err, profile=prof,
+                bn_layer=bn_layer_ms())
+
+
+def phase_word_lstm() -> dict:
+    """A short word-LSTM round on MeshFedAvgEngine at full width (vocab
+    10,004, embed 96, LSTM 670; 4 clients x 8 batches of 16 sequences of
+    20 tokens, f32 masters, chunk 2), with has_time_axis and
+    eval_ignore_id=0: the fold launches exactly once a chunk, cuDNN is
+    not asked to compact the LSTM's weights (no "not part of single
+    contiguous chunk" warning), and one step's device work includes the
+    LSTM kernels."""
+    import warnings
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    data = zoo_data("stackoverflow", 4, 8 * 16, 16, seed=7)
+    cfg = FedConfig(model="rnn_stackoverflow", dataset="stackoverflow_nwp",
+                    client_num_in_total=4, client_num_per_round=4, epochs=1,
+                    batch_size=16, lr=0.3, frequency_of_the_test=10_000)
+    trainer = zoo_trainer("word-LSTM", lr=cfg.lr, eval_ignore_id=0)
+    engine = MeshFedAvgEngine(trainer, data, cfg, chunk=MAIN_CHUNK)
+    variables = engine.init_variables()
+    cohort, weights = engine.stream_cohort(0)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        variables, _, m = engine.round_fn_streaming(variables, (), cohort,
+                                                    weights)
+        loss = float(m["train_loss"])
+        dt = time.perf_counter() - t0
+        stats = engine.evaluate(variables)
+    counts = launch_counts()
+    compaction = [str(w.message) for w in caught
+                  if "contiguous chunk" in str(w.message)]
+    if counts["wsum"] != 4 // MAIN_CHUNK or compaction or not math.isfinite(loss):
+        raise AssertionError(f"word-LSTM round: launches {counts}, loss {loss}, "
+                             f"compaction warnings {compaction[:1]}")
+    n_eval = int((data.test_global["y"] != 0).sum())
+    sums = trainer.evaluate(trainer.flatten(variables),
+                            engine._eval_shards["test"])
+    if int(sums["count"]) != n_eval:
+        raise AssertionError(f"word-LSTM eval counted {int(sums['count'])} "
+                             f"positions, not the {n_eval} non-pad ones")
+    flat = trainer.flatten(variables)
+    batch = {k: t[0, 0] for k, t in cohort.items()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(flat, batch)
+        torch.cuda.synchronize()
+    lstm = sorted({e.key for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and ("lstm" in e.key.lower() or "rnn" in e.key.lower())})
+    if not lstm:
+        raise AssertionError("word-LSTM step ran no LSTM kernel on the card")
+    print(f"[word-LSTM] MeshFedAvgEngine(chunk={MAIN_CHUNK}), 4 clients x 8 "
+          f"batches of 16, vocab 10004, T 20: train_loss {loss:.6f}, {dt:.3f} s "
+          f"(first round, {card_line()}); eval {stats} ({n_eval} non-pad "
+          f"positions); launches {counts}; compaction warnings 0; LSTM kernels "
+          + ", ".join(k[:60] for k in lstm[:4]))
+    return dict(train_loss=loss, first_round_s=dt, eval=stats,
+                launches=counts, lstm_kernels=lstm)
+
+
 def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
-                counts: dict, robust_counts: dict) -> dict:
+                counts: dict, robust_counts: dict, resnet56: dict) -> dict:
     """One entry per ported kernel.  GroupNorm's numbers are per training
     step: its 20 launches, five at each stage shape, summed, with bf16
     gamma/beta (ms_f32_gamma: with f32 gamma; layer_ms_per_step: the
@@ -897,7 +1350,9 @@ def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
         bound_ms=fold_rec["bound"][0], bound_by=fold_rec["bound"][1],
         library_ms=fold_rec["library_ms"],
         unit=f"one chunk fold: [{MAIN_CHUNK}, P] bf16 into f32 acc",
-        finalize=fold_rec["finalize"]))
+        finalize=fold_rec["finalize"],
+        resnet56_path={k: (v[0] if k == "bound" else v)
+                       for k, v in resnet56["fold"].items()}))
     for name in ("sqnorm", "clip_agg"):
         main, other = robust[name]
         entries.append(dict(
@@ -931,8 +1386,14 @@ def main() -> int:
     phase_orderstat()
     robust_counts = phase_robust_main_path()
     phase_side_engines()
+    zoo = phase_zoo()
+    resnet56 = phase_resnet56_path(gen)
+    word_lstm = phase_word_lstm()
+    print(json.dumps({"zoo": zoo, "resnet56_path": {
+        k: v for k, v in resnet56.items() if k != "fold"},
+        "word_lstm": word_lstm}, default=str))
     print(json.dumps(kernel_line(gn_fwd, gn_bwd, fold_rec, robust_rec, counts,
-                                 robust_counts)))
+                                 robust_counts, resnet56)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

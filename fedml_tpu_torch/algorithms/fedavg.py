@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 
 from fedml_tpu_torch.core.sampling import ClientSampler
-from fedml_tpu_torch.core.trainer import ClientTrainer
+from fedml_tpu_torch.core.trainer import ClientTrainer, client_generator
 from fedml_tpu_torch.data.federated import FederatedData
 from fedml_tpu_torch.ops.aggregate import weighted_mean
 from fedml_tpu_torch.utils.config import FedConfig
@@ -63,27 +63,34 @@ class FedAvgEngine:
     # ---- aggregation --------------------------------------------------------
     def aggregate(self, stacked_variables: dict, weights: torch.Tensor,
                   global_variables: dict, server_state):
-        """Sample-weighted mean over all variables (FedAVGAggregator.py:74-81)."""
+        """Sample-weighted mean over ALL variables, parameters and BatchNorm
+        statistics alike, as the reference iterates over every state_dict
+        key (FedAVGAggregator.py:74-81)."""
         return weighted_mean(stacked_variables, weights), server_state
 
     # ---- one federated round ------------------------------------------------
-    def _train_cohort(self, flat: torch.Tensor, cohort: dict):
-        """Every client's local training from the global flat vector:
-        (trained rows, losses [K], sample counts [K])."""
+    def _train_cohort(self, flat: torch.Tensor, cohort: dict,
+                      round_idx: int = 0):
+        """Every client's local training from the global flat vector, each
+        with its own dropout generator: (trained rows, losses [K], sample
+        counts [K])."""
         global_params = flat if self.trainer.prox_mu > 0 else None
         rows, losses, ns = [], [], []
         for i in range(cohort["mask"].shape[0]):
             v, loss, n = self.trainer.local_train(
                 flat, {k: t[i] for k, t in cohort.items()}, self.cfg.epochs,
-                global_params=global_params)
+                global_params=global_params,
+                generator=client_generator(self.cfg.seed, round_idx, i,
+                                           self.device))
             rows.append(v)
             losses.append(loss)
             ns.append(n)
         return rows, torch.stack(losses), torch.stack(ns)
 
-    def _round(self, variables: dict, server_state, cohort: dict):
+    def _round(self, variables: dict, server_state, cohort: dict,
+               round_idx: int = 0):
         rows, losses, ns = self._train_cohort(self.trainer.flatten(variables),
-                                              cohort)
+                                              cohort, round_idx)
         new_variables, server_state = self.aggregate(
             stack_rows(self.trainer, rows), ns, variables, server_state)
         train_loss = (losses * ns).sum() / ns.sum()
@@ -99,7 +106,7 @@ class FedAvgEngine:
 
     def _round_args(self, round_idx: int) -> tuple:
         cohort, _ = self.data.cohort(self.sampler.sample(round_idx), self.device)
-        return (cohort,)
+        return cohort, round_idx
 
     def run(self, variables: Optional[dict] = None,
             rounds: Optional[int] = None) -> dict:

@@ -7,10 +7,11 @@ Gaussian noise on the aggregate; krum, multi-krum, coordinate median and
 trimmed mean beside it.
 
 ``norm_clip`` aggregates through ``ops.robust_weighted_mean``: on the card,
-the squared-distance and clipped-fold kernels.  The JAX engine averages its
-non-param collections by ``tree_weighted_mean``; the port's variables are
-the model's parameters only, so every defense sees all of them.  The noise
-comes from a generator the engine owns, seeded from ``cfg.seed``.
+the squared-distance and clipped-fold kernels.  Every defense sees the
+model's parameters only; the collections (BatchNorm statistics) take the
+plain sample-weighted mean, as in the JAX engine (fedavg_robust.py:77-79).
+The noise comes from a generator the engine owns, seeded from
+``cfg.seed``.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Callable, Optional
 import torch
 
 from fedml_tpu_torch.algorithms.fedavg import FedAvgEngine
+from fedml_tpu_torch.core.pytree import tree_weighted_mean
 from fedml_tpu_torch.core.robust import (add_weak_dp_noise, coordinate_median,
                                          default_multi_krum_m, krum_select,
                                          multi_krum_select, trimmed_mean)
@@ -54,9 +56,9 @@ class FedAvgRobustEngine(FedAvgEngine):
 
     def aggregate(self, stacked_variables: dict, weights: torch.Tensor,
                   global_variables: dict, server_state):
-        params = stacked_variables
         if self.attack_fn is not None:
-            params = self.attack_fn(params)
+            stacked_variables = self.attack_fn(stacked_variables)
+        params = {k: stacked_variables[k] for k in self.trainer.param_names}
         if self.defense == "norm_clip":
             new = robust_weighted_mean(params, weights, global_variables,
                                        self.cfg.norm_bound)
@@ -74,6 +76,9 @@ class FedAvgRobustEngine(FedAvgEngine):
             new = coordinate_median(params)
         else:
             new = trimmed_mean(params, max(self.n_byzantine, 1))
+        new.update(tree_weighted_mean(
+            {k: stacked_variables[k] for k in self.trainer.stat_names},
+            weights))
         return new, server_state
 
     def evaluate_backdoor(self, variables: dict, poison_shard: dict) -> dict:

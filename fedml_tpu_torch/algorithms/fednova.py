@@ -8,7 +8,8 @@ w_new = w_global - tau_eff * d, tau_eff = sum_i p_i tau_i.
 Written as w_new = g + sum_i cf_i (w_i - g) with cf_i = p_i tau_eff /
 max(tau_i, 1), this is the clipped fold's in-place form
 (``ops.aggregate.shift_toward``), so on the card it runs through that
-kernel.
+kernel.  It applies to the parameters; the collections (BatchNorm
+statistics) take the plain p-weighted mean (fednova.py:62-69).
 """
 from __future__ import annotations
 
@@ -27,15 +28,19 @@ def fednova_tau(shard: dict, epochs: int) -> torch.Tensor:
 
 
 class FedNovaEngine(FedAvgEngine):
-    def _round(self, variables: dict, server_state, cohort: dict):
+    def _round(self, variables: dict, server_state, cohort: dict,
+               round_idx: int = 0):
         g = self.trainer.flatten(variables, torch.float32)
-        rows, losses, ns = self._train_cohort(g, cohort)
+        rows, losses, ns = self._train_cohort(g, cohort, round_idx)
+        rows = torch.stack(rows).float()
         taus = fednova_tau(cohort, self.cfg.epochs)
         p = ns / ns.sum()
         tau_eff = (p * taus).sum()
+        r = self.trainer.train_len
         # g is a fresh buffer that training only read: update it in place
-        shift_toward(g, torch.stack(rows).float(),
+        shift_toward(g[:r], rows[:, :r],
                      (p * tau_eff / torch.clamp(taus, min=1.0)).contiguous())
+        g[r:] = (p[:, None] * rows[:, r:]).sum(dim=0)
         new_variables = {k: v.to(variables[k].dtype)
                          for k, v in self.trainer.unflatten(g).items()}
         train_loss = (losses * ns).sum() / ns.sum()

@@ -131,13 +131,17 @@ def make_server_optimizer(name: str, lr: float, momentum: float = 0.9):
     raise ValueError(f"unknown server optimizer {name!r}")
 
 
-def server_step(tx, avg: dict, global_variables: dict, server_state):
-    """One server-optimizer step on the pseudo-gradient w_global - w_avg:
-    returns (new variables, new optimizer state)."""
-    pseudo_grad = tree_sub(global_variables, avg)
-    updates, server_state = tx.update(pseudo_grad, server_state,
-                                      global_variables)
-    return tree_add(global_variables, updates), server_state
+def server_step(tx, avg: dict, global_variables: dict, server_state,
+                param_names):
+    """One server-optimizer step on the parameters' pseudo-gradient
+    w_global - w_avg; the collections (BatchNorm statistics) take the
+    average (fedopt.py:54-59).  Returns (new variables, new optimizer
+    state)."""
+    params = lambda tree: {k: tree[k] for k in param_names}
+    g = params(global_variables)
+    updates, server_state = tx.update(tree_sub(g, params(avg)), server_state,
+                                      g)
+    return {**avg, **tree_add(g, updates)}, server_state
 
 
 class FedOptEngine(FedAvgEngine):
@@ -150,10 +154,12 @@ class FedOptEngine(FedAvgEngine):
         super().__init__(trainer, data, cfg, device=device)
 
     def server_init(self, variables: dict):
-        return self.server_tx.init(variables)
+        return self.server_tx.init({k: variables[k]
+                                    for k in self.trainer.param_names})
 
     def aggregate(self, stacked_variables: dict, weights: torch.Tensor,
                   global_variables: dict, server_state):
         return server_step(self.server_tx,
                            weighted_mean(stacked_variables, weights),
-                           global_variables, server_state)
+                           global_variables, server_state,
+                           self.trainer.param_names)

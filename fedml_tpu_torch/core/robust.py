@@ -4,8 +4,8 @@ Parity with reference fedml_core/robustness/robust_aggregation.py: norm
 -difference clipping ``w_t + clip(w_local - w_t)`` (:38-49) and weak-DP
 Gaussian noise (:51-55); plus krum, multi-krum, coordinate median and
 trimmed mean over the stacked client axis.  The caller passes the params
-only: the port's variables are the model's parameters, so nothing else can
-enter a norm.
+only (``ClientTrainer.param_names``, or a row's parameter segment): no
+BatchNorm statistic may enter a norm or an order statistic.
 
 Where the JAX package's numbers differ from PyTorch's defaults:
 * ``jnp.median`` of an even count averages the two middle values (and is

@@ -11,16 +11,18 @@ of an NHWC tensor is already such a tensor.
 Convolutions pad like flax's ``padding="SAME"``: a stride-2 3x3 conv on an
 even input pads (0, 1), not (1, 1).  GroupNorm uses flax's epsilon, 1e-6.
 The head is a spatial mean and a Dense layer with bias; convs have no bias.
+Submodules carry flax's names (``Conv_0``, ``GroupNorm_0``,
+``BasicBlockGN_k``, ``Dense_0``), as in the rest of the zoo.
 """
 from __future__ import annotations
 
-import math
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fedml_tpu_torch.models.layers import Dense, nhwc_to_nchw
 from fedml_tpu_torch.ops.groupnorm import GroupNorm
 
 FLAX_GN_EPS = 1e-6     # flax nn.GroupNorm's default epsilon
@@ -34,26 +36,29 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
 
 
 class SameConv2d(nn.Conv2d):
-    """Bias-free conv with flax "SAME" padding (asymmetric where XLA's is)."""
+    """Conv with flax "SAME" padding (asymmetric where XLA's is); no bias
+    unless asked, `groups` for depthwise convs."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1):
-        super().__init__(in_ch, out_ch, kernel, stride=stride, bias=False)
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 groups: int = 1, bias: bool = False):
+        super().__init__(in_ch, out_ch, kernel, stride=stride, groups=groups,
+                         bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (k, _), (s, _) = self.kernel_size, self.stride
+        conv = lambda t, **kw: F.conv2d(t, self.weight, self.bias,
+                                        groups=self.groups, **kw)
         if k == 1:
             # a 1x1 stride-s conv reads every s-th pixel and pads nothing;
             # slicing first is the same function, and keeps clear of
             # oneDNN's strided 1x1 channels_last backward, whose weight
             # gradient is wrong on the CPU for narrow inputs
-            return F.conv2d(x[:, :, ::s, ::s], self.weight)
+            return conv(x[:, :, ::s, ::s])
         top, bottom = same_padding(x.shape[2], k, s)
         left, right = same_padding(x.shape[3], k, s)
         if top == bottom and left == right:
-            return F.conv2d(x, self.weight, stride=self.stride,
-                            padding=(top, left))
-        return F.conv2d(F.pad(x, (left, right, top, bottom)), self.weight,
-                        stride=self.stride)
+            return conv(x, stride=self.stride, padding=(top, left))
+        return conv(F.pad(x, (left, right, top, bottom)), stride=self.stride)
 
 
 def _norm(gn: GroupNorm, x: torch.Tensor) -> torch.Tensor:
@@ -67,19 +72,19 @@ class BasicBlockGN(nn.Module):
     def __init__(self, in_filters: int, filters: int, strides: int = 1,
                  groups: int = 2):
         super().__init__()
-        self.conv0 = SameConv2d(in_filters, filters, 3, strides)
-        self.gn0 = GroupNorm(filters, groups, FLAX_GN_EPS)
-        self.conv1 = SameConv2d(filters, filters, 3)
-        self.gn1 = GroupNorm(filters, groups, FLAX_GN_EPS)
+        self.Conv_0 = SameConv2d(in_filters, filters, 3, strides)
+        self.GroupNorm_0 = GroupNorm(filters, groups, FLAX_GN_EPS)
+        self.Conv_1 = SameConv2d(filters, filters, 3)
+        self.GroupNorm_1 = GroupNorm(filters, groups, FLAX_GN_EPS)
         self.has_shortcut = strides != 1 or in_filters != filters
         if self.has_shortcut:
-            self.shortcut_conv = SameConv2d(in_filters, filters, 1, strides)
-            self.shortcut_gn = GroupNorm(filters, groups, FLAX_GN_EPS)
+            self.Conv_2 = SameConv2d(in_filters, filters, 1, strides)
+            self.GroupNorm_2 = GroupNorm(filters, groups, FLAX_GN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(_norm(self.gn0, self.conv0(x)))
-        y = _norm(self.gn1, self.conv1(y))
-        residual = (_norm(self.shortcut_gn, self.shortcut_conv(x))
+        y = F.relu(_norm(self.GroupNorm_0, self.Conv_0(x)))
+        y = _norm(self.GroupNorm_1, self.Conv_1(y))
+        residual = (_norm(self.GroupNorm_2, self.Conv_2(x))
                     if self.has_shortcut else x)
         return F.relu(y + residual)
 
@@ -94,45 +99,25 @@ class ResNet18GN(nn.Module):
             raise ValueError(
                 "norm_fusion_barrier is an XLA fusion hint of the JAX package "
                 "(lax.optimization_barrier) and has no PyTorch counterpart")
-        self.conv0 = SameConv2d(in_channels, num_filters, 3)
-        self.gn0 = GroupNorm(num_filters, groups, FLAX_GN_EPS)
-        blocks, in_f = [], num_filters
+        self.Conv_0 = SameConv2d(in_channels, num_filters, 3)
+        self.GroupNorm_0 = GroupNorm(num_filters, groups, FLAX_GN_EPS)
+        self.blocks, in_f = [], num_filters
         for i, n_blocks in enumerate(stage_sizes):
             for j in range(n_blocks):
                 strides = 2 if i > 0 and j == 0 else 1
-                blocks.append(BasicBlockGN(in_f, num_filters * 2 ** i,
-                                           strides, groups))
+                name = f"BasicBlockGN_{len(self.blocks)}"
+                self.add_module(name, BasicBlockGN(in_f, num_filters * 2 ** i,
+                                                   strides, groups))
+                self.blocks.append(name)
                 in_f = num_filters * 2 ** i
-        self.blocks = nn.ModuleList(blocks)
-        self.dense = nn.Linear(in_f, num_classes)
+        self.Dense_0 = Dense(in_f, num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [N, H, W, C] images -> [N, num_classes] logits."""
-        x = x.permute(0, 3, 1, 2)             # NHWC -> channels_last NCHW
-        x = F.relu(_norm(self.gn0, self.conv0(x)))
-        for block in self.blocks:
-            x = block(x)
-        return self.dense(x.mean(dim=(2, 3)))
-
-
-def init_params(model: nn.Module, generator: torch.Generator) -> dict:
-    """Fresh parameters with flax's default initializers, drawn on the CPU
-    from `generator` (so the same seed gives the same weights on any
-    device): conv and dense kernels lecun-normal (truncated normal, fan-in
-    scaling), biases zero, GroupNorm scales one."""
-    out = {}
-    for name, p in model.named_parameters():
-        if name.endswith("scale"):
-            out[name] = torch.ones(p.shape)
-        elif name.endswith("bias"):
-            out[name] = torch.zeros(p.shape)
-        else:
-            fan_in = math.prod(p.shape[1:])
-            # flax variance_scaling(1, "fan_in", "truncated_normal"):
-            # unit-variance truncated normal on [-2, 2], rescaled
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            t = torch.empty(p.shape)
-            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
-                                        generator=generator)
-            out[name] = t * std
-    return out
+    def forward(self, x: torch.Tensor, train: bool = False,
+                rng: torch.Generator | None = None) -> torch.Tensor:
+        """x: [N, H, W, C] images -> [N, num_classes] logits (no state and
+        no randomness: `train` and `rng` are taken and unused)."""
+        x = nhwc_to_nchw(x)
+        x = F.relu(_norm(self.GroupNorm_0, self.Conv_0(x)))
+        for name in self.blocks:
+            x = getattr(self, name)(x)
+        return self.Dense_0(x.mean(dim=(2, 3)))

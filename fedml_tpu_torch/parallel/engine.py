@@ -15,6 +15,14 @@ stays f32.  The order-statistic defenses (krum, multi-krum, median,
 trimmed mean) keep the chunk's rows instead, as the [K, P] f32 matrix they
 need.
 
+A row is the trainer's flat vector: the parameters, then the collections
+(BatchNorm statistics) and the zero pad.  FedAvg folds the whole row in
+one launch, statistics and parameters alike (fedavg.py:74-84).  The other
+engines apply their rule to the parameter segment ``[:trainer.train_len]``
+only and fold the rest, statistics and pad, with the plain weighted fold
+(engine.py:1101, :1158-1160, :1336): a norm clip or a server optimizer
+applied to BatchNorm statistics would be a wrong result.
+
 The JAX engine vmaps a chunk's clients; ``torch.func.vmap`` cannot map
 over a ctypes kernel, so here a chunk's lanes run one after another.
 Multi-card meshes, block streaming and upload prefetch are later slices
@@ -34,7 +42,7 @@ from fedml_tpu_torch.algorithms.fednova import fednova_tau
 from fedml_tpu_torch.algorithms.fedopt import make_server_optimizer, server_step
 from fedml_tpu_torch.core import robust as robust_ops
 from fedml_tpu_torch.core.pytree import clip_scale
-from fedml_tpu_torch.core.trainer import ClientTrainer
+from fedml_tpu_torch.core.trainer import ClientTrainer, client_generator
 from fedml_tpu_torch.data.federated import FederatedData
 from fedml_tpu_torch.ops.aggregate import client_sqnorms, clip_fold, fold
 from fedml_tpu_torch.utils.config import FedConfig
@@ -79,20 +87,31 @@ def fedavg_fold(num: torch.Tensor, lanes: torch.Tensor, w: torch.Tensor,
     fold(num, lanes, w)
 
 
+def fold_collections(trainer: ClientTrainer, num: torch.Tensor,
+                     lanes: torch.Tensor, w: torch.Tensor) -> None:
+    """The plain weighted fold of the segment after the parameters
+    (collections and pad), where a model has collections."""
+    if trainer.n_stats:
+        r = trainer.train_len
+        fold(num[r:], lanes[:, r:], w)
+
+
 def chunked_weighted_train(trainer: ClientTrainer, flat: torch.Tensor,
                            cohort: dict, weights: torch.Tensor, epochs: int,
                            chunk_cap: int = 8,
                            fold_fn: Optional[Callable] = fedavg_fold,
-                           emit_flat_params: bool = False):
+                           emit_flat_params: bool = False, seed: int = 0,
+                           round_idx: int = 0):
     """Train the cohort chunk by chunk from the round's flat vector `flat`
     (in the local dtype), folding each chunk's trained [chunk, P] lanes
     into the flat f32 carry with ``fold_fn(num, lanes, w, chunk_shards)``.
-    Returns (num [P] f32, den = sum w, lsum = sum w*loss).
+    Lane i trains with ``client_generator(seed, round_idx, i)`` for
+    dropout.  Returns (num [P] f32, den = sum w, lsum = sum w*loss).
 
     With `emit_flat_params` it also returns the [K, P] f32 matrix of
-    trained params, chunk-pad lanes dropped (engine.py:1339), for the
-    order-statistic defenses; those pass ``fold_fn=None`` (no fold: the
-    port's variables are params only, so nothing else needs the sum)."""
+    trained rows, chunk-pad lanes dropped (engine.py:1339), for the
+    order-statistic defenses, which fold only the collections
+    (``fold_fn=None`` for a model without them)."""
     k = weights.shape[0]
     global_params = flat if trainer.prox_mu > 0 else None
     cohort, weights = pad_and_chunk(cohort, weights.float(), chunk_cap)
@@ -106,7 +125,10 @@ def chunked_weighted_train(trainer: ClientTrainer, flat: torch.Tensor,
         for j in range(weights.shape[1]):
             v, loss, _ = trainer.local_train(
                 flat, {key: t[j] for key, t in chunk_shards.items()}, epochs,
-                global_params=global_params)
+                global_params=global_params,
+                generator=client_generator(seed, round_idx,
+                                           c * weights.shape[1] + j,
+                                           flat.device))
             lanes.append(v)
             losses.append(loss)
         lanes = torch.stack(lanes)
@@ -148,18 +170,27 @@ class MeshFedAvgEngine(FedAvgEngine):
         return cohort, torch.from_numpy(w).to(self.device)
 
     def _round_args(self, round_idx: int) -> tuple:
-        return self.stream_cohort(round_idx)
+        return (*self.stream_cohort(round_idx), round_idx)
 
     # -- the round ------------------------------------------------------------
     def _local_flat(self, variables: dict) -> torch.Tensor:
         """The round's global model as one flat vector in the local dtype."""
         return self.trainer.flatten(cast_local(variables, self.local_dtype))
 
-    def _shard_sums(self, variables: dict, cohort: dict, weights: torch.Tensor):
-        """(sum w*v as a flat f32 vector, sum w, sum w*loss) over the cohort."""
+    def _chunked(self, flat: torch.Tensor, cohort: dict,
+                 weights: torch.Tensor, round_idx: int, **kw):
+        """chunked_weighted_train with the engine's epochs, chunk and
+        seed."""
         return chunked_weighted_train(
-            self.trainer, self._local_flat(variables), cohort, weights,
-            self.cfg.epochs, chunk_cap=self.chunk)
+            self.trainer, flat, cohort, weights, self.cfg.epochs,
+            chunk_cap=self.chunk, seed=self.cfg.seed, round_idx=round_idx,
+            **kw)
+
+    def _shard_sums(self, variables: dict, cohort: dict, weights: torch.Tensor,
+                    round_idx: int = 0):
+        """(sum w*v as a flat f32 vector, sum w, sum w*loss) over the cohort."""
+        return self._chunked(self._local_flat(variables), cohort, weights,
+                             round_idx)
 
     def _finalize_from_sums(self, variables: dict, sums):
         """(aggregated model, mean loss): divide in f32, cast each leaf back
@@ -169,16 +200,19 @@ class MeshFedAvgEngine(FedAvgEngine):
         return ({k: v.to(variables[k].dtype) for k, v in avg.items()},
                 lsum / den)
 
-    def _shard_body(self, variables: dict, cohort: dict, weights: torch.Tensor):
+    def _shard_body(self, variables: dict, cohort: dict, weights: torch.Tensor,
+                    round_idx: int = 0):
         """(aggregated model, mean loss) of the cohort: sums, then divide."""
         return self._finalize_from_sums(
-            variables, self._shard_sums(variables, cohort, weights))
+            variables, self._shard_sums(variables, cohort, weights, round_idx))
 
     def round_fn_streaming(self, variables: dict, server_state, cohort: dict,
-                           weights: torch.Tensor):
+                           weights: torch.Tensor, round_idx: int = 0):
         """One round on an uploaded cohort (stream_cohort): returns
-        (new variables, server state, {"train_loss"})."""
-        avg, train_loss = self._shard_body(variables, cohort, weights)
+        (new variables, server state, {"train_loss"}).  `round_idx` seeds
+        the clients' dropout generators."""
+        avg, train_loss = self._shard_body(variables, cohort, weights,
+                                           round_idx)
         new_variables, server_state = self.server_update(avg, variables,
                                                          server_state)
         return new_variables, server_state, {"train_loss": train_loss}
@@ -211,12 +245,13 @@ class MeshFedOptEngine(MeshFedAvgEngine):
         super().__init__(trainer, data, cfg, **kw)
 
     def server_init(self, variables: dict):
-        return self.server_tx.init(variables)
+        return self.server_tx.init({k: variables[k]
+                                    for k in self.trainer.param_names})
 
     def server_update(self, avg_variables: dict, global_variables: dict,
                       server_state):
         return server_step(self.server_tx, avg_variables, global_variables,
-                           server_state)
+                           server_state, self.trainer.param_names)
 
 
 class MeshFedNovaEngine(MeshFedAvgEngine):
@@ -225,29 +260,34 @@ class MeshFedNovaEngine(MeshFedAvgEngine):
     tau_eff = sum_i w_i tau_i / sum(w).  The d-fold is the clipped-fold
     kernel's accumulate form with base 0 and cf = -w / max(tau, 1); g is
     the round's model in the local dtype, as the JAX engine's chunk body
-    reads it."""
+    reads it.  The collections take the plain weighted mean
+    (engine.py:1158-1160)."""
 
-    def _shard_sums(self, variables: dict, cohort: dict, weights: torch.Tensor):
-        """(sum w*(g - v)/tau, sum w, sum w*tau, sum w*loss)."""
+    def _shard_sums(self, variables: dict, cohort: dict, weights: torch.Tensor,
+                    round_idx: int = 0):
+        """(sum w*(g - v)/tau over the parameters then sum w*v over the
+        collections, sum w, sum w*tau, sum w*loss)."""
         g = self._local_flat(variables)
-        epochs = self.cfg.epochs
+        epochs, r = self.cfg.epochs, self.trainer.train_len
 
         def nova_fold(num, lanes, w, chunk_shards):
             tau = fednova_tau(chunk_shards, epochs)
-            clip_fold(num, lanes, g, (-w / torch.clamp(tau, min=1.0)).contiguous(),
-                      0.0)
+            clip_fold(num[:r], lanes[:, :r], g[:r],
+                      (-w / torch.clamp(tau, min=1.0)).contiguous(), 0.0)
+            fold_collections(self.trainer, num, lanes, w)
 
-        dsum, den, lsum = chunked_weighted_train(
-            self.trainer, g, cohort, weights, epochs, chunk_cap=self.chunk,
-            fold_fn=nova_fold)
+        dsum, den, lsum = self._chunked(g, cohort, weights, round_idx,
+                                        fold_fn=nova_fold)
         tsum = (weights.float() * fednova_tau(cohort, epochs)).sum()
         return dsum, den, tsum, lsum
 
     def _finalize_from_sums(self, variables: dict, sums):
         dsum, den, tsum, lsum = sums
         tau_eff = tsum / den
+        r = self.trainer.train_len
         g = self.trainer.flatten(variables, torch.float32)
-        new = self.trainer.unflatten(g - tau_eff * dsum / den)
+        new = self.trainer.unflatten(torch.cat(
+            [g[:r] - tau_eff * dsum[:r] / den, dsum[r:] / den]))
         return ({k: v.to(variables[k].dtype) for k, v in new.items()},
                 lsum / den)
 
@@ -296,30 +336,37 @@ class MeshRobustEngine(MeshFedAvgEngine):
                 avg_variables, self.noise_generator, self.cfg.stddev)
         return avg_variables, server_state
 
-    def _shard_sums(self, variables: dict, cohort: dict, weights: torch.Tensor):
+    def _shard_sums(self, variables: dict, cohort: dict, weights: torch.Tensor,
+                    round_idx: int = 0):
         g = self._local_flat(variables)
         bound, row = self.cfg.norm_bound, self.trainer.spec.padded
+        r = self.trainer.train_len
 
         def clipped_fold(num, lanes, w, chunk_shards):
-            # the norm is over params only: a row must be the trainer's
-            # params layout and nothing else
+            # the norm is over the parameter segment: a row must be the
+            # trainer's layout and nothing else
             if lanes.shape[1] != row:
                 raise ValueError(f"norm_clip lanes hold {lanes.shape[1]} "
-                                 f"elements, the params layout {row}")
-            s = clip_scale(client_sqnorms(lanes, g), bound)
-            clip_fold(num, lanes, g, (w * s).contiguous(), w.sum())
+                                 f"elements, the trainer's layout {row}")
+            s = clip_scale(client_sqnorms(lanes[:, :r], g[:r]), bound)
+            clip_fold(num[:r], lanes[:, :r], g[:r], (w * s).contiguous(),
+                      w.sum())
+            fold_collections(self.trainer, num, lanes, w)
 
-        return chunked_weighted_train(
-            self.trainer, g, cohort, weights, self.cfg.epochs,
-            chunk_cap=self.chunk, fold_fn=clipped_fold)
+        return self._chunked(g, cohort, weights, round_idx,
+                             fold_fn=clipped_fold)
 
-    def _shard_body(self, variables: dict, cohort: dict, weights: torch.Tensor):
+    def _shard_body(self, variables: dict, cohort: dict, weights: torch.Tensor,
+                    round_idx: int = 0):
         if self.defense == "norm_clip":
-            return super()._shard_body(variables, cohort, weights)
-        _, den, lsum, flats = chunked_weighted_train(
-            self.trainer, self._local_flat(variables), cohort, weights,
-            self.cfg.epochs, chunk_cap=self.chunk, fold_fn=None,
+            return super()._shard_body(variables, cohort, weights, round_idx)
+        trainer, r = self.trainer, self.trainer.train_len
+        num, den, lsum, flats = self._chunked(
+            self._local_flat(variables), cohort, weights, round_idx,
+            fold_fn=((lambda num, lanes, w, _: fold_collections(
+                trainer, num, lanes, w)) if trainer.n_stats else None),
             emit_flat_params=True)
+        flats = flats[:, :r]
         if self.defense == "krum":
             new_flat = flats[robust_ops.krum_select_flat(flats,
                                                          self.n_byzantine)]
@@ -332,6 +379,6 @@ class MeshRobustEngine(MeshFedAvgEngine):
         else:
             new_flat = robust_ops.trimmed_mean_axis0(
                 flats, max(self.n_byzantine, 1))
-        new = self.trainer.unflatten(new_flat)
+        new = self.trainer.unflatten(torch.cat([new_flat, num[r:] / den]))
         return ({k: v.to(variables[k].dtype) for k, v in new.items()},
                 lsum / den)

@@ -96,16 +96,17 @@ def test_init_follows_flax_initializers():
     p = init_params(tm, torch.Generator().manual_seed(0))
     q = init_params(tm, torch.Generator().manual_seed(0))
     assert all(torch.equal(p[k], q[k]) for k in p)
-    assert torch.equal(p["gn0.scale"], torch.ones(8))
-    assert not p["dense.bias"].any()
-    w = p["blocks.7.conv1.weight"]          # fan_in = 64 * 9
+    assert torch.equal(p["GroupNorm_0.scale"], torch.ones(8))
+    assert not p["Dense_0.bias"].any()
+    w = p["BasicBlockGN_7.Conv_1.weight"]   # fan_in = 64 * 9
     assert abs(float(w.std()) - (1 / 576) ** 0.5) < 0.1 * (1 / 576) ** 0.5
     assert float(w.abs().max()) <= 2 * (1 / 576) ** 0.5 / 0.87962566 + 1e-6
 
 
 def test_unported_names_raise():
-    with pytest.raises(ValueError, match="slice 3"):
-        create_model("cnn", 10)
+    for name in ("darts", "segnet"):
+        with pytest.raises(NotImplementedError, match="slice 7"):
+            create_model(name, 10)
     with pytest.raises(ValueError, match="norm_fusion_barrier"):
         create_model("resnet18_gn", 10, norm_fusion_barrier=True)
 
