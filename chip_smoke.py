@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FedAvg, robust-aggregation and model-zoo
-paths on one CUDA card, and hold every hand-written kernel against its
-plain PyTorch version.
+"""Drive the PyTorch port's FedAvg, robust-aggregation, model-zoo and
+data-layer paths on one CUDA card, and hold every hand-written kernel
+against its plain PyTorch version.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -31,7 +31,10 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    where its time goes;
 6. one f32 norm-clipped FedAvgRobustEngine round (3 clients x 2 batches
    of 32, full width, TF32 off) on the card and on the CPU, with the bound
-   set so that some clients are clipped and some are not;
+   set so that some clients are clipped and some are not; then the
+   distance taken apart: the card's squared-distance and clipped-fold
+   kernels on the CPU's trained rows against f64, FedAvg's round on the
+   same clients card against CPU, and each client's trained row;
 7. MeshRobustEngine's order-statistic defenses (krum, multi-krum, median,
    trimmed mean): one f32 round each, 4 clients x 1 batch of 32, on the
    card and on the CPU;
@@ -54,7 +57,15 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    and device time by kind (convolutions, BatchNorm, copies, other);
 12. a word-LSTM round on MeshFedAvgEngine at full width, with the
    sequence axis and <pad> left out of the eval;
-13. one JSON line of the zoo's numbers, one listing every TPU kernel of
+13. the data layer (slice 3b), from CIFAR-10 pickles written into a
+   temporary directory: load_data(store_uint8=True) against the written
+   pixels and the f32 loader, the augmentation's draws and transforms on
+   the card against the CPU, one f32 round from the uint8 stack against
+   the CPU, then the main path fed by the loader (stack_dtype=uint8,
+   augmentation on; 3 rounds and one evaluation, exact launch counts) and
+   one uint8 norm-clip round, and the cohort's upload in uint8 and f32;
+14. one JSON line of the zoo's, C.1's and the data path's numbers, one
+   listing every TPU kernel of
    the JAX package with its port's numbers, then the last line
    {"ok": true, "device": {...}}.
 
@@ -64,11 +75,14 @@ from __future__ import annotations
 
 import json
 import math
+import pickle
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -77,18 +91,23 @@ import torch.nn.functional as F
 from fedml_tpu_torch.algorithms.fedavg import FedAvgEngine
 from fedml_tpu_torch.algorithms.fedavg_robust import FedAvgRobustEngine
 from fedml_tpu_torch.core import robust as robust_ops
+from fedml_tpu_torch.core.partition import partition_homo
 from fedml_tpu_torch.core.pytree import clip_scale
 from fedml_tpu_torch.core.trainer import ClientTrainer
+from fedml_tpu_torch.data import augment
+from fedml_tpu_torch.data.augment import make_augment_fn
 from fedml_tpu_torch.data.federated import (FederatedData, build_client_shards,
                                             build_eval_shard)
 from fedml_tpu_torch.gn_timing import (FLAX_EPS, GN_LAYERS_PER_STAGE,
                                        GN_STAGES, GROUPS, cuda_ms,
                                        device_kernels, host_ms, layer_call,
                                        stage_inputs)
+from fedml_tpu_torch.data.loaders import load_data
 from fedml_tpu_torch.models import create_model
 from fedml_tpu_torch.ops import build, launch_counts, reset_launch_counts
 from fedml_tpu_torch.ops.aggregate import (clip_agg, clip_agg_plain, fold,
-                                           fold_plain, sqnorm, sqnorm_plain,
+                                           flatten_stacked_tree, fold_plain,
+                                           sqnorm, sqnorm_plain, weighted_mean,
                                            weighted_mean_flat,
                                            weighted_mean_flat_plain, wsum)
 from fedml_tpu_torch.ops.groupnorm import (gn_backward, gn_backward_plain,
@@ -709,12 +728,13 @@ def phase_robust_kernels(gen: torch.Generator) -> dict:
     return recs
 
 
-def phase_robust_f32_round() -> None:
+def phase_robust_f32_round() -> dict:
     """One f32 norm-clipped FedAvgRobustEngine round on the card (kernels)
     and on the CPU (plain versions) from the same weights and data, TF32
     off.  The bound is the median of the clients' update norms, measured
     on the card first, so that the largest update is clipped and the
-    smallest is not.  Limits as in the f32 FedAvg round."""
+    smallest is not.  Limits as in the f32 FedAvg round.  Then c1_split
+    takes the distance apart."""
     f32_off()
     n_clients = 3
     data = synthetic_data(n_clients, 2 * BATCH, seed=2)
@@ -736,10 +756,18 @@ def phase_robust_f32_round() -> None:
                     client_num_in_total=n_clients,
                     client_num_per_round=n_clients, epochs=1,
                     batch_size=BATCH, lr=0.1, norm_bound=tau)
-    out = {}
+    out, trained = {}, {}
     for device in ("cuda", "cpu"):
         engine = FedAvgRobustEngine(trainer, data, cfg, defense="norm_clip",
                                     device=device)
+        aggregate = engine.aggregate
+
+        def recording_aggregate(stacked, w, g, state, _device=device,
+                                _aggregate=aggregate):
+            trained[_device] = (stacked, w)
+            return _aggregate(stacked, w, g, state)
+
+        engine.aggregate = recording_aggregate
         v0 = engine.init_variables()
         t0 = time.perf_counter()
         v1, _, m = engine.round_fn(dict(v0), (), *engine._round_args(0))
@@ -756,6 +784,75 @@ def phase_robust_f32_round() -> None:
     if whole > 1e-3 or worst[0][1] > 1e-2:
         raise AssertionError("robust f32 round: the card's update differs "
                              "from the CPU's beyond the limits above")
+    return c1_split(trainer, trained, c0, tau, whole)
+
+
+def c1_split(trainer: ClientTrainer, trained: dict, v0: dict, tau: float,
+             robust_distance: float) -> dict:
+    """Where the f32 robust round's card-to-CPU distance comes from
+    (ROADMAP C.1), from the rows phase 6's two rounds trained:
+
+    * the aggregation alone: the CPU's trained [3, P] parameter rows through
+      the card's squared-distance and clipped-fold kernels (the in-place
+      form FedAvgRobustEngine uses) and through their plain f32 twins on
+      the CPU, each against the same arithmetic in f64.  Limits: norms
+      within rtol 1e-5, the fold within 1e-5 of the update's norm (f32 sums
+      of 3 terms; storing g + u in f32 alone costs ~6e-8 of |g|);
+    * FedAvg's round on the same three clients: the weighted mean of each
+      device's own trained rows (what FedAvgEngine.aggregate computes),
+      card against CPU, with phase 4's limits;
+    * the trained rows themselves: each client's card row against its CPU
+      row, relative to that client's update."""
+    names = trainer.param_names
+    rows = {d: flatten_stacked_tree({k: st[k] for k in names})[0].cpu()
+            for d, (st, _) in trained.items()}
+    w = trained["cpu"][1].float()
+    g = flatten_stacked_tree({k: v0[k][None] for k in names})[0][0]
+    V = rows["cpu"]
+    V64, g64 = V.double(), g.double()
+    sq64 = ((V64 - g64) ** 2).sum(1)
+    sq_err = {"card": float(((sqnorm(V.cuda(), g.cuda()).double().cpu() - sq64)
+                             .abs() / sq64).max()),
+              "plain": float(((sqnorm_plain(V, g).double() - sq64).abs()
+                              / sq64).max())}
+    cf = (w / w.sum() * clip_scale(sq64.float(), tau)).contiguous()
+    want = g64 + (cf.double()[:, None] * (V64 - g64)).sum(0)
+    card = g.cuda().clone()
+    clip_agg(card, V.cuda(), card, cf.cuda(), 1.0, accumulate=False)
+    plain = g.clone()
+    clip_agg_plain(plain, V, plain, cf, 1.0, accumulate=False)
+    unorm = float((want - g64).norm())
+    fold_err = {"card": float((card.cpu().double() - want).norm()) / unorm,
+                "plain": float((plain.double() - want).norm()) / unorm}
+    fedavg = {}
+    for d, (st, wd) in trained.items():
+        fedavg[d] = weighted_mean({k: t.float() for k, t in st.items()}, wd)
+    fed_whole, fed_worst = update_distance(
+        "C.1 FedAvg", v0, {k: v.cpu() for k, v in fedavg["cuda"].items()}, v0,
+        fedavg["cpu"])
+    row_dist = [float((rows["cuda"][i] - V[i]).double().norm()
+                      / (V64[i] - g64).norm()) for i in range(len(V))]
+    rec = dict(sqnorm_rel_err=sq_err, clip_fold_err=fold_err,
+               fedavg_distance=fed_whole, fedavg_worst_leaf=fed_worst[0],
+               robust_distance=robust_distance, row_distance=row_dist)
+    print(f"[C.1] the CPU's trained rows [{len(V)}, {V.shape[1]}] f32 against "
+          f"f64: sqnorm card {sq_err['card']:.3e}, plain {sq_err['plain']:.3e} "
+          f"(relative, limit 1e-5); clipped fold in place card "
+          f"{fold_err['card']:.3e}, plain {fold_err['plain']:.3e} of the "
+          f"update's norm (limit 1e-5)")
+    print(f"[C.1] FedAvg's round on the same 3 clients, card against CPU: "
+          f"update distance {fed_whole:.3e} (limit 1e-3), worst leaf "
+          f"{fed_worst[0][0]} {fed_worst[0][1]:.3e} (limit 1e-2); the "
+          f"norm-clipped round {robust_distance:.3e}; each client's trained "
+          f"row, card against CPU: {', '.join(f'{d:.3e}' for d in row_dist)} "
+          f"of its update ({card_line()})")
+    if max(sq_err.values()) > 1e-5 or max(fold_err.values()) > 1e-5:
+        raise AssertionError("C.1: the aggregation kernels or their twins "
+                             "stray from f64 beyond the limits above")
+    if fed_whole > 1e-3 or fed_worst[0][1] > 1e-2:
+        raise AssertionError("C.1: FedAvg's card round differs from the "
+                             "CPU's beyond phase 4's limits")
+    return rec
 
 
 def phase_orderstat() -> None:
@@ -1307,6 +1404,337 @@ def phase_word_lstm() -> dict:
                 launches=counts, lstm_kernels=lstm)
 
 
+# ---------------------------------------------------------------------------
+# slice 3b: the data layer
+# ---------------------------------------------------------------------------
+
+# five data_batch files of 700 images and a test_batch of 100: 3,500
+# training images, so 8 clients of 437-438 fill 13 batches of 32 each
+CIFAR_BATCH_IMAGES, CIFAR_TEST_IMAGES = 700, 100
+DATA_SEED = 8
+
+
+def write_cifar10(root: Path) -> tuple[np.ndarray, np.ndarray]:
+    """A tiny cifar-10-batches-py under `root` in the real pickle format,
+    pixels and labels seeded: returns the training pixels [N, 32, 32, 3]
+    uint8 and labels in the order read_cifar_pickles concatenates them."""
+    rs = np.random.RandomState(DATA_SEED)
+    d = root / "cifar-10-batches-py"
+    d.mkdir()
+    xs, ys = [], []
+    for name, n in ([(f"data_batch_{i}", CIFAR_BATCH_IMAGES)
+                     for i in range(1, 6)] + [("test_batch", CIFAR_TEST_IMAGES)]):
+        x = rs.randint(0, 256, (n, 3072)).astype(np.uint8)
+        y = rs.randint(0, 10, n).tolist()
+        with open(d / name, "wb") as f:
+            pickle.dump({b"data": x, b"labels": y}, f)
+        if name != "test_batch":
+            xs.append(x.reshape(n, 3, 32, 32).transpose(0, 2, 3, 1))
+            ys.append(np.asarray(y, np.int64))
+    return np.concatenate(xs), np.concatenate(ys)
+
+
+def load_cifar(root: Path, clients: int, batches: int,
+               store_uint8: bool) -> FederatedData:
+    return load_data("cifar10", data_dir=str(root), client_num_in_total=clients,
+                     batch_size=BATCH, partition_method="homo",
+                     max_batches_per_client=batches, store_uint8=store_uint8)
+
+
+def capture_draws(aug, g: torch.Generator, x: torch.Tensor):
+    """Run `aug(g, x)` with augment's transforms wrapped to record the draws
+    they are handed: (output, {"crop": (ys, xs), "flip": (flags,),
+    "cut": (cy, cx)})."""
+    drawn, real = {}, {n: getattr(augment, n) for n in ("crop", "flip", "cut")}
+
+    def wrap(name):
+        def call(x, *draws, **kw):
+            drawn[name] = draws[:1] if name == "flip" else draws[:2]
+            return real[name](x, *draws, **kw)
+        return call
+
+    try:
+        for name in real:
+            setattr(augment, name, wrap(name))
+        return aug(g, x), drawn
+    finally:
+        for name, fn in real.items():
+            setattr(augment, name, fn)
+
+
+def check_augmentation(x: torch.Tensor) -> dict:
+    """The CIFAR pipeline's draws on the card's generator (ranges, rates,
+    all on the card), then the same transforms with the same draws on the
+    card and on the CPU: bitwise equal, since crop, flip and cutout only
+    move and zero values.  Then its cost at one step's batch."""
+    aug = make_augment_fn()
+    g = torch.Generator(device="cuda").manual_seed(DATA_SEED)
+    out, drawn = capture_draws(aug, g, x)
+    (ys, xs), (flags,), (cy, cx) = drawn["crop"], drawn["flip"], drawn["cut"]
+    n, h, w = x.shape[0], x.shape[1], x.shape[2]
+    for t, hi in ((ys, 9), (xs, 9), (cy, h), (cx, w)):
+        counts = torch.bincount(t, minlength=hi).cpu()
+        if t.device.type != "cuda" or len(counts) != hi or counts.min() == 0 \
+                or float((counts - n / hi).abs().max()) > 5 * math.sqrt(n / hi):
+            raise AssertionError(f"augment draws off range or rate: {counts}")
+    rate = float(flags.float().mean())
+    if flags.device.type != "cuda" or abs(rate - 0.5) > 5 * 0.5 / math.sqrt(n):
+        raise AssertionError(f"augment flips at rate {rate}")
+    cpu = x.cpu()
+    steps = ((augment.crop, (ys, xs), {"padding": 4}),
+             (augment.flip, (flags,), {}),
+             (augment.cut, (cy, cx), {"length": 16}))
+    on_card, on_cpu = x, cpu
+    for fn, draws, kw in steps:
+        on_card = fn(on_card, *draws, **kw)
+        on_cpu = fn(on_cpu, *(t.cpu() for t in draws), **kw)
+        if not torch.equal(on_card.cpu(), on_cpu):
+            raise AssertionError(f"augment {fn.__name__}: card and CPU differ")
+    if not torch.equal(out.cpu(), on_cpu):
+        raise AssertionError("augment: the pipeline differs from its transforms")
+    batch = x[:BATCH].contiguous()
+    rec = dict(images=n, flip_rate=rate,
+               step_host_ms=host_ms(lambda: aug(g, batch)),
+               step_ms=cuda_ms(lambda: aug(g, batch)))
+    print(f"[data path] augment on the card: {n} images, crop offsets and "
+          f"cutout centres over their whole ranges, flip rate {rate:.4f}; "
+          f"crop, flip and cutout on the card bitwise equal to the CPU's with "
+          f"the same draws; one step's batch [{BATCH}, 32, 32, 3] f32 "
+          f"{rec['step_ms'] * 1e3:.1f} us of device time, "
+          f"{rec['step_host_ms'] * 1e3:.1f} us a call on the host "
+          f"({card_line()})")
+    return rec
+
+
+def bf16_held_only(unchanged: list) -> bool:
+    """Whether every leaf a bf16-master round left bitwise unchanged is a
+    GroupNorm scale.  A scale sits on the bf16 grid (it starts at 1.0 and
+    moves in whole bf16 ulps), so a client whose every step moves it by
+    less than half an ulp (2^-8 just above 1.0, 2^-9 below) keeps it
+    bitwise, and so does the mean of such clients.  Every other leaf must
+    move: a bias at 0.0 shows any nonzero update, and the kernels start
+    off the grid.  (The f32 round from the same stack checks that every
+    leaf moves.)"""
+    return all(k.endswith(".scale") and k.split(".")[-2].startswith("GroupNorm")
+               for k in unchanged)
+
+
+def upload_ms(arr: np.ndarray, reps: int = 5) -> float:
+    """Host wall time of one pageable upload of `arr` to the card, waited
+    for: the median of `reps`."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.from_numpy(arr).to("cuda")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_data_path() -> dict:
+    """The data layer on the card (slice 3b), from CIFAR-10 pickles written
+    here: the loader's uint8 stack is the written pixels bitwise and
+    dequantizes on the card within f32 rounding (2e-6 absolute: a few ulps
+    of values up to 2.2) of the f32 loader's stack; augmentation's draws
+    and transforms (check_augmentation); one f32 round from the uint8
+    stack on the card and on the CPU (2 clients x 2 batches, TF32 off,
+    phase 4's limits); then the slice's main path, load_data(store_uint8)
+    into MeshFedAvgEngine(chunk=2, bf16 local masters, stack_dtype=uint8)
+    with a bf16 trainer that augments, 8 clients x 13 batches, 3 rounds
+    and one evaluation, and one MeshRobustEngine(norm_clip) round on the
+    same stack: the launch counts exact (augmentation and the dequantize
+    launch no hand kernel), every leaf finite and moved."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cifar") as tmp:
+        root = Path(tmp)
+        raw, labels = write_cifar10(root)
+        t0 = time.perf_counter()
+        d8 = load_cifar(root, MAIN_CLIENTS, BATCHES, True)
+        load_s = time.perf_counter() - t0
+        d32 = load_cifar(root, MAIN_CLIENTS, BATCHES, False)
+        d2 = load_cifar(root, 2, 2, True)
+    if d8.synthetic or d32.synthetic or d2.synthetic:
+        raise AssertionError("load_data took the synthetic stand-in")
+    want = build_client_shards(raw, labels,
+                               partition_homo(len(labels), MAIN_CLIENTS, 0),
+                               BATCH, max_batches=BATCHES, shuffle_seed=0)
+    if not (d8.client_shards["x"].dtype == np.uint8
+            and np.array_equal(d8.client_shards["x"], want["x"])
+            and np.array_equal(d8.client_shards["y"], want["y"])):
+        raise AssertionError("the uint8 stack is not the written pixels")
+    if d8.client_shards["mask"].min() < 1:
+        raise AssertionError("the clients do not fill 13 batches of 32")
+
+    cfg = FedConfig(model="resnet18_gn", dataset="cifar10",
+                    client_num_in_total=MAIN_CLIENTS,
+                    client_num_per_round=MAIN_CLIENTS, epochs=1,
+                    batch_size=BATCH, lr=0.1, frequency_of_the_test=10_000)
+    trainer = ClientTrainer(create_model("resnet18_gn", 10), lr=cfg.lr,
+                            train_dtype=torch.bfloat16,
+                            augment=make_augment_fn())
+    engine = MeshFedAvgEngine(trainer, d8, cfg, chunk=MAIN_CHUNK,
+                              local_dtype=torch.bfloat16,
+                              stack_dtype=torch.uint8)
+    if engine._host_shards() is not d8.client_shards:
+        raise AssertionError("the loader's uint8 stack did not pass through")
+    cohort, weights = engine.stream_cohort(0)
+    ids = engine.sampler.sample(0)
+    deq = engine._restore_chunk_x({"x": cohort["x"]})["x"]
+    deq_err = float((deq.cpu() - torch.from_numpy(
+        d32.client_shards["x"][ids])).abs().max())
+    print(f"[data path] load_data('cifar10', store_uint8=True) from written "
+          f"pickles ({len(labels)} training images): synthetic False, "
+          f"{load_s:.2f} s; the uint8 stack {tuple(cohort['x'].shape)} is the "
+          f"written pixels bitwise; dequantized on the card, max abs err "
+          f"{deq_err:.3e} against the f32 loader's stack (limit 2e-6)")
+    if deq_err > 2e-6:
+        raise AssertionError("the dequantized stack differs from the f32 one")
+    aug_rec = check_augmentation(deq.reshape((-1,) + deq.shape[-3:]))
+    del deq
+
+    f32_off()
+    f32_trainer = ClientTrainer(create_model("resnet18_gn", 10), lr=0.1)
+    cfg2 = FedConfig(model="resnet18_gn", dataset="cifar10",
+                     client_num_in_total=2, client_num_per_round=2, epochs=1,
+                     batch_size=BATCH, lr=0.1)
+    res = {}
+    for device in ("cuda", "cpu"):
+        eng = MeshFedAvgEngine(f32_trainer, d2, cfg2, chunk=MAIN_CHUNK,
+                               stack_dtype=torch.uint8, device=device)
+        v0 = eng.init_variables()
+        v1, _, m = eng.round_fn(dict(v0), (), *eng._round_args(0))
+        res[device] = (v0, v1, float(m["train_loss"]))
+    (g0, g1, gl), (c0, c1, cl) = res["cuda"], res["cpu"]
+    u8_whole, u8_worst = update_distance("uint8 f32 round", g0, g1, c0, c1)
+    still = [k for k in c0 if torch.equal(g1[k].cpu(), g0[k].cpu())
+             or torch.equal(c1[k], c0[k])]
+    print(f"[data path] one f32 round from the uint8 stack, 2 clients x 2 "
+          f"batches, TF32 off: update distance card against CPU "
+          f"{u8_whole:.3e} (limit 1e-3), worst leaf {u8_worst[0][0]} "
+          f"{u8_worst[0][1]:.3e} (limit 1e-2); every leaf moved on both "
+          f"devices; train_loss card {gl:.6f} CPU {cl:.6f}")
+    if u8_whole > 1e-3 or u8_worst[0][1] > 1e-2 or still:
+        raise AssertionError(f"uint8 f32 round: the card differs from the CPU, "
+                             f"or leaves did not move: {still}")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+    variables = engine.init_variables()
+    v0 = {k: v.clone() for k, v in variables.items()}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    round_s, losses = [], []
+    for r in range(MAIN_ROUNDS):
+        t0 = time.perf_counter()
+        variables, _, m = engine.round_fn_streaming(variables, (), cohort,
+                                                    weights, r)
+        losses.append(float(m["train_loss"]))
+        round_s.append(time.perf_counter() - t0)
+    stats = engine.evaluate(variables)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    steps = MAIN_ROUNDS * MAIN_CLIENTS * BATCHES
+    eval_batches = (d8.train_global["mask"].shape[0]
+                    + d8.test_global["mask"].shape[0])
+    expected = {"gn_forward": 20 * (steps + eval_batches),
+                "gn_backward": 20 * steps,
+                "wsum": MAIN_ROUNDS * (MAIN_CLIENTS // MAIN_CHUNK),
+                "sqnorm": 0, "clip_agg": 0}
+    if counts != expected:
+        raise AssertionError(f"data path launches {counts} != {expected}")
+    same = [k for k in v0 if torch.equal(variables[k], v0[k])]
+    if not bf16_held_only(same) or not all(math.isfinite(l) for l in losses) \
+            or not all(torch.isfinite(v).all() for v in variables.values()):
+        raise AssertionError(f"data path: loss {losses}, unchanged {same}, or "
+                             "a non-finite leaf")
+    steady = statistics.mean(round_s[1:])
+    print(f"[data path] MeshFedAvgEngine(chunk={MAIN_CHUNK}, local_dtype=bf16, "
+          f"stack_dtype=uint8) + make_augment_fn(), {MAIN_CLIENTS} clients x "
+          f"{BATCHES} batches of {BATCH}: train_loss per round {losses}; eval "
+          f"{stats}")
+    print(f"[data path] s/round {round_s} -> {steady:.4f} s/round over rounds "
+          f"2-{MAIN_ROUNDS} ({card_line()})")
+    print(f"[data path] launches {counts} == expected ({eval_batches} eval "
+          "batches): augmentation and the dequantize launch no hand kernel; "
+          f"every leaf finite; unchanged after {MAIN_ROUNDS} rounds: "
+          f"{same or 'none'} (GroupNorm scales only: see bf16_held_only)")
+
+    robust = MeshRobustEngine(trainer, d8, cfg, defense="norm_clip",
+                              chunk=MAIN_CHUNK, local_dtype=torch.bfloat16,
+                              stack_dtype=torch.uint8)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    rv, _, rm = robust.round_fn_streaming(variables, (), cohort, weights)
+    robust_loss = float(rm["train_loss"])
+    robust_counts = launch_counts()
+    steps1, chunks1 = MAIN_CLIENTS * BATCHES, MAIN_CLIENTS // MAIN_CHUNK
+    want_counts = {"gn_forward": 20 * steps1, "gn_backward": 20 * steps1,
+                   "wsum": 0, "sqnorm": chunks1, "clip_agg": chunks1}
+    robust_same = [k for k in rv if torch.equal(rv[k], variables[k])]
+    if robust_counts != want_counts or not math.isfinite(robust_loss) or any(
+            not torch.isfinite(rv[k]).all() for k in rv) \
+            or not bf16_held_only(robust_same):
+        raise AssertionError(f"uint8 norm_clip round: launches {robust_counts} "
+                             f"(want {want_counts}), loss {robust_loss}, "
+                             f"unchanged {robust_same}, or a non-finite leaf")
+    print(f"[data path] MeshRobustEngine(norm_clip, stack_dtype=uint8), one "
+          f"round: train_loss {robust_loss:.6f}, launches {robust_counts} == "
+          f"expected; unchanged: {robust_same or 'none'}")
+
+    # the main path's recipe on the f32 stack without augmentation, in
+    # turns with the data path, so that drift in the host's speed falls
+    # on both alike
+    plain = ClientTrainer(trainer.model, lr=cfg.lr, train_dtype=torch.bfloat16)
+    f32_engine = MeshFedAvgEngine(plain, d32, cfg, chunk=MAIN_CHUNK,
+                                  local_dtype=torch.bfloat16)
+    f32_cohort = f32_engine.stream_cohort(0)
+    float(f32_engine.round_fn_streaming(variables, (), *f32_cohort)[2]
+          ["train_loss"])                       # its first-call cost
+    turns = {"f32": [], "uint8+augment": []}
+    for order in (("f32", "uint8+augment"), ("uint8+augment", "f32"),
+                  ("f32", "uint8+augment")):
+        for name in order:
+            eng, args = ((f32_engine, f32_cohort) if name == "f32"
+                         else (engine, (cohort, weights)))
+            t0 = time.perf_counter()
+            float(eng.round_fn_streaming(variables, (), *args)[2]["train_loss"])
+            turns[name].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    print(f"[data path] in turns, s/round: f32 stack without augmentation "
+          f"{turns['f32']}, uint8 stack with augmentation "
+          f"{turns['uint8+augment']}; medians {med['f32']:.4f} and "
+          f"{med['uint8+augment']:.4f} "
+          f"({med['uint8+augment'] / med['f32'] - 1:+.1%}) ({card_line()})")
+
+    host8, host32 = engine._host_shards()["x"], d32.client_shards["x"]
+
+    def stream_ms(eng) -> float:
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.stream_cohort(0)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    upload = dict(uint8_bytes=int(host8.nbytes), f32_bytes=int(host32.nbytes),
+                  uint8_ms=upload_ms(host8), f32_ms=upload_ms(host32),
+                  uint8_stream_ms=stream_ms(engine),
+                  f32_stream_ms=stream_ms(f32_engine))
+    print(f"[data path] the cohort's x as uploaded: uint8 "
+          f"{upload['uint8_bytes']} B in {upload['uint8_ms']:.3f} ms, f32 "
+          f"{upload['f32_bytes']} B in {upload['f32_ms']:.3f} ms (pageable "
+          f"host memory, median of 5); stream_cohort (host gather and upload) "
+          f"uint8 {upload['uint8_stream_ms']:.3f} ms, f32 "
+          f"{upload['f32_stream_ms']:.3f} ms ({card_line()})")
+    return dict(load_s=load_s, dequant_max_abs_err=deq_err,
+                augment=aug_rec, uint8_round_distance=u8_whole,
+                s_per_round=round_s, steady_s=steady, losses=losses,
+                eval=stats, launches=counts, robust_launches=robust_counts,
+                turns=turns, upload=upload)
+
+
 def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
                 counts: dict, robust_counts: dict, resnet56: dict) -> dict:
     """One entry per ported kernel.  GroupNorm's numbers are per training
@@ -1382,16 +1810,18 @@ def main() -> int:
     robust_rec = phase_robust_kernels(gen)
     phase_f32_round()
     counts = phase_main_path()
-    phase_robust_f32_round()
+    c1 = phase_robust_f32_round()
     phase_orderstat()
     robust_counts = phase_robust_main_path()
     phase_side_engines()
     zoo = phase_zoo()
     resnet56 = phase_resnet56_path(gen)
     word_lstm = phase_word_lstm()
+    data_path = phase_data_path()
     print(json.dumps({"zoo": zoo, "resnet56_path": {
         k: v for k, v in resnet56.items() if k != "fold"},
-        "word_lstm": word_lstm}, default=str))
+        "word_lstm": word_lstm, "c1": c1, "data_path": data_path},
+        default=str))
     print(json.dumps(kernel_line(gn_fwd, gn_bwd, fold_rec, robust_rec, counts,
                                  robust_counts, resnet56)))
     print(card)

@@ -144,6 +144,16 @@ class FedAvgEngine:
             out.update(self.evaluate_local(variables))
         return out
 
+    def _local_train_stack(self) -> dict:
+        """The host client stack evaluate_local(split="train") uploads (the
+        mesh engines: their uint8 or cast view)."""
+        return self.data.client_shards
+
+    def _local_eval_transform(self, shard: dict) -> dict:
+        """Per-client shard hook of evaluate_local (the mesh engines
+        dequantize a uint8 shard here; identity for this engine)."""
+        return shard
+
     def evaluate_local(self, variables: dict, split: str = "test") -> dict:
         """Eval on every client's OWN shard (the reference's
         _local_test_on_all_clients, fedavg_api.py:117-213), summed over
@@ -155,7 +165,7 @@ class FedAvgEngine:
             raise ValueError("this dataset has no per-client test shards")
         if split not in self._local_eval_shards:
             shards = (self.data.test_client_shards if split == "test"
-                      else self.data.client_shards)
+                      else self._local_train_stack())
             if self.cfg.ci:
                 shards = {k: v[:1] for k, v in shards.items()}
             self._local_eval_shards[split] = to_device(shards, self.device)
@@ -163,7 +173,8 @@ class FedAvgEngine:
         flat = self.trainer.flatten(variables)
         sums = None
         for c in range(stack["mask"].shape[0]):
-            m = self.trainer.evaluate(flat, {k: v[c] for k, v in stack.items()})
+            m = self.trainer.evaluate(flat, self._local_eval_transform(
+                {k: v[c] for k, v in stack.items()}))
             sums = m if sums is None else {k: sums[k] + m[k] for k in m}
         cnt = float(sums["count"])
         return {f"local_{split}_acc": float(sums["correct"]) / max(cnt, 1.0),

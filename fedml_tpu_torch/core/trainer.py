@@ -40,6 +40,11 @@ Parity with the JAX trainer, where it is not obvious:
   BatchNorm: its zero rows enter the batch statistics, as in flax.
 * Dropout draws from the `generator` passed to ``local_train`` (one per
   client per round, ``client_generator``), where JAX splits a key.
+* ``augment(generator, x)`` (data/augment.py) runs in the training step
+  only, on the float x before the cast to ``train_dtype``
+  (trainer.py:253-255), and draws from the same generator before dropout
+  does, as JAX splits the augmentation's key first.  Evaluation never
+  augments.
 * FedProx: with ``prox_mu`` > 0 and the round's global vector passed as
   ``global_params``, the loss gains (mu/2) * ||p - g||^2 over the
   parameters (trainer.py:298-308).
@@ -233,8 +238,9 @@ def make_optimizer(name: str, lr, momentum: float = 0.0,
 
 def client_generator(seed: int, round_idx: int, client: int,
                      device) -> torch.Generator:
-    """The dropout generator of one client in one round, on `device`,
-    seeded from (seed, round, client) through numpy's SeedSequence."""
+    """The dropout and augmentation generator of one client in one round,
+    on `device`, seeded from (seed, round, client) through numpy's
+    SeedSequence."""
     s = np.random.SeedSequence([seed, round_idx, client]).generate_state(1)[0]
     return torch.Generator(device=device).manual_seed(int(s))
 
@@ -258,7 +264,8 @@ class ClientTrainer:
       has_time_axis: labels carry a trailing sequence axis (the LMs): the
         per-sample mask is broadcast over it.
       train_dtype: compute dtype of the training forward/backward.
-      augment: training-time augmentation, slice 3b of the port (raises).
+      augment: training-time augmentation (generator, x) -> x
+        (data/augment.py), applied in the training step only.
       eval_ignore_id: label id left out of the eval metrics only (<pad>).
       train_ignore_id: label id left out of the training loss and the eval
         metrics (segmentation's void label), remapped to 0 for the gather.
@@ -276,10 +283,6 @@ class ClientTrainer:
                  batch_axes: tuple = ()):
         if loss not in LOSSES:
             raise ValueError(f"unknown loss {loss!r}")
-        if augment is not None:
-            raise NotImplementedError(
-                "ClientTrainer(augment=...) comes with data/augment.py: "
-                "slice 3b of the port")
         if batch_axes:
             raise NotImplementedError(
                 "ClientTrainer(batch_axes=...), per-client batch splitting "
@@ -290,6 +293,7 @@ class ClientTrainer:
         self.prox_mu = prox_mu
         self.has_time_axis = has_time_axis
         self.train_dtype = train_dtype
+        self.augment = augment
         self.eval_ignore_id = eval_ignore_id
         self.train_ignore_id = train_ignore_id
         params = dict(model.named_parameters())
@@ -356,6 +360,8 @@ class ClientTrainer:
         if stats is not None:
             variables.update(unflatten_to_tree(stats, self.stat_spec,
                                                stats.dtype))
+        if self.augment is not None:     # its draws come before dropout's
+            x = self.augment(generator, x)
         if x.is_floating_point():        # flax promotes x to the params'
             x = x.to(self.train_dtype if half else p.dtype)
         logits = functional_call(self.model, variables, (x,),
@@ -404,7 +410,7 @@ class ClientTrainer:
         state.  Returns (new flat, mean over epochs of the sample-weighted
         epoch loss, number of real samples).  `global_params` is the
         round's global flat vector, read by the FedProx term; `generator`
-        feeds dropout."""
+        feeds augmentation and dropout."""
         n_batches = shard["mask"].shape[0]
         opt_state = self.init_opt(flat)
         epoch_losses = []

@@ -95,6 +95,11 @@ class FederatedData:
     test_client_shards: Optional[dict[str, np.ndarray]]  # [C, Bt, bs, ...] or None
     class_num: int
     synthetic: bool = False   # True when a stand-in replaced missing files
+    # set when client_shards["x"] is stored uint8 (data/quant.py): the
+    # affine spec (x_f32 = u*scale + offset) the mesh engines apply on the
+    # device to each chunk.  Eval shards (train_global/test_global/
+    # test_client_shards) always stay float.
+    x_dequant: Optional[object] = None
     _device_cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -121,3 +126,21 @@ class FederatedData:
                               device=weights.device)
         return ({k: v.index_select(0, idx) for k, v in shards.items()},
                 weights.index_select(0, idx))
+
+    def as_8tuple(self):
+        """Reference-shaped view (train_data_num, test_data_num, train_global,
+        test_global, local_num_dict, train_local_dict, test_local_dict,
+        class_num) — cifar10/data_loader.py:235-269."""
+        C = self.client_num
+        local_num = {i: int(self.client_num_samples[i]) for i in range(C)}
+        train_local = {i: {k: v[i] for k, v in self.client_shards.items()}
+                       for i in range(C)}
+        if self.test_client_shards is not None:
+            test_local = {i: {k: v[i] for k, v in
+                              self.test_client_shards.items()}
+                          for i in range(C)}
+        else:
+            test_local = {i: None for i in range(C)}
+        return (self.train_data_num, self.test_data_num, self.train_global,
+                self.test_global, local_num, train_local, test_local,
+                self.class_num)

@@ -1,0 +1,63 @@
+"""Mobile per-device dataset splitter (port of
+fedml_tpu/data/mobile.py; host-side numpy, bitwise equal to the JAX package's).
+
+Parity: fedml_api/data_preprocessing/MNIST/mnist_mobile_preprocessor.py —
+pre-computes, for each of `client_num_per_round` devices, the client ids it
+will play across `comm_round` rounds (the SAME deterministic
+np.random.seed(round_idx) sampler as training) and writes per-device LEAF
+JSONs: `<out>/<device>/train/train.json` and `<out>/<device>/test/test.json`
+with `users` / `num_samples` / `user_data` restricted to those clients.
+The mobile runtime then ships one small JSON per device instead of the full
+federation.
+"""
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+
+from fedml_tpu_torch.core.sampling import ClientSampler
+from fedml_tpu_torch.data.readers import read_leaf_dir
+
+
+def _subset(users, user_data, picked_ids):
+    # a user can be missing from one split (LEAF test jsons are not
+    # guaranteed to mirror train) — ship an empty record, don't crash
+    sel_users = [users[i] for i in picked_ids]
+    empty = {"x": [], "y": []}
+    return {
+        "users": sel_users,
+        "num_samples": [len(user_data.get(u, empty)["y"])
+                        for u in sel_users],
+        "user_data": {u: user_data.get(u, empty) for u in sel_users},
+    }
+
+
+def split_mobile_devices(data_dir: str, out_dir: str,
+                         client_num_per_round: int, comm_round: int,
+                         client_num_in_total: int | None = None) -> list[str]:
+    """Write per-device train/test JSONs; returns the device dirs.
+
+    Device d plays sampled client `sample_list[d]` each round
+    (mnist_mobile_preprocessor.py:99-103: worker.client_sample_list).
+    """
+    users, train_data = read_leaf_dir(os.path.join(data_dir, "train"))
+    _, test_data = read_leaf_dir(os.path.join(data_dir, "test"))
+    total = min(client_num_in_total or len(users), len(users))
+    sampler = ClientSampler(total, client_num_per_round)
+    per_device: list[list[int]] = [[] for _ in range(client_num_per_round)]
+    for round_idx in range(comm_round):
+        picks = np.asarray(sampler.sample(round_idx))
+        for d in range(client_num_per_round):
+            per_device[d].append(int(picks[d]))
+    out_paths = []
+    for d, ids in enumerate(per_device):
+        dev = os.path.join(out_dir, str(d))
+        for split, data in (("train", train_data), ("test", test_data)):
+            path = os.path.join(dev, split, f"{split}.json")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "w") as f:
+                json.dump(_subset(users, data, sorted(set(ids))), f)
+        out_paths.append(dev)
+    return out_paths

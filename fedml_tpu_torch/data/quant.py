@@ -1,0 +1,90 @@
+"""uint8 cohort storage (port of fedml_tpu/data/quant.py; host-side
+numpy, bitwise equal to the JAX package's).
+
+Image inputs are natively uint8: a quarter of the bytes of the f32 stacks
+the loaders build and half of a bf16 stack.  A cohort kept in uint8 through
+the host gather and the upload crosses to the device in those bytes, and
+the engine dequantizes it on the device as the first operation of each
+chunk (parallel/engine.py `_restore_chunk_x`), so local training still
+sees the float values.
+
+A `DequantSpec` is the per-dataset affine that turns stored uint8 back
+into the float values training expects:
+
+    x_float = u.astype(f32) * scale + offset
+
+Two constructions:
+
+* `spec_from_normalize(mean, std)` — EXACT for loaders that normalize
+  raw uint8 pixels with `(u/255 - mean)/std` (cifar10/100/cinic10):
+  scale = 1/(255*std), offset = -mean/std per channel, so storing the
+  raw pixels loses nothing — the dequantized values are the same
+  formula the f32 loader computed.
+* `spec_from_minmax(x)` — generic fallback for float sources without a
+  known uint8 origin (synthetic stand-ins, engine-side quantization of
+  an already-float stack): one affine over the tensor's [min, max]
+  range, worst-case error scale/2 = (max-min)/510 per element.
+
+scale/offset are float32 arrays broadcastable over a SAMPLE's trailing
+dims (per-channel [c] for images, scalars otherwise) — they broadcast
+against [C, B, bs, h, w, c] stacks and single-sample slices alike.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class DequantSpec:
+    """Affine dequantization params: x = u * scale + offset (f32)."""
+    scale: np.ndarray    # f32, broadcastable over trailing sample dims
+    offset: np.ndarray
+
+    def __post_init__(self):
+        object.__setattr__(self, "scale",
+                           np.asarray(self.scale, np.float32))
+        object.__setattr__(self, "offset",
+                           np.asarray(self.offset, np.float32))
+
+
+def spec_from_normalize(mean, std) -> DequantSpec:
+    """Exact spec for `(u/255 - mean)/std`-normalized uint8 sources
+    (readers.normalize_image): dequantizing the raw pixels reproduces
+    the normalized float values bit-for-bit up to f32 rounding of the
+    same formula."""
+    std = np.asarray(std, np.float32)
+    mean = np.asarray(mean, np.float32)
+    return DequantSpec(scale=1.0 / (255.0 * std), offset=-mean / std)
+
+
+def spec_from_minmax(x: np.ndarray) -> DequantSpec:
+    """Generic per-tensor affine over [min, max] of a float array.
+    Degenerate (constant / empty) inputs get scale 1 so the round trip
+    stays finite."""
+    x = np.asarray(x)
+    if x.size == 0:
+        return DequantSpec(scale=np.float32(1.0), offset=np.float32(0.0))
+    mn = np.float32(np.min(x))
+    mx = np.float32(np.max(x))
+    if not (np.isfinite(mn) and np.isfinite(mx)):
+        raise ValueError("cannot quantize a non-finite array to uint8")
+    scale = (mx - mn) / np.float32(255.0)
+    if scale <= 0:
+        scale = np.float32(1.0)
+    return DequantSpec(scale=scale, offset=mn)
+
+
+def quantize_uint8(x: np.ndarray, spec: DequantSpec) -> np.ndarray:
+    """Float -> uint8 under `spec` (round-to-nearest, clipped).  For a
+    spec_from_normalize spec applied to normalize_image output this
+    recovers the original raw pixels exactly."""
+    q = np.rint((np.asarray(x, np.float32) - spec.offset) / spec.scale)
+    return np.clip(q, 0, 255).astype(np.uint8)
+
+
+def dequantize(u: np.ndarray, spec: DequantSpec) -> np.ndarray:
+    """Host-side inverse (the device-side twin is the engine's
+    `_dequant_chunk_x`, one chunk at a time)."""
+    return np.asarray(u, np.float32) * spec.scale + spec.offset

@@ -25,12 +25,22 @@ applied to BatchNorm statistics would be a wrong result.
 
 The JAX engine vmaps a chunk's clients; ``torch.func.vmap`` cannot map
 over a ctypes kernel, so here a chunk's lanes run one after another.
+`stack_dtype` stores the client stack's input leaf ("x") in a narrower
+dtype for the host gather and the upload (engine.py:338-364): bf16 (cast
+on the host before the upload) or uint8 with an affine DequantSpec
+(data/quant.py), which the chunk loop undoes on the device as the first
+operation of each chunk (`_restore_chunk_x`), so dequantized memory is
+O(chunk).  A loader-quantized stack (`load_data(store_uint8=True)`) is
+dequantized with or without the knob.  y and mask never change dtype,
+and integer inputs (token ids) are never cast or quantized.
+
 Multi-card meshes, block streaming and upload prefetch are later slices
 of the port (ROADMAP.md).
 """
 from __future__ import annotations
 
 import copy
+import logging
 from typing import Callable, Optional
 
 import numpy as np
@@ -44,8 +54,11 @@ from fedml_tpu_torch.core import robust as robust_ops
 from fedml_tpu_torch.core.pytree import clip_scale
 from fedml_tpu_torch.core.trainer import ClientTrainer, client_generator
 from fedml_tpu_torch.data.federated import FederatedData
+from fedml_tpu_torch.data.quant import quantize_uint8, spec_from_minmax
 from fedml_tpu_torch.ops.aggregate import client_sqnorms, clip_fold, fold
 from fedml_tpu_torch.utils.config import FedConfig
+
+log = logging.getLogger(__name__)
 
 
 def cast_local(variables: dict, dtype) -> dict:
@@ -101,12 +114,16 @@ def chunked_weighted_train(trainer: ClientTrainer, flat: torch.Tensor,
                            chunk_cap: int = 8,
                            fold_fn: Optional[Callable] = fedavg_fold,
                            emit_flat_params: bool = False, seed: int = 0,
-                           round_idx: int = 0):
+                           round_idx: int = 0,
+                           restore_x: Optional[Callable] = None):
     """Train the cohort chunk by chunk from the round's flat vector `flat`
     (in the local dtype), folding each chunk's trained [chunk, P] lanes
     into the flat f32 carry with ``fold_fn(num, lanes, w, chunk_shards)``.
     Lane i trains with ``client_generator(seed, round_idx, i)`` for
-    dropout.  Returns (num [P] f32, den = sum w, lsum = sum w*loss).
+    dropout and augmentation.  `restore_x` maps each chunk's shards before
+    its clients train (the engine's dequantize of a uint8 stack, engine.py
+    :236-237), so what it makes is O(chunk).  Returns (num [P] f32,
+    den = sum w, lsum = sum w*loss).
 
     With `emit_flat_params` it also returns the [K, P] f32 matrix of
     trained rows, chunk-pad lanes dropped (engine.py:1339), for the
@@ -121,6 +138,8 @@ def chunked_weighted_train(trainer: ClientTrainer, flat: torch.Tensor,
     rows = []
     for c in range(weights.shape[0]):
         chunk_shards = {key: t[c] for key, t in cohort.items()}
+        if restore_x is not None:
+            chunk_shards = restore_x(chunk_shards)
         lanes, losses = [], []
         for j in range(weights.shape[1]):
             v, loss, _ = trainer.local_train(
@@ -146,28 +165,121 @@ def chunked_weighted_train(trainer: ClientTrainer, flat: torch.Tensor,
 
 class MeshFedAvgEngine(FedAvgEngine):
     """FedAvg over chunks of `chunk` clients on one card, with optional
-    bf16 local masters (`local_dtype`).  Aggregation is unchanged by the
-    local dtype: each client's weights enter the fold in f32 and the
-    global model stays f32 across rounds."""
+    bf16 local masters (`local_dtype`) and narrower cohort storage
+    (`stack_dtype`: torch.uint8 or torch.bfloat16; see the module
+    docstring).  Aggregation is unchanged by either dtype: each client's
+    weights enter the fold in f32 and the global model stays f32 across
+    rounds."""
 
     def __init__(self, trainer: ClientTrainer, data: FederatedData,
                  cfg: FedConfig, chunk: int | None = None, local_dtype=None,
-                 device=None):
+                 stack_dtype=None, device=None):
         super().__init__(trainer, data, cfg, device=device)
         if chunk is not None and chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if stack_dtype not in (None, torch.uint8) and not (
+                isinstance(stack_dtype, torch.dtype)
+                and stack_dtype.is_floating_point):
+            raise ValueError(f"stack_dtype must be torch.uint8 or a float "
+                             f"dtype, got {stack_dtype!r}")
         self.chunk = chunk if chunk is not None else default_chunk(local_dtype)
         self.local_dtype = local_dtype
+        self.stack_dtype = stack_dtype
+        self._stack_dtype_noop_warned = False
+        self._x_dequant = None          # DequantSpec when the stack is uint8
+        self._dequant_consts = None     # (scale, offset) on the device
+        self._u8_host_shards = None     # the quantized host view (`data`
+        #                                 stays untouched: it may be shared)
+        x = data.client_shards.get("x")
+        # a loader-quantized stack is dequantized even without the knob:
+        # the dequantize is a correctness requirement, not a preference
+        if stack_dtype == torch.uint8 or (
+                x is not None and np.asarray(x).dtype == np.uint8):
+            self._prepare_uint8_stack(data)
 
     # -- cohort upload --------------------------------------------------------
+    def _prepare_uint8_stack(self, data: FederatedData) -> None:
+        """Resolve the DequantSpec and the uint8 host view of the client
+        stack, once: a loader-quantized stack passes through with
+        `data.x_dequant`; a float stack is quantized here with a min/max
+        spec into the engine's own view.  Integer inputs are refused with
+        a warning and keep their dtype."""
+        shards = data.client_shards
+        x = np.asarray(shards["x"]) if "x" in shards else None
+        if x is None or (x.dtype != np.uint8
+                         and not np.issubdtype(x.dtype, np.floating)):
+            if x is not None:
+                self._warn_noop(x.dtype)
+            return
+        if x.dtype == np.uint8:
+            spec = data.x_dequant
+            if spec is None:
+                raise ValueError(
+                    "client stack x is uint8 but data.x_dequant is unset: "
+                    "a uint8 stack needs its DequantSpec (load_data "
+                    "store_uint8=True sets it)")
+            self._u8_host_shards = shards
+        else:
+            spec = spec_from_minmax(x)
+            self._u8_host_shards = {**shards, "x": quantize_uint8(x, spec)}
+        self._x_dequant = spec
+        self._dequant_consts = (torch.from_numpy(spec.scale).to(self.device),
+                                torch.from_numpy(spec.offset).to(self.device))
+
+    def _warn_noop(self, dtype) -> None:
+        if not self._stack_dtype_noop_warned:
+            self._stack_dtype_noop_warned = True
+            log.warning("stack_dtype=%s ignored: the input leaf is %s "
+                        "(token-id datasets keep integer inputs: casting or "
+                        "quantizing would remap the vocabulary)",
+                        self.stack_dtype, dtype)
+
+    def _host_shards(self) -> dict:
+        """The host-side client stack every upload gathers from: the uint8
+        view when the stack is quantized, else the data's own shards."""
+        return (self._u8_host_shards if self._u8_host_shards is not None
+                else self.data.client_shards)
+
+    def _cast_stack_x(self, shards: dict) -> dict:
+        """numpy shards -> host tensors, with a float stack_dtype applied to
+        a float input leaf (numpy has no bfloat16, so the cast is torch's,
+        on the host, before the upload).  Integer inputs keep their dtype
+        (bf16 holds integers exactly only up to 256); the uint8 view is
+        already in its dtype."""
+        out = {k: torch.from_numpy(np.asarray(v)) for k, v in shards.items()}
+        if (self.stack_dtype is not None and self._x_dequant is None
+                and "x" in out):
+            if out["x"].is_floating_point():
+                out["x"] = out["x"].to(self.stack_dtype)
+            else:
+                self._warn_noop(out["x"].dtype)
+        return out
+
+    def _restore_chunk_x(self, chunk_shards: dict) -> dict:
+        """Dequantize one chunk's uint8 input on the device, x * scale +
+        offset in f32 (the per-channel spec broadcasts over [..., h, w, c]);
+        identity for a stack that is not quantized and for float leaves."""
+        x = chunk_shards.get("x")
+        if self._x_dequant is None or x is None or x.is_floating_point():
+            return chunk_shards
+        scale, offset = self._dequant_consts
+        return {**chunk_shards, "x": x.float() * scale + offset}
+
     def stream_cohort(self, round_idx: int):
-        """Host-side gather of the round's sampled clients, uploaded to the
-        engine's device: ({x, y, mask} [K, B, bs, ...], weights [K] f32)."""
+        """Host-side gather of the round's sampled clients from
+        `_host_shards()`, stack_dtype applied, uploaded to the engine's
+        device: ({x, y, mask} [K, B, bs, ...], weights [K] f32)."""
         ids = self.sampler.sample(round_idx)
-        cohort = {k: torch.from_numpy(np.take(np.asarray(v), ids, axis=0))
-                  .to(self.device) for k, v in self.data.client_shards.items()}
+        cohort = self._cast_stack_x({k: np.take(np.asarray(v), ids, axis=0)
+                                     for k, v in self._host_shards().items()})
         w = np.take(np.asarray(self.data.client_num_samples, np.float32), ids)
-        return cohort, torch.from_numpy(w).to(self.device)
+        return ({k: v.to(self.device) for k, v in cohort.items()},
+                torch.from_numpy(w).to(self.device))
+
+    def _local_train_stack(self) -> dict:
+        return self._cast_stack_x(self._host_shards())
+
+    _local_eval_transform = _restore_chunk_x
 
     def _round_args(self, round_idx: int) -> tuple:
         return (*self.stream_cohort(round_idx), round_idx)
@@ -179,12 +291,12 @@ class MeshFedAvgEngine(FedAvgEngine):
 
     def _chunked(self, flat: torch.Tensor, cohort: dict,
                  weights: torch.Tensor, round_idx: int, **kw):
-        """chunked_weighted_train with the engine's epochs, chunk and
-        seed."""
+        """chunked_weighted_train with the engine's epochs, chunk, seed and
+        dequantize."""
         return chunked_weighted_train(
             self.trainer, flat, cohort, weights, self.cfg.epochs,
             chunk_cap=self.chunk, seed=self.cfg.seed, round_idx=round_idx,
-            **kw)
+            restore_x=self._restore_chunk_x, **kw)
 
     def _shard_sums(self, variables: dict, cohort: dict, weights: torch.Tensor,
                     round_idx: int = 0):
