@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FedAvg, robust-aggregation, model-zoo and
-data-layer paths on one CUDA card, and hold every hand-written kernel
-against its plain PyTorch version.
+"""Drive the PyTorch port's FedAvg, robust-aggregation, model-zoo,
+data-layer and one-card-algorithm paths on one CUDA card, and hold every
+hand-written kernel against its plain PyTorch version.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -64,15 +64,29 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    the CPU, then the main path fed by the loader (stack_dtype=uint8,
    augmentation on; 3 rounds and one evaluation, exact launch counts) and
    one uint8 norm-clip round, and the cohort's upload in uint8 and f32;
-14. one JSON line of the zoo's, C.1's and the data path's numbers, one
-   listing every TPU kernel of
-   the JAX package with its port's numbers, then the last line
+14. slice 7a-i, the one-card algorithms beyond FedAvg: both GroupNorm
+   kernels against their plain versions at FedGKT's stage shapes (2
+   groups, 8-32 channels a group) and FedSeg's (4 groups), f32 and bf16,
+   with their launch plans and f32 times beside their bounds; one f32
+   round (or epoch) of every new engine on the card and on the CPU from
+   the same weights (TurboAggregate, hierarchical, centralized, DSGD,
+   push-sum, vertical FL, SplitNN, FedSeg with its metrics, FedGKT with
+   its server logits, FedGAN given the same z), within phase 4's limits
+   and with exact launch counts; the slice's path, FedGKT at the full
+   width of its pair on phase 5's clients (3 rounds, one evaluation, exact
+   GroupNorm launches, each phase's share of the round, a profiled
+   round); and FedSeg at full width on the pascal_voc stand-in (2 rounds,
+   its last evaluation's metrics, exact launches);
+15. one JSON line of the zoo's, C.1's, the data path's and slice 7a-i's
+   numbers, one listing every TPU kernel of the JAX package with its
+   port's numbers and its launches on every path, then the last line
    {"ok": true, "device": {...}}.
 
 It needs one card; it imports nothing of JAX or of fedml_tpu.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import pickle
@@ -88,11 +102,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fedml_tpu_torch.algorithms import (DecentralizedGossipEngine,
+                                        HierarchicalFedAvgEngine)
+from fedml_tpu_torch.algorithms.centralized import CentralizedTrainer
 from fedml_tpu_torch.algorithms.fedavg import FedAvgEngine
 from fedml_tpu_torch.algorithms.fedavg_robust import FedAvgRobustEngine
+from fedml_tpu_torch.algorithms.fedgan import FedGANEngine
+from fedml_tpu_torch.algorithms.fedgkt import FedGKTEngine
+from fedml_tpu_torch.algorithms.fedseg import FedSegEngine
+from fedml_tpu_torch.algorithms.split_nn import SplitNNEngine
+from fedml_tpu_torch.algorithms.turboaggregate import TurboAggregateEngine
+from fedml_tpu_torch.algorithms.vertical_fl import VFLEngine
 from fedml_tpu_torch.core import robust as robust_ops
 from fedml_tpu_torch.core.partition import partition_homo
 from fedml_tpu_torch.core.pytree import clip_scale
+from fedml_tpu_torch.core.topology import (AsymmetricTopologyManager,
+                                           SymmetricTopologyManager)
 from fedml_tpu_torch.core.trainer import ClientTrainer
 from fedml_tpu_torch.data import augment
 from fedml_tpu_torch.data.augment import make_augment_fn
@@ -102,8 +127,11 @@ from fedml_tpu_torch.gn_timing import (FLAX_EPS, GN_LAYERS_PER_STAGE,
                                        GN_STAGES, GROUPS, cuda_ms,
                                        device_kernels, host_ms, layer_call,
                                        stage_inputs)
-from fedml_tpu_torch.data.loaders import load_data
+from fedml_tpu_torch.data.loaders import load_data, load_vfl_data
 from fedml_tpu_torch.models import create_model
+from fedml_tpu_torch.models.gan import Discriminator, Generator
+from fedml_tpu_torch.models.resnet_gkt import ResNetClientGKT, ResNetServerGKT
+from fedml_tpu_torch.models.split import split_cnn
 from fedml_tpu_torch.ops import build, launch_counts, reset_launch_counts
 from fedml_tpu_torch.ops.aggregate import (clip_agg, clip_agg_plain, fold,
                                            flatten_stacked_tree, fold_plain,
@@ -198,11 +226,13 @@ def phase_build() -> None:
           + "".join(f"\n[build]   {s}" for s in spills))
 
 
-def gn_check(x, dy, gamma, beta, tag: str) -> tuple[float, float]:
+def gn_check(x, dy, gamma, beta, tag: str,
+             groups: int = GROUPS) -> tuple[float, float]:
     """The GroupNorm kernels against their plain versions on one input, and
-    a second launch of each bitwise equal to the first; returns the max abs
-    error of y and of dx.  Tolerances: y and dx in bf16 within one bf16 ulp
-    of the plain version (rtol 2^-7) plus 2^-10 of the largest |value|
+    a second launch of each bitwise equal to the first, in `groups` groups;
+    returns the max abs error of y and of dx.  Tolerances: y and dx in
+    bf16 within one bf16 ulp of the plain version (rtol 2^-7) plus 2^-10
+    of the largest |value|
     (the statistics' f32 sums run in another order and can move a
     rounding), in f32 within rtol 1e-5 + 1e-6 x max; mean and rstd within
     rtol 1e-4 + 1e-5 x max (f32 sums of up to 32K terms); dgamma and dbeta,
@@ -214,21 +244,21 @@ def gn_check(x, dy, gamma, beta, tag: str) -> tuple[float, float]:
         par_tol = (2 ** -7, 1e-5)
     else:
         par_tol = (1e-4, 1e-5) if x.dtype == torch.bfloat16 else (1e-5, 1e-6)
-    fwd = gn_forward(x, gamma, beta, GROUPS, FLAX_EPS)
-    yp, meanp, rstdp = gn_forward_plain(x, gamma, beta, GROUPS, FLAX_EPS)
+    fwd = gn_forward(x, gamma, beta, groups, FLAX_EPS)
+    yp, meanp, rstdp = gn_forward_plain(x, gamma, beta, groups, FLAX_EPS)
     err_f = check_close(f"gn_fwd y {tag}", fwd[0], yp, *out_tol)
     check_close(f"gn_fwd mean {tag}", fwd[1], meanp, 1e-4, 1e-5)
     check_close(f"gn_fwd rstd {tag}", fwd[2], rstdp, 1e-4, 1e-5)
-    bwd = gn_backward(x, dy, gamma, meanp, rstdp, GROUPS)
-    dxp, dgp, dbp = gn_backward_plain(x, dy, gamma, meanp, rstdp, GROUPS)
+    bwd = gn_backward(x, dy, gamma, meanp, rstdp, groups)
+    dxp, dgp, dbp = gn_backward_plain(x, dy, gamma, meanp, rstdp, groups)
     err_b = check_close(f"gn_bwd dx {tag}", bwd[0], dxp, *out_tol)
     check_close(f"gn_bwd dgamma {tag}", bwd[1], dgp, *par_tol)
     check_close(f"gn_bwd dbeta {tag}", bwd[2], dbp, *par_tol)
     if not bwd[1].dtype == bwd[2].dtype == gamma.dtype:
         raise AssertionError(f"gn_bwd {tag}: dgamma/dbeta in {bwd[1].dtype}, "
                              f"not gamma's {gamma.dtype}")
-    again = (*gn_forward(x, gamma, beta, GROUPS, FLAX_EPS),
-             *gn_backward(x, dy, gamma, meanp, rstdp, GROUPS))
+    again = (*gn_forward(x, gamma, beta, groups, FLAX_EPS),
+             *gn_backward(x, dy, gamma, meanp, rstdp, groups))
     for name, a, b in zip(("y", "mean", "rstd", "dx", "dgamma", "dbeta"),
                           (*fwd, *bwd), again):
         if not torch.equal(a, b):
@@ -548,7 +578,8 @@ def phase_main_path() -> dict:
     print(f"[main path] s/round {round_s} -> {steady:.4f} s/round over rounds "
           f"2-{MAIN_ROUNDS} ({card_line()})")
     print(f"[main path] launches {counts} == expected")
-    profile_round(engine, variables, server_state, cohort, weights, steady)
+    profile_round(lambda: engine.round_fn_streaming(
+        variables, server_state, cohort, weights), steady)
     return counts
 
 
@@ -587,12 +618,11 @@ def kernel_kinds(prof) -> dict:
     return share
 
 
-def profile_round(engine, variables, server_state, cohort, weights,
-                  steady_s: float, tag: str = "profile") -> dict:
-    """One more round under torch.profiler, with each BatchNorm forward in
-    a named range: the card's busy time (kernels, copies and fills,
-    summed) against the unprofiled round's wall time, the device time by
-    kind from the op tree, and the largest items."""
+def profile_round(run_round, steady_s: float, tag: str = "profile") -> dict:
+    """One more round (``run_round()``) under torch.profiler, with each
+    BatchNorm forward in a named range: the card's busy time (kernels,
+    copies and fills, summed) against the unprofiled round's wall time,
+    the device time by kind from the op tree, and the largest items."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from fedml_tpu_torch.models.norms import BatchNorm
@@ -607,7 +637,7 @@ def profile_round(engine, variables, server_state, cohort, weights,
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            engine.round_fn_streaming(variables, server_state, cohort, weights)
+            run_round()
             torch.cuda.synchronize()
     finally:
         BatchNorm.forward = forward
@@ -1336,8 +1366,8 @@ def phase_resnet56_path(gen: torch.Generator) -> dict:
     print(f"[resnet56 path] global statistics segment ({n - n_p} values) = the "
           f"plain weighted mean of the {len(V)} clients' statistics rows: max "
           f"abs err {err:.3e} (limit 1e-6 of sum|w v| / sum w)")
-    prof = profile_round(engine, variables, (), cohort, weights, steady,
-                         tag="resnet56 path")
+    prof = profile_round(lambda: engine.round_fn_streaming(
+        variables, (), cohort, weights), steady, tag="resnet56 path")
     return dict(s_per_round=round_s, steady_s=steady, losses=losses,
                 eval=stats, launches=counts, fold=fold_rec,
                 stats_fold_max_abs_err=err, profile=prof,
@@ -1735,8 +1765,446 @@ def phase_data_path() -> dict:
                 turns=turns, upload=upload)
 
 
+# ---------------------------------------------------------------------------
+# slice 7a-i: the one-card algorithms beyond FedAvg
+# ---------------------------------------------------------------------------
+
+GKT_GN_SHAPES = ((32, 32, 32, 16), (32, 16, 16, 32), (32, 8, 8, 64))   # G = 2
+SEG_GN_SHAPES = ((8, 32, 32, 32), (8, 16, 16, 64), (8, 8, 8, 128))     # G = 4
+GKT_CLIENT_GN, GKT_SERVER_GN, SEG_GN = 7, 38, 5   # GroupNorm layers per net
+GKT_ROUNDS, SEG_ROUNDS = 3, 2
+GKT_PARAMS = (14_650, 563_658)
+SEG_PARAMS = 181_813
+
+
+def gn_new_shapes(gen: torch.Generator) -> list:
+    """Both GroupNorm kernels at FedGKT's stage shapes (2 groups) and
+    FedSeg's (4 groups) against their plain versions, with f32 x and gamma
+    (the paths' case) and bf16 x and gamma, within gn_check's tolerances;
+    each shape's launch plans, and its f32 device time beside the bound of
+    the bytes it must move."""
+    recs = []
+    for shapes, G in ((GKT_GN_SHAPES, 2), (SEG_GN_SHAPES, 4)):
+        for shape in shapes:
+            N, H, W, C = shape
+            x, dy, gamma, beta = stage_inputs(shape, gen, dtype=torch.float32,
+                                              param_dtype=torch.float32)
+            err32 = gn_check(x, dy, gamma, beta, f"{shape} f32, G={G}", G)
+            err16 = gn_check(x.bfloat16(), dy.bfloat16(), gamma.bfloat16(),
+                             beta.bfloat16(), f"{shape} bf16, G={G}", G)
+            _, mean, rstd = gn_forward_plain(x, gamma, beta, G, FLAX_EPS)
+            elems, stats = x.numel(), 2 * N * G * 4
+            plans = {d: launch_plan(N, H * W, C, G, torch.float32,
+                                    backward=d == "backward")
+                     for d in ("forward", "backward")}
+            rec = dict(
+                shape=list(shape), groups=G, cg=C // G,
+                max_abs_err={"f32": list(err32), "bf16": list(err16)},
+                plan={d: dict(K=p.K, threads=p.threads, resident=p.resident,
+                              vec=p.vec) for d, p in plans.items()},
+                fwd_ms=cuda_ms(lambda: gn_forward(x, gamma, beta, G, FLAX_EPS)),
+                bwd_ms=cuda_ms(lambda: gn_backward(x, dy, gamma, mean, rstd, G)),
+                fwd_bound=bound_ms(2 * elems * 4 + 2 * C * 4 + stats, 8 * elems),
+                bwd_bound=bound_ms(3 * elems * 4 + 3 * C * 4 + stats,
+                                   12 * elems))
+            recs.append(rec)
+            print(f"[slice 7a] GroupNorm {list(shape)} G={G} (Cg {C // G}): max "
+                  f"abs err y/dx f32 {err32[0]:.3e}/{err32[1]:.3e}, bf16 "
+                  f"{err16[0]:.3e}/{err16[1]:.3e}; plan forward "
+                  + ", backward ".join(
+                      f"K={p.K} threads={p.threads} resident={p.resident}"
+                      for p in plans.values())
+                  + f"; f32 forward {rec['fwd_ms'] * 1e3:.2f} us (bound "
+                  f"{rec['fwd_bound'][0] * 1e3:.2f}), backward "
+                  f"{rec['bwd_ms'] * 1e3:.2f} us (bound "
+                  f"{rec['bwd_bound'][0] * 1e3:.2f})")
+    return recs
+
+
+def card_cpu(tag: str, run, expect: dict) -> dict:
+    """`run(device)` -> (v0, v1, info): one round (or epoch) of an engine
+    from the same weights, in f32 with TF32 off, on the card and on the
+    CPU.  The card's launches, counted around its run, must equal `expect`
+    (zero for any kernel not named), and the update v1 - v0 must lie within
+    phase 4's limits of the CPU's (1e-3 of its norm over the model, 1e-2
+    within any leaf)."""
+    res = {}
+    for device in ("cuda", "cpu"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        v0, v1, info = run(device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        res[device] = (v0, v1, info, time.perf_counter() - t0)
+    (g0, g1, gi, gt), (c0, c1, ci, ct) = res["cuda"], res["cpu"]
+    want = {k: expect.get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts} != {want}")
+    whole, worst = update_distance(tag, g0, g1, c0, c1)
+    print(f"[slice 7a] {tag}: update distance {whole:.3e} of its norm (limit "
+          f"1e-3), worst leaf {worst[0][0]} {worst[0][1]:.3e} (limit 1e-2); "
+          f"card {gt:.2f} s, CPU {ct:.2f} s; launches "
+          f"{ {k: v for k, v in counts.items() if v} }; card {gi}, CPU {ci}")
+    if whole > 1e-3 or worst[0][1] > 1e-2:
+        raise AssertionError(f"{tag}: the card's round differs from the CPU's "
+                             "beyond phase 4's limits")
+    return dict(update_distance=whole, worst_leaf=list(worst[0]),
+                launches=counts, card_s=gt, cpu_s=ct, card=gi, cpu=ci)
+
+
+def prefixed(**trees) -> dict:
+    """{prefix: {name: tensor}} -> one {prefix.name: tensor} dict."""
+    return {f"{p}.{k}": v for p, tree in trees.items() for k, v in tree.items()}
+
+
+def engines_card_cpu() -> dict:
+    """One f32 round (or epoch) of every engine of the slice, card against
+    CPU, at a small size: 2-8 clients of one batch, the models at their
+    published widths (ResNet-18-GN, the GKT pair, the segmentation net,
+    the GAN pair, split_cnn, LR)."""
+    f32_off()
+    gw = lambda: torch.Generator().manual_seed(0)
+    rgn = lambda: ClientTrainer(create_model("resnet18_gn", 10), lr=0.1)
+
+    def cfg(n, **kw):
+        base = dict(client_num_in_total=n, client_num_per_round=n, epochs=1,
+                    batch_size=BATCH, lr=0.1, frequency_of_the_test=10_000)
+        return FedConfig(**{**base, **kw})
+    out = {}
+
+    mnist4 = zoo_data("mnist", 4, BATCH, BATCH, seed=10)
+
+    def turbo(device):
+        eng = TurboAggregateEngine(ClientTrainer(create_model("lr", 10), lr=0.1),
+                                   mnist4, cfg(4), device=device)
+        v0 = eng.init_variables(gw())
+        rows, ns = eng.train_cohort(v0, 0)
+        plain, secure = eng.plain_mean(rows, ns), eng.secure_mean(rows, ns, 0)
+        err = max(float((secure[k] - plain[k]).abs().max()) for k in plain)
+        if err > len(rows) * 2.0 ** -16:
+            raise AssertionError(f"TurboAggregate on {device}: the secure mean "
+                                 f"is {err:.3e} from the plain one")
+        return v0, plain, f"secure - plain max {err:.3e} (limit K 2^-16)"
+    out["turboaggregate"] = card_cpu("TurboAggregate (LR, 4 clients)", turbo,
+                                     {"wsum": 1})
+
+    cifar4 = zoo_data("cifar10", 4, BATCH, BATCH, seed=11)
+
+    def hierarchical(device):
+        eng = HierarchicalFedAvgEngine(rgn(), cifar4, cfg(4), group_num=2,
+                                       device=device)
+        v0 = eng.init_variables(gw())
+        v1, _, m = eng.round_fn(dict(v0), (), *eng._round_args(0))
+        return v0, v1, f"train_loss {float(m['train_loss']):.6f}"
+    out["hierarchical"] = card_cpu(
+        "hierarchical (ResNet-18-GN, 2 groups of 2 clients)", hierarchical,
+        {"gn_forward": 80, "gn_backward": 80, "wsum": 3})
+
+    cifar2 = zoo_data("cifar10", 2, BATCH, BATCH, seed=12)
+    cen = dataclasses.replace(cifar2, train_global={
+        k: v.reshape((-1,) + v.shape[2:]) for k, v in cifar2.client_shards.items()})
+
+    def centralized(device):
+        tr = CentralizedTrainer(rgn(), cen, cfg(2), device=device)
+        v0 = tr.trainer.init(gw(), device)
+        v1 = tr.run(epochs=1, variables=dict(v0))
+        return v0, v1, f"train_loss {tr.metrics_history[-1]['train_loss']:.6f}"
+    out["centralized"] = card_cpu("centralized (ResNet-18-GN, 2 batches)",
+                                  centralized, {"gn_forward": 100,
+                                                "gn_backward": 40})
+
+    susy = load_data("susy", client_num_in_total=8, batch_size=8,
+                     synthetic_scale=0.01, seed=0)
+    for push_sum in (False, True):
+        def gossip(device, push_sum=push_sum):
+            topo = (AsymmetricTopologyManager(8, 3, 0.3) if push_sum
+                    else SymmetricTopologyManager(8, 2))
+            eng = DecentralizedGossipEngine(
+                ClientTrainer(create_model("lr", 2, input_dim=18), lr=0.1),
+                susy, cfg(8), topology=topo, push_sum=push_sum, device=device)
+            rows, w = eng.init_states(gw())
+            w = w * torch.linspace(0.5, 1.5, 8).to(device)
+            new, w1, _ = eng.round_fn(rows, w, eng.data.device_shards(device)[0])
+            as_dict = lambda r: {f"client_{c}": r[c] for c in range(len(r))}
+            return ({**as_dict(rows), "weights": w}, {**as_dict(new), "weights": w1},
+                    f"test_acc {eng.evaluate(new, w1)['test_acc']:.4f}")
+        name = "push-sum" if push_sum else "DSGD"
+        out[name] = card_cpu(f"{name} (LR, 8 clients)", gossip, {})
+
+    vx, vy, splits = load_vfl_data("lending_club", n_samples=512, seed=0)
+
+    def vfl(device):
+        eng = VFLEngine(splits, FedConfig(batch_size=64, lr=0.01,
+                                          client_optimizer="adam"),
+                        device=device)
+        p0 = eng.init_params(gw())
+        p1 = eng.fit(vx, vy, epochs=1, params=dict(p0))
+        return p0, p1, f"train_loss {eng.metrics_history[-1]['train_loss']:.6f}"
+    out["vfl"] = card_cpu("vertical FL (lending_club, 2 parties)", vfl, {})
+
+    femnist2 = zoo_data("femnist", 2, BATCH, BATCH, seed=13)
+
+    def splitnn(device):
+        eng = SplitNNEngine(*split_cnn(62), femnist2, cfg(2), device=device)
+        cp, sp = eng.init_params(gw())
+        cps, sp1 = eng.run(rounds=1, params=(cp, sp))
+        return (prefixed(client_0=cp, client_1=cp, server=sp),
+                prefixed(client_0=cps[0], client_1=cps[1], server=sp1),
+                f"train_loss {eng.metrics_history[-1]['train_loss']:.6f}")
+    out["splitnn"] = card_cpu("SplitNN (split_cnn, 2 clients)", splitnn, {})
+
+    voc = load_data("pascal_voc", client_num_in_total=2, batch_size=8,
+                    synthetic_scale=0.05, max_batches_per_client=1, seed=0)
+    voc_steps = 2 * voc.client_shards["mask"].shape[1]
+    voc_eval = sum(s["mask"].shape[0] for s in (voc.train_global,
+                                                 voc.test_global))
+
+    def fedseg(device):
+        trainer = ClientTrainer(create_model("segnet", 21), lr=0.05,
+                                has_time_axis=True, train_ignore_id=255)
+        eng = FedSegEngine(trainer, voc, cfg(2, batch_size=8), device=device)
+        v0 = eng.init_variables(gw())
+        v1, _, m = eng.round_fn(dict(v0), (), *eng._round_args(0))
+        return v0, v1, {k: round(v, 6) for k, v in eng.evaluate(v1).items()}
+    out["fedseg"] = card_cpu(
+        "FedSeg (segnet width 32, 2 clients)", fedseg,
+        {"gn_forward": SEG_GN * (voc_steps + voc_eval),
+         "gn_backward": SEG_GN * voc_steps, "wsum": 1})
+    card_m, cpu_m = out["fedseg"]["card"], out["fedseg"]["cpu"]
+    worst = max(abs(card_m[k] - cpu_m[k]) for k in cpu_m)
+    if worst > 1e-2:
+        raise AssertionError(f"FedSeg: the card's metrics {card_m} differ from "
+                             f"the CPU's {cpu_m} by {worst:.3e} (limit 1e-2)")
+
+    cifar2g = synthetic_data(2, BATCH, seed=14)
+
+    def fedgkt(device):
+        eng = FedGKTEngine(ResNetClientGKT(10), ResNetServerGKT(10), cifar2g,
+                           cfg(2), device=device)
+        cp, sp = eng.init_params(gw())
+        shards, _ = eng.data.device_shards(device)
+        spf = eng.server.flatten(sp)
+        flats, sp1, _, slog, _, s_loss = eng.train_round(
+            [eng.client.flatten(cp)] * 2, spf, eng.server_tx.init(spf),
+            torch.zeros(2, 1, BATCH, 10, device=device), shards)
+        return (prefixed(client_0=cp, client_1=cp, server=sp,
+                         logits={"server": torch.zeros_like(slog)}),
+                prefixed(client_0=eng.client.unflatten(flats[0]),
+                         client_1=eng.client.unflatten(flats[1]),
+                         server=eng.server.unflatten(sp1),
+                         logits={"server": slog}),
+                f"server_loss {float(s_loss):.6f}")
+    out["fedgkt"] = card_cpu(
+        "FedGKT (full-width pair, 2 clients, server logits included)", fedgkt,
+        {"gn_forward": 2 * 2 * (GKT_CLIENT_GN + GKT_SERVER_GN),
+         "gn_backward": 2 * (GKT_CLIENT_GN + GKT_SERVER_GN)})
+
+    mnist2 = zoo_data("mnist", 2, BATCH, BATCH, seed=15)
+
+    def fedgan(device):
+        eng = FedGANEngine(Generator(), Discriminator(), mnist2,
+                           cfg(2, lr=0.001), device=device)
+        p0 = eng.init_params(gw())
+        cohort, _ = eng.data.cohort(np.arange(2), device)
+        p1, m = eng.round_fn(dict(p0), cohort, 0)
+        return p0, p1, (f"d_loss {float(m['d_loss']):.6f} g_loss "
+                        f"{float(m['g_loss']):.6f}")
+    out["fedgan"] = card_cpu("FedGAN (z from the same host draws, 2 clients)",
+                             fedgan, {"wsum": 1})
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    return out
+
+
+def timed_phase(engine, name: str, totals: dict) -> None:
+    """Wrap engine.<name> so that its wall time, the card waited for before
+    and after, adds to totals[name]."""
+    inner = getattr(engine, name)
+
+    def run(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        totals[name] += time.perf_counter() - t0
+        return out
+    setattr(engine, name, run)
+
+
+def phase_gkt_path() -> dict:
+    """The slice's path: FedGKT at the published widths of its pair
+    (ResNetClientGKT, ResNetServerGKT), f32, on phase 5's 8 clients of 13
+    batches of 32, client SGD at lr 0.1, the server's SGD with momentum
+    0.9 and wd 1e-4; 3 rounds, then one evaluation; exact GroupNorm
+    launch counts; each phase's share of the round; then a round of 2 of
+    the clients, timed and under the profiler."""
+    data = synthetic_data(MAIN_CLIENTS, SAMPLES, seed=0)
+    cfg = FedConfig(dataset="cifar10", client_num_in_total=MAIN_CLIENTS,
+                    client_num_per_round=MAIN_CLIENTS, epochs=1,
+                    batch_size=BATCH, lr=0.1, frequency_of_the_test=10_000)
+    engine = FedGKTEngine(ResNetClientGKT(10), ResNetServerGKT(10), data, cfg)
+    sizes = (engine.client.spec.n, engine.server.spec.n)
+    if sizes != GKT_PARAMS:
+        raise AssertionError(f"GKT pair sizes {sizes} != {GKT_PARAMS}")
+    cp0, sp0 = engine.init_params()
+    shards, _ = data.device_shards(engine.device)
+    C, B = shards["mask"].shape[:2]
+    flats = [engine.client.flatten(cp0)] * C
+    sp = engine.server.flatten(sp0)
+    opt = engine.server_tx.init(sp)
+    slog = torch.zeros(C, B, BATCH, 10, device=engine.device)
+    totals = {"_client_phase": 0.0, "_server_phase": 0.0}
+    for name in totals:
+        timed_phase(engine, name, totals)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launch_counts()
+    round_s, shares, c_losses, s_losses = [], [], [], []
+    for _ in range(GKT_ROUNDS):
+        before = dict(totals)
+        t0 = time.perf_counter()
+        flats, sp, opt, slog, losses, s_loss = engine.train_round(
+            flats, sp, opt, slog, shards)
+        s_losses.append(float(s_loss))               # waits for the round
+        round_s.append(time.perf_counter() - t0)
+        c_losses.append(float(losses.mean()))
+        shares.append({k.split("_")[1]: (totals[k] - before[k]) / round_s[-1]
+                       for k in totals})
+    stats = engine.evaluate(engine.client.unflatten(flats[0]),
+                            engine.server.unflatten(sp))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    steps = GKT_ROUNDS * C * B
+    per_step = GKT_CLIENT_GN + GKT_SERVER_GN
+    eval_batches = data.test_global["mask"].shape[0]
+    expected = {"gn_forward": 2 * steps * per_step + eval_batches * per_step,
+                "gn_backward": steps * per_step,
+                "wsum": 0, "sqnorm": 0, "clip_agg": 0}
+    if counts != expected:
+        raise AssertionError(f"FedGKT path: launches {counts} != {expected}")
+    if not all(math.isfinite(v) for v in c_losses + s_losses):
+        raise AssertionError(f"FedGKT path: non-finite losses {c_losses} "
+                             f"{s_losses}")
+    if not bool(torch.isfinite(slog).all()) or slog.shape != (C, B, BATCH, 10):
+        raise AssertionError("FedGKT path: server logits not finite or shaped")
+    for tag, net, new, old in (("client 0", engine.client, flats[0],
+                                engine.client.flatten(cp0)),
+                               ("server", engine.server, sp,
+                                engine.server.flatten(sp0))):
+        same = [k for (k, a), b in zip(net.unflatten(new).items(),
+                                       net.unflatten(old).values())
+                if torch.equal(a, b)]
+        if same:
+            raise AssertionError(f"FedGKT path: {tag} leaves unchanged: {same}")
+    feat_bytes = C * B * BATCH * 32 * 32 * 16 * 4
+    steady = statistics.mean(round_s[1:])
+    share = {k: statistics.mean(s[k] for s in shares[1:]) for k in shares[0]}
+    print(f"[fedgkt path] FedGKTEngine, ResNetClientGKT ({sizes[0]} params) + "
+          f"ResNetServerGKT ({sizes[1]} params), f32, {C} clients x {B} "
+          f"batches of {BATCH}; uploaded features [{C}, {B}, {BATCH}, 32, 32, "
+          f"16] f32 = {feat_bytes} B; peak device memory {peak} B")
+    print(f"[fedgkt path] client loss per round {c_losses}, server loss "
+          f"{s_losses}; eval {stats}")
+    print(f"[fedgkt path] s/round {round_s} -> {steady:.4f} s/round over "
+          f"rounds 2-{GKT_ROUNDS}; client phase {share['client']:.1%}, server "
+          f"phase {share['server']:.1%} of the round ({card_line()})")
+    print(f"[fedgkt path] launches {counts} == expected")
+    # the busy share from a round of 2 of the 8 clients (the same steps per
+    # client; a whole round's trace takes minutes of host time to read)
+    for name in totals:
+        delattr(engine, name)                      # the untimed methods again
+    sub = {k: v[:2] for k, v in shards.items()}
+    sub_round = lambda: engine.train_round(flats[:2], sp, opt, slog[:2], sub)
+    sub_round()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sub_round()
+    torch.cuda.synchronize()
+    sub_s = time.perf_counter() - t0
+    prof = profile_round(sub_round, sub_s, tag="fedgkt path, 2 clients")
+    print(f"[fedgkt path] the profiled 2-client round took "
+          f"{time.perf_counter() - t0:.1f} s of command time")
+    return dict(s_per_round=round_s, steady_s=steady, phase_share=share,
+                client_losses=c_losses, server_losses=s_losses, eval=stats,
+                launches=counts, feature_bytes=feat_bytes, peak_bytes=peak,
+                two_client_round_s=sub_s,
+                profile={k: v for k, v in prof.items() if k != "top"})
+
+
+def phase_seg_path() -> dict:
+    """FedSeg at its model's full width (SegEncoderDecoder(21, 32)) on the
+    pascal_voc stand-in (512 images of 32x32, void 255, 4 clients, batches
+    of 8), f32, lr 0.05: 2 rounds then one evaluation, exact launch
+    counts."""
+    data = load_data("pascal_voc", client_num_in_total=4, batch_size=8, seed=0)
+    cfg = FedConfig(model="segnet", dataset="pascal_voc", client_num_in_total=4,
+                    client_num_per_round=4, epochs=1, batch_size=8, lr=0.05,
+                    train_ignore_id=255, frequency_of_the_test=10_000)
+    trainer = ClientTrainer(create_model("segnet", 21), lr=cfg.lr,
+                            has_time_axis=True, train_ignore_id=255)
+    if trainer.n_params != SEG_PARAMS:
+        raise AssertionError(f"segnet has {trainer.n_params} params")
+    engine = FedSegEngine(trainer, data, cfg)
+    variables = engine.init_variables()
+    v0 = {k: v.clone() for k, v in variables.items()}
+    K, B = data.client_shards["mask"].shape[:2]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    round_s, losses = [], []
+    for r in range(SEG_ROUNDS):
+        t0 = time.perf_counter()
+        variables, _, m = engine.round_fn(variables, (), *engine._round_args(r))
+        losses.append(float(m["train_loss"]))
+        round_s.append(time.perf_counter() - t0)
+    stats = engine.evaluate(variables)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    steps = SEG_ROUNDS * K * B
+    eval_batches = sum(s["mask"].shape[0] for s in (data.train_global,
+                                                     data.test_global))
+    expected = {"gn_forward": SEG_GN * (steps + eval_batches),
+                "gn_backward": SEG_GN * steps, "wsum": SEG_ROUNDS,
+                "sqnorm": 0, "clip_agg": 0}
+    if counts != expected:
+        raise AssertionError(f"FedSeg path: launches {counts} != {expected}")
+    same = [k for k in v0 if torch.equal(variables[k], v0[k])]
+    if same or not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"FedSeg path: leaves unchanged {same} or "
+                             f"non-finite losses {losses}")
+    if not all(0.0 <= v <= 1.0 for v in stats.values()):
+        raise AssertionError(f"FedSeg path: metrics out of [0, 1]: {stats}")
+    print(f"[fedseg path] FedSegEngine, SegEncoderDecoder(21, 32) "
+          f"({SEG_PARAMS} params), pascal_voc stand-in, {K} clients x {B} "
+          f"batches of 8: train_loss per round {losses}; s/round {round_s} "
+          f"({card_line()}); last eval {stats}; launches {counts} == expected")
+    return dict(s_per_round=round_s, losses=losses, eval=stats,
+                launches=counts)
+
+
+def phase_slice7a(gen: torch.Generator) -> dict:
+    """Phase 14: slice 7a-i's GroupNorm shapes, engines and two paths, each
+    part's seconds of command time."""
+    rec, seconds = {}, {}
+    for key, part in (("gn_shapes", lambda: gn_new_shapes(gen)),
+                      ("engines", engines_card_cpu),
+                      ("fedgkt_path", phase_gkt_path),
+                      ("fedseg_path", phase_seg_path)):
+        t0 = time.perf_counter()
+        rec[key] = part()
+        seconds[key] = time.perf_counter() - t0
+    rec["seconds"] = seconds
+    print(f"[slice 7a] phase 14 took {sum(seconds.values()):.1f} s: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
+    return rec
+
+
 def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
-                counts: dict, robust_counts: dict, resnet56: dict) -> dict:
+                counts: dict, robust_counts: dict, resnet56: dict,
+                paths: dict, gn_slice7a: list) -> dict:
     """One entry per ported kernel.  GroupNorm's numbers are per training
     step: its 20 launches, five at each stage shape, summed, with bf16
     gamma/beta (ms_f32_gamma: with f32 gamma; layer_ms_per_step: the
@@ -1744,7 +2212,9 @@ def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
     The fold, squared-distance and clipped-fold numbers are one call at the mesh
     chunk's shape ([2, P] bf16); launches are those of the FedAvg main path
     (phase 5) for GroupNorm and the fold, of the robust main path (phase 8)
-    for the two robust kernels."""
+    for the two robust kernels; ``launches_by_path`` gives every path's
+    count (each zeroed just before its path ran), and the GroupNorm
+    entries carry phase 14's shapes (f32 device time and bound a call)."""
     entries = []
     for name, rec in (("gn_forward", gn_fwd), ("gn_backward", gn_bwd)):
         sh = rec["shapes"]
@@ -1794,6 +2264,14 @@ def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
             unit=f"one call at the mesh chunk: [{MAIN_CHUNK}, P] bf16"
                  + (", accumulate form" if name == "clip_agg" else ""),
             fedavg_robust={k: v for k, v in other.items()}))
+    for e in entries:
+        e["launches_by_path"] = {p: c[e["name"]] for p, c in paths.items()}
+        if e["name"].startswith("gn_"):
+            d = "fwd" if e["name"] == "gn_forward" else "bwd"
+            e["slice7a_shapes"] = [dict(shape=r["shape"], groups=r["groups"],
+                                        ms=r[f"{d}_ms"],
+                                        bound_ms=r[f"{d}_bound"][0])
+                                   for r in gn_slice7a]
     return {"kernels": entries, "still_to_port": STILL_TO_PORT}
 
 
@@ -1818,12 +2296,18 @@ def main() -> int:
     resnet56 = phase_resnet56_path(gen)
     word_lstm = phase_word_lstm()
     data_path = phase_data_path()
+    slice7a = phase_slice7a(gen)
     print(json.dumps({"zoo": zoo, "resnet56_path": {
         k: v for k, v in resnet56.items() if k != "fold"},
-        "word_lstm": word_lstm, "c1": c1, "data_path": data_path},
-        default=str))
+        "word_lstm": word_lstm, "c1": c1, "data_path": data_path,
+        "slice7a": slice7a}, default=str))
+    paths = {"fedavg main path": counts, "robust main path": robust_counts,
+             "data path": data_path["launches"],
+             "fedgkt path": slice7a["fedgkt_path"]["launches"],
+             "fedseg path": slice7a["fedseg_path"]["launches"]}
     print(json.dumps(kernel_line(gn_fwd, gn_bwd, fold_rec, robust_rec, counts,
-                                 robust_counts, resnet56)))
+                                 robust_counts, resnet56, paths,
+                                 slice7a["gn_shapes"])))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

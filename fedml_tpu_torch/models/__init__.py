@@ -24,6 +24,7 @@ from fedml_tpu_torch.models.resnet_cifar import (resnet20, resnet32, resnet44,
                                                  resnet56)
 from fedml_tpu_torch.models.resnet_gn import ResNet18GN
 from fedml_tpu_torch.models.rnn import RNNOriginalFedAvg, RNNStackOverflow
+from fedml_tpu_torch.models.segnet import SegEncoderDecoder
 from fedml_tpu_torch.models.transformer import TransformerLM
 from fedml_tpu_torch.models.vgg import VGG11, VGG16
 
@@ -62,14 +63,16 @@ def create_model(model_name: str, output_dim: int, input_dim: int | None = None,
     if name.startswith("efficientnet"):     # efficientnet-b0 .. -b7
         variant = name.rsplit("-", 1)[-1] if "-" in name else "b0"
         return EfficientNet(num_classes=output_dim, variant=variant, **kw)
-    if name in ("darts", "segnet"):
+    if name == "darts":
         raise NotImplementedError(
-            f"model {model_name!r} comes with its algorithm "
-            f"({'fednas' if name == 'darts' else 'fedseg'}): slice 7 of the port")
+            f"model {model_name!r} comes with its algorithm (fednas): "
+            "slice 7a-ii of the port")
     if name == "vgg11":
         return VGG11(num_classes=output_dim, **kw)
     if name == "vgg16":
         return VGG16(num_classes=output_dim, **kw)
+    if name == "segnet":
+        return SegEncoderDecoder(num_classes=output_dim, **kw)
     raise ValueError(f"unknown model {model_name!r}")
 
 
@@ -91,5 +94,5 @@ def init_params(model: nn.Module, generator: torch.Generator) -> dict:
 __all__ = ["CNNDropOut", "CNNOriginalFedAvg", "EfficientNet",
            "LogisticRegression", "MobileNetV1", "MobileNetV3",
            "RNNOriginalFedAvg", "RNNStackOverflow", "ResNet18GN",
-           "TransformerLM", "VGG11", "VGG16", "create_model", "init_params",
+           "SegEncoderDecoder", "TransformerLM", "VGG11", "VGG16", "create_model", "init_params",
            "resnet20", "resnet32", "resnet44", "resnet56"]
