@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's FedAvg, robust-aggregation, model-zoo,
-data-layer and one-card-algorithm paths on one CUDA card, and hold every
-hand-written kernel against its plain PyTorch version.
+data-layer, one-card-algorithm and FedNAS paths on one CUDA card, and
+hold every hand-written kernel against its plain PyTorch version.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -77,10 +77,27 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    GroupNorm launches, each phase's share of the round, a profiled
    round); and FedSeg at full width on the pascal_voc stand-in (2 rounds,
    its last evaluation's metrics, exact launches);
-15. one JSON line of the zoo's, C.1's, the data path's and slice 7a-i's
-   numbers, one listing every TPU kernel of the JAX package with its
-   port's numbers and its launches on every path, then the last line
-   {"ok": true, "device": {...}}.
+15. slice 7a-ii, FedNAS with the DARTS search space, and the obs core:
+   both GroupNorm kernels at the DARTS nets' eight (C, G) shapes (the
+   supernet's 8 groups of 2-8 channels, the retrain net's odd widths 9
+   and 27) in f32 and bf16, with plans, times and bounds; the second
+   derivative through one GroupNorm layer (kernels and the analytic
+   double backward) against the plain version's autograd on the card and
+   against the CPU; the second-order correction g2 - g1 of one
+   micro-space architecture gradient, card against CPU, relative to its
+   own norm; one f32 round of each search mode (first order, exact second
+   order, GDAS) in the micro space and at full width, card against CPU
+   with exact launches; the slice's path, FedNAS at the published DARTS
+   widths (2 first-order rounds, 1 second-order, 1 GDAS, each with an
+   evaluation, the derived genotype, then its retrain at C 36 and 20
+   layers for one FedAvg round), with exact launches, s/round by mode and
+   a profiled first-order step; and one main-path round with
+   observability off and on, bitwise equal, its trace holding the round,
+   eval and upload spans;
+16. one JSON line of the zoo's, C.1's, the data path's and slices 7a-i's
+   and 7a-ii's numbers, one listing every TPU kernel of the JAX package
+   with its port's numbers and its launches on every path, then the last
+   line {"ok": true, "device": {...}}.
 
 It needs one card; it imports nothing of JAX or of fedml_tpu.
 """
@@ -102,6 +119,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fedml_tpu_torch import obs
 from fedml_tpu_torch.algorithms import (DecentralizedGossipEngine,
                                         HierarchicalFedAvgEngine)
 from fedml_tpu_torch.algorithms.centralized import CentralizedTrainer
@@ -109,6 +127,8 @@ from fedml_tpu_torch.algorithms.fedavg import FedAvgEngine
 from fedml_tpu_torch.algorithms.fedavg_robust import FedAvgRobustEngine
 from fedml_tpu_torch.algorithms.fedgan import FedGANEngine
 from fedml_tpu_torch.algorithms.fedgkt import FedGKTEngine
+from fedml_tpu_torch.algorithms.fednas import (FedNASSearchEngine,
+                                               make_train_engine)
 from fedml_tpu_torch.algorithms.fedseg import FedSegEngine
 from fedml_tpu_torch.algorithms.split_nn import SplitNNEngine
 from fedml_tpu_torch.algorithms.turboaggregate import TurboAggregateEngine
@@ -138,9 +158,10 @@ from fedml_tpu_torch.ops.aggregate import (clip_agg, clip_agg_plain, fold,
                                            sqnorm, sqnorm_plain, weighted_mean,
                                            weighted_mean_flat,
                                            weighted_mean_flat_plain, wsum)
-from fedml_tpu_torch.ops.groupnorm import (gn_backward, gn_backward_plain,
-                                           gn_forward, gn_forward_plain,
-                                           group_norm, launch_plan)
+from fedml_tpu_torch.ops.groupnorm import (GroupNorm, gn_backward,
+                                           gn_backward_plain, gn_forward,
+                                           gn_forward_plain, group_norm,
+                                           launch_plan)
 from fedml_tpu_torch.parallel.engine import (MeshFedAvgEngine,
                                              fedavg_fold,
                                              MeshFedNovaEngine,
@@ -182,15 +203,23 @@ def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
                 rtol: float, atol_of_max: float) -> float:
     """|got - want| <= rtol * |want| + atol_of_max * max|want|, elementwise;
-    returns the max abs error."""
+    returns the max abs error.  A failure is counted again on the host, so
+    that its message tells a wrong result (both counts agree) from device
+    memory that changed under the check (they differ)."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     limit = rtol * want.abs() + atol_of_max * float(want.abs().max())
     bad = int((err > limit).sum())
     if bad or not torch.isfinite(got).all():
+        g, w = got.cpu(), want.cpu()
+        e = (g - w).abs()
+        host_bad = int((e > rtol * w.abs() + atol_of_max * w.abs().max()).sum())
         raise AssertionError(
             f"{name}: {bad} elements outside rtol {rtol} + {atol_of_max} x "
-            f"max|want| (max abs err {float(err.max()):.3e})")
+            f"max|want| (max abs err {float(err.max()):.3e}); counted again "
+            f"on the host: {host_bad} of {g.numel()} (max abs err "
+            f"{float(e.max()):.3e}, {int((~torch.isfinite(g)).sum())} not "
+            "finite)")
     return float(err.max())
 
 
@@ -1777,47 +1806,49 @@ GKT_PARAMS = (14_650, 563_658)
 SEG_PARAMS = 181_813
 
 
-def gn_new_shapes(gen: torch.Generator) -> list:
-    """Both GroupNorm kernels at FedGKT's stage shapes (2 groups) and
-    FedSeg's (4 groups) against their plain versions, with f32 x and gamma
-    (the paths' case) and bf16 x and gamma, within gn_check's tolerances;
-    each shape's launch plans, and its f32 device time beside the bound of
-    the bytes it must move."""
+def gn_new_shapes(gen: torch.Generator,
+                  shapes=tuple((s, 2) for s in GKT_GN_SHAPES)
+                  + tuple((s, 4) for s in SEG_GN_SHAPES),
+                  tag: str = "slice 7a") -> list:
+    """Both GroupNorm kernels at `shapes` ((shape, groups) pairs; by
+    default FedGKT's stage shapes in 2 groups and FedSeg's in 4) against
+    their plain versions, with f32 x and gamma (the paths' case) and bf16
+    x and gamma, within gn_check's tolerances; each shape's launch plans,
+    and its f32 device time beside the bound of the bytes it must move."""
     recs = []
-    for shapes, G in ((GKT_GN_SHAPES, 2), (SEG_GN_SHAPES, 4)):
-        for shape in shapes:
-            N, H, W, C = shape
-            x, dy, gamma, beta = stage_inputs(shape, gen, dtype=torch.float32,
-                                              param_dtype=torch.float32)
-            err32 = gn_check(x, dy, gamma, beta, f"{shape} f32, G={G}", G)
-            err16 = gn_check(x.bfloat16(), dy.bfloat16(), gamma.bfloat16(),
-                             beta.bfloat16(), f"{shape} bf16, G={G}", G)
-            _, mean, rstd = gn_forward_plain(x, gamma, beta, G, FLAX_EPS)
-            elems, stats = x.numel(), 2 * N * G * 4
-            plans = {d: launch_plan(N, H * W, C, G, torch.float32,
-                                    backward=d == "backward")
-                     for d in ("forward", "backward")}
-            rec = dict(
-                shape=list(shape), groups=G, cg=C // G,
-                max_abs_err={"f32": list(err32), "bf16": list(err16)},
-                plan={d: dict(K=p.K, threads=p.threads, resident=p.resident,
-                              vec=p.vec) for d, p in plans.items()},
-                fwd_ms=cuda_ms(lambda: gn_forward(x, gamma, beta, G, FLAX_EPS)),
-                bwd_ms=cuda_ms(lambda: gn_backward(x, dy, gamma, mean, rstd, G)),
-                fwd_bound=bound_ms(2 * elems * 4 + 2 * C * 4 + stats, 8 * elems),
-                bwd_bound=bound_ms(3 * elems * 4 + 3 * C * 4 + stats,
-                                   12 * elems))
-            recs.append(rec)
-            print(f"[slice 7a] GroupNorm {list(shape)} G={G} (Cg {C // G}): max "
-                  f"abs err y/dx f32 {err32[0]:.3e}/{err32[1]:.3e}, bf16 "
-                  f"{err16[0]:.3e}/{err16[1]:.3e}; plan forward "
-                  + ", backward ".join(
-                      f"K={p.K} threads={p.threads} resident={p.resident}"
-                      for p in plans.values())
-                  + f"; f32 forward {rec['fwd_ms'] * 1e3:.2f} us (bound "
-                  f"{rec['fwd_bound'][0] * 1e3:.2f}), backward "
-                  f"{rec['bwd_ms'] * 1e3:.2f} us (bound "
-                  f"{rec['bwd_bound'][0] * 1e3:.2f})")
+    for shape, G in shapes:
+        N, H, W, C = shape
+        x, dy, gamma, beta = stage_inputs(shape, gen, dtype=torch.float32,
+                                          param_dtype=torch.float32)
+        err32 = gn_check(x, dy, gamma, beta, f"{shape} f32, G={G}", G)
+        err16 = gn_check(x.bfloat16(), dy.bfloat16(), gamma.bfloat16(),
+                         beta.bfloat16(), f"{shape} bf16, G={G}", G)
+        _, mean, rstd = gn_forward_plain(x, gamma, beta, G, FLAX_EPS)
+        elems, stats = x.numel(), 2 * N * G * 4
+        plans = {d: launch_plan(N, H * W, C, G, torch.float32,
+                                backward=d == "backward")
+                 for d in ("forward", "backward")}
+        rec = dict(
+            shape=list(shape), groups=G, cg=C // G,
+            max_abs_err={"f32": list(err32), "bf16": list(err16)},
+            plan={d: dict(K=p.K, threads=p.threads, resident=p.resident,
+                          vec=p.vec) for d, p in plans.items()},
+            fwd_ms=cuda_ms(lambda: gn_forward(x, gamma, beta, G, FLAX_EPS)),
+            bwd_ms=cuda_ms(lambda: gn_backward(x, dy, gamma, mean, rstd, G)),
+            fwd_bound=bound_ms(2 * elems * 4 + 2 * C * 4 + stats, 8 * elems),
+            bwd_bound=bound_ms(3 * elems * 4 + 3 * C * 4 + stats,
+                               12 * elems))
+        recs.append(rec)
+        print(f"[{tag}] GroupNorm {list(shape)} G={G} (Cg {C // G}): max "
+              f"abs err y/dx f32 {err32[0]:.3e}/{err32[1]:.3e}, bf16 "
+              f"{err16[0]:.3e}/{err16[1]:.3e}; plan forward "
+              + ", backward ".join(
+                  f"K={p.K} threads={p.threads} resident={p.resident} "
+                  f"vec={p.vec}" for p in plans.values())
+              + f"; f32 forward {rec['fwd_ms'] * 1e3:.2f} us (bound "
+              f"{rec['fwd_bound'][0] * 1e3:.2f}), backward "
+              f"{rec['bwd_ms'] * 1e3:.2f} us (bound "
+              f"{rec['bwd_bound'][0] * 1e3:.2f})")
     return recs
 
 
@@ -2202,9 +2233,498 @@ def phase_slice7a(gen: torch.Generator) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# slice 7a-ii: FedNAS with the DARTS search space, and the obs core
+# ---------------------------------------------------------------------------
+
+NAS_MODES = ("first_order", "unrolled", "gdas")
+NAS_FULL = dict(C=16, layers=8, steps=4, multiplier=4)      # the published
+NAS_MICRO = dict(C=4, layers=1, steps=2, multiplier=2)      # the tests' space
+NAS_PARAMS, RETRAIN_C, RETRAIN_LAYERS = 1_987_194, 36, 20
+NAS_CLIENTS, NAS_BATCHES, NAS_LR = 4, 4, 0.025
+# GroupNorm launches (forward, backward) of one local-search step, a train
+# and a validation batch, by mode.  Full depth: 705 layers a forward; the
+# w step runs all 705 backward, the first-order alpha step the 629 whose
+# input depends on the alphas; the unrolled step adds the train forward's
+# create_graph backward (705, each through the kernel) and the train
+# forward's alpha-dependent 629 in the outer backward.  Micro: 37 layers,
+# 6 of them alpha-dependent.  (Counted with the plain versions on the CPU
+# at a narrow width: the counts do not depend on the width.)
+NAS_STEP_GN = {"first_order": (2 * 705, 705 + 629),
+               "unrolled": (3 * 705, 3 * 705 + 629),
+               "gdas": (2 * 705, 705 + 629)}
+NAS_MICRO_STEP_GN = {"first_order": (2 * 37, 37 + 6),
+                     "unrolled": (3 * 37, 3 * 37 + 6),
+                     "gdas": (2 * 37, 37 + 6)}
+NAS_GN_FORWARD = 705
+# (mode, rounds, clients a round): the second-order round takes 2 of the 4
+# clients, to keep the phase's time (its steps cost ~5x a first-order one)
+NAS_PATH_ROUNDS = (("first_order", 2, NAS_CLIENTS), ("unrolled", 1, 2),
+                   ("gdas", 1, NAS_CLIENTS))
+
+
+def nas_engine(data: FederatedData, mode: str, device=None, lr: float = 0.1,
+               per_round: int | None = None, **space) -> FedNASSearchEngine:
+    cfg = FedConfig(dataset="cifar10", client_num_in_total=data.client_num,
+                    client_num_per_round=per_round or data.client_num, epochs=1,
+                    batch_size=int(data.client_shards["mask"].shape[2]),
+                    lr=lr, frequency_of_the_test=1)
+    return FedNASSearchEngine(data, cfg, num_classes=10, device=device,
+                              unrolled=mode == "unrolled",
+                              gdas=mode == "gdas", **(space or NAS_FULL))
+
+
+def rel_dist(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def gn_double_backward_card(gen: torch.Generator) -> dict:
+    """torch.autograd.grad(create_graph=True) through one GroupNorm layer
+    at a DARTS shape, f32: the second derivatives (with respect to x,
+    gamma and dy) of the kernels plus the analytic double backward,
+    against PyTorch's own second derivative of the plain version on the
+    card (autograd through its ops) and against the port's op on the CPU;
+    each within 1e-4 of the yardstick's norm.  The kernel path launches
+    each GroupNorm kernel once."""
+    shape, G = (32, 16, 16, 32), 8
+    x, dy, gamma, beta = stage_inputs(shape, gen, dtype=torch.float32,
+                                      param_dtype=torch.float32)
+    w = torch.randn(shape, generator=gen, device="cuda")
+
+    def second(fn, device):
+        x_, g_, b_, dy_ = (t.detach().to(device).clone().requires_grad_()
+                           for t in (x, gamma, beta, dy))
+        y = fn(x_, g_, b_)
+        gx, gg, gb = torch.autograd.grad(y, (x_, g_, b_), dy_,
+                                         create_graph=True)
+        loss = ((gx * w.to(device)).sum() + gg.square().sum()
+                + (gb * gg).sum())
+        return torch.autograd.grad(loss, (x_, g_, dy_))
+
+    kernel = lambda x_, g_, b_: group_norm(x_, g_, b_, G, FLAX_EPS)
+    plain = lambda x_, g_, b_: gn_forward_plain(x_, g_, b_, G, FLAX_EPS)[0]
+    reset_launch_counts()
+    card = second(kernel, "cuda")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if (counts["gn_forward"], counts["gn_backward"]) != (1, 1):
+        raise AssertionError(f"GroupNorm double backward: launches {counts}")
+    twin = second(plain, "cuda")
+    cpu = second(kernel, "cpu")
+    rec = {}
+    for name, a, b, c in zip(("d/dx", "d/dgamma", "d/ddy"), card, twin, cpu):
+        rec[name] = dict(vs_twin=rel_dist(a, b), vs_cpu=rel_dist(a, c))
+        if max(rec[name].values()) > 1e-4 or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"GroupNorm double backward {name}: {rec}")
+    print(f"[slice 7a-ii] GroupNorm double backward {list(shape)} G={G} f32: "
+          + ", ".join(f"{k} {v['vs_twin']:.3e} from the plain version's "
+                      f"autograd, {v['vs_cpu']:.3e} from the CPU"
+                      for k, v in rec.items())
+          + " (limit 1e-4 of the norm); launches 1 forward, 1 backward")
+    return rec
+
+
+def arch_correction_card() -> dict:
+    """The second-order correction g2 - g1 of one micro-space _arch_grad
+    (32 images of 32x32, the alphas off their near-uniform init), f32 with
+    TF32 off, on the card against the CPU, relative to the correction's
+    own norm (limit 1e-3): a correction that lost the GroupNorm terms of
+    the second-order graph would be a small change of g2 and would hide
+    inside a tolerance on g2 itself."""
+    data = zoo_data("cifar10", 1, 2 * BATCH, BATCH, seed=21)
+    out = {}
+    for device in ("cuda", "cpu"):
+        grads = []
+        for mode in ("first_order", "unrolled"):
+            eng = nas_engine(data, mode, device, **NAS_MICRO)
+            params, alphas = eng.init_state(torch.Generator().manual_seed(0))
+            p = eng.net.flatten(params)
+            a = eng.flatten_alphas(alphas) * 300.0
+            shard = {k: torch.as_tensor(v[0]).to(device)
+                     for k, v in data.client_shards.items()}
+            tb, vb = ({k: v[b] for k, v in shard.items()} for b in (0, 1))
+            grads.append(eng._arch_grad(p, a, tb, vb))
+        out[device] = grads
+    (g1, g2), (c1, c2) = out["cuda"], out["cpu"]
+    rec = dict(correction=rel_dist(g2 - g1, c2 - c1), g2=rel_dist(g2, c2),
+               g1=rel_dist(g1, c1),
+               correction_share=float((c2 - c1).norm() / c2.norm()))
+    print(f"[slice 7a-ii] arch grad, micro space: the card's second-order "
+          f"correction g2 - g1 is {rec['correction']:.3e} of its norm from "
+          f"the CPU's (limit 1e-3); g2 {rec['g2']:.3e}, g1 {rec['g1']:.3e}; "
+          f"the correction is {rec['correction_share']:.3e} of g2's norm")
+    if rec["correction"] > 1e-3 or rec["correction_share"] == 0.0:
+        raise AssertionError(f"second-order correction, card vs CPU: {rec}")
+    return rec
+
+
+def record_arch_grads(eng: FedNASSearchEngine, grads: list) -> None:
+    """Append every alpha gradient the engine computes (before Adam) to
+    `grads`."""
+    inner = eng._arch_grad
+
+    def recorded(*args, **kw):
+        g = inner(*args, **kw)
+        grads.append(g.detach().cpu().double())
+        return g
+    eng._arch_grad = recorded
+
+
+def nas_card_cpu(tag: str, run, expect: dict, arch_lr: float = 3e-4) -> dict:
+    """`run(device, dtype, grads)` -> (w0, a0, w1, a1, info): one search
+    round from the same weights, alphas, data and noise, appending each
+    step's alpha gradient (before Adam) to `grads`; run on the card in
+    f32, on the CPU in f32 and on the CPU in f64 (TF32 off).  The card's
+    launches must equal `expect`.  Held: the w update within 1e-3 of its
+    norm of the CPU's f32 one (phase 4's limit); every alpha gradient
+    within max(1e-3, 2 d) of its norm of the f64 one, d the CPU's own f32
+    distance from it (the f32 formula's own error: GDAS's straight-through
+    mix is one-hot only up to f32 rounding, which reaches the gradients on
+    either device).  The alphas after Adam are not held: Adam's first
+    step maps each gradient element g to about -lr sign(g), so an element
+    whose gradient lies under the f32 noise moves a whole lr the other
+    way; the elements more than 1e-2 lr apart are counted and printed."""
+    res = {}
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                          ("cpu", torch.float64)):
+        reset_launch_counts()
+        grads = []
+        t0 = time.perf_counter()
+        w0, a0, w1, a1, info = run(device, dtype, grads)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        res[device, dtype] = ([t.detach().cpu().double()
+                               for t in (w0, a0, w1, a1)],
+                              grads, info, time.perf_counter() - t0)
+    (card, g_card, c_info, c_s), (cpu, g_cpu, p_info, p_s), (_, g_f64, _, f_s) = (
+        res.values())
+    want = {k: expect.get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts} != {want}")
+    if not (torch.equal(card[0], cpu[0]) and torch.equal(card[1], cpu[1])):
+        raise AssertionError(f"{tag}: the inits differ")
+    if not g_card or not len(g_card) == len(g_cpu) == len(g_f64):
+        raise AssertionError(f"{tag}: alpha gradients {len(g_card)} on the "
+                             f"card, {len(g_cpu)}/{len(g_f64)} on the CPU")
+    w_dist = rel_dist(card[2] - card[0], cpu[2] - cpu[0])
+    ga = [dict(card=rel_dist(g, f), cpu_f32=rel_dist(c, f),
+               card_cpu=rel_dist(g, c)) for g, c, f in zip(g_card, g_cpu, g_f64)]
+    ga_ok = all(d["card"] <= max(1e-3, 2 * d["cpu_f32"]) for d in ga)
+    da = ((card[3] - card[1]) - (cpu[3] - cpu[1])).abs()
+    flips = int((da > 1e-2 * arch_lr).sum())
+    print(f"[slice 7a-ii] {tag}: w update {w_dist:.3e} of its norm from the "
+          f"CPU's (limit 1e-3); alpha gradients from the f64 CPU's: card "
+          + ", ".join(f"{d['card']:.3e}" for d in ga) + ", CPU f32 "
+          + ", ".join(f"{d['cpu_f32']:.3e}" for d in ga)
+          + " (limit max(1e-3, 2x the CPU's)); card from CPU f32 "
+          + ", ".join(f"{d['card_cpu']:.3e}" for d in ga)
+          + f"; alphas after Adam: {flips} of {da.numel()} elements more "
+          f"than 1e-2 lr apart (largest {float(da.max()) / arch_lr:.3e} lr); "
+          f"card {c_s:.2f} s, CPU f32 {p_s:.2f} s, f64 {f_s:.2f} s; launches "
+          f"{ {k: v for k, v in counts.items() if v} }; card {c_info}, CPU "
+          f"{p_info}")
+    if (w_dist > 1e-3 or not ga_ok
+            or not all(bool(torch.isfinite(t).all())
+                       for t in (card[2], card[3], *g_card))):
+        raise AssertionError(f"{tag}: the card's round differs from the "
+                             "CPU's beyond the limits above")
+    return dict(w_update_distance=w_dist, alpha_grad=ga, alpha_flips=flips,
+                alpha_elements=da.numel(),
+                alpha_max_lr=float(da.max()) / arch_lr, launches=counts,
+                card_s=c_s, cpu_s=p_s, cpu_f64_s=f_s, card=c_info,
+                cpu=p_info)
+
+
+def nas_rounds_card_cpu() -> dict:
+    """One round of each search mode in the micro space (2 clients x 2
+    batches of 8: one alpha and one w step each), and of the first-order
+    and GDAS modes at full width (one client, a train and a validation
+    batch of 1: one step), card against CPU (nas_card_cpu's limits), with
+    exact launch counts.  The second order at full width is held by the
+    micro rounds, the correction check and the path's launches: its f32
+    and f64 steps take about a minute of the CPU."""
+    out = {}
+    for width, space, clients, bs, step_gn, modes in (
+            ("micro", NAS_MICRO, 2, 8, NAS_MICRO_STEP_GN, NAS_MODES),
+            ("full width", NAS_FULL, 1, 1, NAS_STEP_GN,
+             ("first_order", "gdas"))):
+        data = zoo_data("cifar10", clients, 2 * bs, bs, seed=22)
+        for mode in modes:
+            def run(device, dtype, grads, mode=mode):
+                eng = nas_engine(data, mode, device, **space)
+                record_arch_grads(eng, grads)
+                params, alphas = eng.init_state(
+                    torch.Generator().manual_seed(1))
+                p0 = eng.net.flatten(params).to(dtype)
+                a0 = eng.flatten_alphas(alphas).to(dtype)
+                cohort, r = eng._round_args(0)
+                cohort = {k: v.to(dtype) if v.is_floating_point() else v
+                          for k, v in cohort.items()}
+                p1, a1, m = eng.round_fn(p0, a0, cohort, r)
+                return p0, a0, p1, a1, f"train_loss {float(m['train_loss']):.6f}"
+            fwd, bwd = step_gn[mode]
+            out[f"{mode} {width}"] = nas_card_cpu(
+                f"FedNAS {mode} round ({width}, {clients} client(s) x 2 "
+                f"batches of {bs})", run,
+                {"gn_forward": clients * fwd, "gn_backward": clients * bwd,
+                 "wsum": 1})
+    return out
+
+
+def nas_path_expected(eval_batches: int, retrain_gn: int, retrain_steps: int,
+                      retrain_eval_batches: int) -> dict:
+    """The FedNAS path's launches: every search round's steps (its clients
+    x NAS_BATCHES / 2 steps) and evaluation, one fold a round; the retrain
+    round's steps, its evaluation, its fold, with `retrain_gn` GroupNorm
+    layers a forward (the derived genotype's count: 2 for a separable
+    conv, 1 for a dilated conv or a stride-2 skip, none for a pool or a
+    stride-1 skip; DARTS_V2's net has 239)."""
+    fwd = bwd = folds = 0
+    for mode, rounds, clients in NAS_PATH_ROUNDS:
+        steps = clients * NAS_BATCHES // 2
+        f, b = NAS_STEP_GN[mode]
+        fwd += rounds * (steps * f + eval_batches * NAS_GN_FORWARD)
+        bwd += rounds * steps * b
+        folds += rounds
+    fwd += retrain_gn * (retrain_steps + retrain_eval_batches)
+    bwd += retrain_gn * retrain_steps
+    return {"gn_forward": fwd, "gn_backward": bwd, "wsum": folds + 1,
+            "sqnorm": 0, "clip_agg": 0}
+
+
+def gn_shape_hooks(model: torch.nn.Module, seen: set) -> list:
+    """Forward pre-hooks on `model`'s GroupNorm layers that add each call's
+    (input shape, groups) to `seen`; returns their handles."""
+    def hook(mod, args):
+        seen.add((tuple(args[0].shape), mod.num_groups))
+    return [m.register_forward_pre_hook(hook) for m in model.modules()
+            if isinstance(m, GroupNorm)]
+
+
+def phase_fednas_path() -> dict:
+    """The slice's path: FedNAS at the published DARTS widths
+    (DartsSearchNetwork C 16, 8 cells, 4 steps), f32, on NAS_CLIENTS
+    CIFAR-10-shaped clients of NAS_BATCHES batches of 32 (the interleaved
+    split: 2 train and 2 validation batches each), the published
+    optimizers (w: clip 5, wd 3e-4, SGD lr 0.025 momentum 0.9; alphas:
+    Adam 3e-4, b1 0.5, wd 1e-3): 2 first-order rounds, 1 exact
+    second-order round (2 of the clients) and 1 GDAS round, each with an
+    evaluation; the derived genotype; then make_train_engine(genotype, C
+    36, 20 layers) on the same clients, one FedAvg round and an
+    evaluation.  TF32 is off (the caller's f32_off).  Exact launch counts
+    over the whole path; s/round by mode; every (shape, groups) its
+    GroupNorm layers ran at; a profiled first-order step of one client for
+    the busy share."""
+    t_build = time.perf_counter()
+    data = synthetic_data(NAS_CLIENTS, NAS_BATCHES * BATCH, seed=0)
+    engines = {m: nas_engine(data, m, lr=NAS_LR, per_round=clients)
+               for m, _, clients in NAS_PATH_ROUNDS}
+    if engines["first_order"].net.spec.n != NAS_PARAMS:
+        raise AssertionError(f"supernet has {engines['first_order'].net.spec.n}"
+                             " params")
+    params, alphas = engines["first_order"].init_state()
+    p0 = engines["first_order"].net.flatten(params)
+    a0 = engines["first_order"].flatten_alphas(alphas)
+    totals = {"round_fn": 0.0}
+    per_mode = {}
+    gn_seen = set()
+    hooks = [h for eng in engines.values()
+             for h in gn_shape_hooks(eng.net.model, gn_seen)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t_path = time.perf_counter()
+    build_s = t_path - t_build
+    for mode, rounds, clients in NAS_PATH_ROUNDS:
+        eng = engines[mode]
+        before = totals["round_fn"]
+        timed_phase(eng, "round_fn", totals)
+        params, alphas = eng.run(rounds=rounds, params=params, alphas=alphas)
+        delattr(eng, "round_fn")
+        per_mode[mode] = dict(s_per_round=(totals["round_fn"] - before) / rounds,
+                              clients=clients,
+                              history=eng.metrics_history[-rounds:])
+    genotype = engines["gdas"].genotype(alphas)
+    search_s = time.perf_counter() - t_path
+    cfg = FedConfig(dataset="cifar10", client_num_in_total=NAS_CLIENTS,
+                    client_num_per_round=NAS_CLIENTS, epochs=1,
+                    batch_size=BATCH, lr=NAS_LR, frequency_of_the_test=1)
+    retrain = make_train_engine(genotype, data, cfg, C=RETRAIN_C,
+                                layers=RETRAIN_LAYERS)
+    v0 = retrain.init_variables()
+    hooks += gn_shape_hooks(retrain.trainer.model, gn_seen)
+    t0 = time.perf_counter()
+    v1 = retrain.run(variables=dict(v0), rounds=1)
+    torch.cuda.synchronize()
+    retrain_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for h in hooks:
+        h.remove()
+    eval_batches = data.test_global["mask"].shape[0]
+    retrain_eval = sum(s["mask"].shape[0] for s in (data.train_global,
+                                                    data.test_global))
+    retrain_gn = sum(isinstance(m, GroupNorm)
+                     for m in retrain.trainer.model.modules())
+    expected = nas_path_expected(eval_batches, retrain_gn,
+                                 NAS_CLIENTS * NAS_BATCHES, retrain_eval)
+    if counts != expected:
+        raise AssertionError(f"FedNAS path: launches {counts} != {expected}")
+    p1 = engines["gdas"].net.flatten(params)
+    a1 = engines["gdas"].flatten_alphas(alphas)
+    if torch.equal(p0, p1) or torch.equal(a0, a1):
+        raise AssertionError("FedNAS path: the weights or the alphas never moved")
+    history = [h for m in per_mode.values() for h in m["history"]]
+    if not all(math.isfinite(h["train_loss"]) and 0 <= h["test_acc"] <= 1
+               for h in history + retrain.metrics_history):
+        raise AssertionError(f"FedNAS path: bad metrics {history} "
+                             f"{retrain.metrics_history}")
+    for gene in (genotype.normal, genotype.reduce):
+        if len(gene) != 8 or any(op == "none" for op, _ in gene):
+            raise AssertionError(f"FedNAS path: bad genotype {genotype}")
+    same = [k for k in v0 if torch.equal(v0[k], v1[k])]
+    if same:
+        raise AssertionError(f"FedNAS retrain: leaves unchanged {same}")
+    n_retrain = retrain.trainer.n_params
+    print(f"[fednas path] FedNASSearchEngine, DartsSearchNetwork (C 16, 8 "
+          f"cells, {NAS_PARAMS} params, {NAS_GN_FORWARD} GroupNorm layers), "
+          f"f32 with TF32 off, {NAS_CLIENTS} clients x {NAS_BATCHES} batches "
+          f"of {BATCH} (the second-order round on 2 of them); peak device "
+          f"memory {peak} B; GroupNorm ran at {len(gn_seen)} (shape, groups) "
+          f"({card_line()})")
+    for mode, rec in per_mode.items():
+        print(f"[fednas path] {mode} ({rec['clients']} clients): s/round "
+              f"{rec['s_per_round']:.4f}; "
+              + "; ".join(f"round {h['round']} train_loss "
+                          f"{h['train_loss']:.6f} test_acc {h['test_acc']:.4f}"
+                          for h in rec["history"]))
+    print(f"[fednas path] genotype {genotype}")
+    print(f"[fednas path] retrain: DartsNetwork(genotype, C {RETRAIN_C}, "
+          f"{RETRAIN_LAYERS} layers, {n_retrain} params, {retrain_gn} "
+          f"GroupNorm layers), one FedAvg round "
+          f"{retrain_s:.4f} s (with its evaluation); "
+          f"{retrain.metrics_history[-1]}")
+    print(f"[fednas path] launches {counts} == expected; search "
+          f"{search_s:.1f} s")
+    # the busy share from one first-order step of one client (a train and
+    # a validation batch: the unit every round repeats; a whole round's
+    # trace takes minutes to read)
+    eng = engines["first_order"]
+    p, a = eng.net.flatten(params), eng.flatten_alphas(alphas)
+    shard = {k: torch.as_tensor(v[0, :2]).to(eng.device)
+             for k, v in data.client_shards.items()}
+    one = lambda: eng._local_search(p, a, shard, 1,
+                                    torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prof = profile_round(one, one_s, tag="fednas path, 1 step")
+    profile_s = time.perf_counter() - t0
+    print(f"[fednas path] command time: engines and init {build_s:.1f} s, "
+          f"search {search_s:.1f} s, retrain round {retrain_s:.1f} s, the "
+          f"profiled step {profile_s:.1f} s")
+    return dict(seconds=dict(build=build_s, search=search_s,
+                             retrain=retrain_s, profile=profile_s),per_mode={k: v["s_per_round"] for k, v in per_mode.items()},
+                history=history, genotype=str(genotype),
+                retrain=dict(s=retrain_s, params=n_retrain, gn_layers=retrain_gn,
+                             metrics=retrain.metrics_history[-1]),
+                launches=counts, expected=expected, peak_bytes=peak,
+                one_step_s=one_s, gn_shapes=sorted(gn_seen),
+                profile={k: v for k, v in prof.items() if k != "top"})
+
+
+def phase_obs_card() -> dict:
+    """The obs core on the card: one main-path round (MeshFedAvgEngine,
+    bf16, chunk 2) at 2 clients x 2 batches with observability off, then
+    on, from the same weights and with cuDNN's deterministic algorithms,
+    bitwise equal; the exported Chrome trace loads and holds the round,
+    eval and upload spans."""
+    data = synthetic_data(2, 2 * BATCH, seed=3)
+    cfg = FedConfig(model="resnet18_gn", dataset="cifar10",
+                    client_num_in_total=2, client_num_per_round=2, epochs=1,
+                    batch_size=BATCH, lr=0.1, frequency_of_the_test=1)
+
+    def run():
+        trainer = ClientTrainer(create_model("resnet18_gn", 10), lr=cfg.lr,
+                                train_dtype=torch.bfloat16)
+        eng = MeshFedAvgEngine(trainer, data, cfg, chunk=2,
+                               local_dtype=torch.bfloat16)
+        v = eng.run(variables=eng.init_variables(), rounds=1)
+        torch.cuda.synchronize()
+        return v, [{k: x for k, x in m.items() if k != "round_time"}
+                   for m in eng.metrics_history]
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        v_off, m_off = run()
+        with tempfile.TemporaryDirectory() as tmp:
+            obs.configure(tmp, install_signal=False, export_at_exit=False)
+            try:
+                v_on, m_on = run()
+                out = obs.export()
+                doc = json.load(open(out["chrome_trace"]))
+                roll = obs.rollup()
+            finally:
+                obs.reset()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    differ = [k for k in v_off if not torch.equal(v_off[k], v_on[k])]
+    if differ or m_off != m_on:
+        raise AssertionError(f"obs on/off: {len(differ)} leaves differ "
+                             f"({differ[:3]}), metrics {m_off} vs {m_on}")
+    spans = {}
+    for e in doc["traceEvents"]:
+        if e.get("ph") == "X":
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+    for name in ("round", "eval", "h2d.upload_cohort"):
+        if not spans.get(name):
+            raise AssertionError(f"obs trace lacks {name!r}: {spans}")
+    print(f"[obs] main path, 2 clients x 2 batches: obs on and off bitwise "
+          f"equal ({len(v_off)} leaves, metrics {m_on}); the trace holds "
+          f"{spans}; rollup {roll}")
+    return dict(spans=spans, rollup=roll)
+
+
+def phase_slice7a_ii(gen: torch.Generator) -> dict:
+    """Phase 15, f32 with TF32 off throughout (restored after): the
+    GroupNorm double backward, the second-order correction, the search
+    modes card against CPU, the FedNAS path, then both GroupNorm kernels
+    at every (shape, groups) the path ran them at, and the obs core; each
+    part's seconds of command time."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    f32_off()
+    rec, seconds = {}, {}
+    try:
+        for key, part in (
+                ("gn_double_backward", lambda: gn_double_backward_card(gen)),
+                ("arch_correction", arch_correction_card),
+                ("rounds", nas_rounds_card_cpu),
+                ("fednas_path", phase_fednas_path),
+                ("gn_shapes", lambda: gn_new_shapes(
+                    gen, rec["fednas_path"]["gn_shapes"], "slice 7a-ii")),
+                ("obs", phase_obs_card)):
+            t0 = time.perf_counter()
+            rec[key] = part()
+            seconds[key] = time.perf_counter() - t0
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    rec["seconds"] = seconds
+    print(f"[slice 7a-ii] phase 15 took {sum(seconds.values()):.1f} s: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
+    return rec
+
+
 def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
                 counts: dict, robust_counts: dict, resnet56: dict,
-                paths: dict, gn_slice7a: list) -> dict:
+                paths: dict, gn_slice7a: list, gn_slice7a_ii: list) -> dict:
     """One entry per ported kernel.  GroupNorm's numbers are per training
     step: its 20 launches, five at each stage shape, summed, with bf16
     gamma/beta (ms_f32_gamma: with f32 gamma; layer_ms_per_step: the
@@ -2214,7 +2734,8 @@ def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
     (phase 5) for GroupNorm and the fold, of the robust main path (phase 8)
     for the two robust kernels; ``launches_by_path`` gives every path's
     count (each zeroed just before its path ran), and the GroupNorm
-    entries carry phase 14's shapes (f32 device time and bound a call)."""
+    entries carry phase 14's and phase 15's shapes (f32 device time and
+    bound a call)."""
     entries = []
     for name, rec in (("gn_forward", gn_fwd), ("gn_backward", gn_bwd)):
         sh = rec["shapes"]
@@ -2268,10 +2789,11 @@ def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
         e["launches_by_path"] = {p: c[e["name"]] for p, c in paths.items()}
         if e["name"].startswith("gn_"):
             d = "fwd" if e["name"] == "gn_forward" else "bwd"
-            e["slice7a_shapes"] = [dict(shape=r["shape"], groups=r["groups"],
-                                        ms=r[f"{d}_ms"],
-                                        bound_ms=r[f"{d}_bound"][0])
-                                   for r in gn_slice7a]
+            for key, recs in (("slice7a_shapes", gn_slice7a),
+                              ("slice7a_ii_shapes", gn_slice7a_ii)):
+                e[key] = [dict(shape=r["shape"], groups=r["groups"],
+                               ms=r[f"{d}_ms"], bound_ms=r[f"{d}_bound"][0])
+                          for r in recs]
     return {"kernels": entries, "still_to_port": STILL_TO_PORT}
 
 
@@ -2297,17 +2819,20 @@ def main() -> int:
     word_lstm = phase_word_lstm()
     data_path = phase_data_path()
     slice7a = phase_slice7a(gen)
+    slice7a_ii = phase_slice7a_ii(gen)
     print(json.dumps({"zoo": zoo, "resnet56_path": {
         k: v for k, v in resnet56.items() if k != "fold"},
         "word_lstm": word_lstm, "c1": c1, "data_path": data_path,
-        "slice7a": slice7a}, default=str))
+        "slice7a": slice7a, "slice7a_ii": slice7a_ii}, default=str))
     paths = {"fedavg main path": counts, "robust main path": robust_counts,
              "data path": data_path["launches"],
              "fedgkt path": slice7a["fedgkt_path"]["launches"],
-             "fedseg path": slice7a["fedseg_path"]["launches"]}
+             "fedseg path": slice7a["fedseg_path"]["launches"],
+             "fednas": slice7a_ii["fednas_path"]["launches"]}
     print(json.dumps(kernel_line(gn_fwd, gn_bwd, fold_rec, robust_rec, counts,
                                  robust_counts, resnet56, paths,
-                                 slice7a["gn_shapes"])))
+                                 slice7a["gn_shapes"],
+                                 slice7a_ii["gn_shapes"])))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from fedml_tpu_torch import obs
 from fedml_tpu_torch.core.sampling import ClientSampler
 from fedml_tpu_torch.core.trainer import ClientTrainer, client_generator
 from fedml_tpu_torch.data.federated import FederatedData
@@ -115,18 +116,32 @@ class FedAvgEngine:
         variables = variables if variables is not None else self.init_variables()
         server_state = self.server_init(variables)
         rounds = rounds if rounds is not None else cfg.comm_round
-        for round_idx in range(rounds):
-            t0 = time.time()
-            variables, server_state, m = self.round_fn(
-                variables, server_state, *self._round_args(round_idx))
-            if (round_idx % cfg.frequency_of_the_test == 0
-                    or round_idx == rounds - 1):
-                stats = self.evaluate(variables)
-                stats.update(round=round_idx,
-                             train_loss=float(m["train_loss"]),
-                             round_time=time.time() - t0)
-                self.metrics_history.append(stats)
-                log.info("round %d: %s", round_idx, stats)
+        # observability (fedml_tpu_torch/obs; no-ops until configured):
+        # a span per round and per evaluation, an optional deadline
+        # watchdog (a flight dump when a round overruns
+        # cfg.round_deadline_s), and a dump before an error propagates
+        engine_name = type(self).__name__
+        try:
+            for round_idx in range(rounds):
+                t0 = time.time()
+                with obs.deadline(f"round{round_idx}", cfg.round_deadline_s), \
+                        obs.span("round", round=round_idx, engine=engine_name):
+                    variables, server_state, m = self.round_fn(
+                        variables, server_state, *self._round_args(round_idx))
+                if (round_idx % cfg.frequency_of_the_test == 0
+                        or round_idx == rounds - 1):
+                    with obs.span("eval", round=round_idx):
+                        stats = self.evaluate(variables)
+                    stats.update(round=round_idx,
+                                 train_loss=float(m["train_loss"]),
+                                 round_time=time.time() - t0)
+                    self.metrics_history.append(stats)
+                    log.info("round %d: %s", round_idx, stats)
+                    if obs.enabled():       # live and peak device memory
+                        obs.sample_device_memory()
+        except Exception as e:
+            obs.dump_flight(f"engine_error:{engine_name}: {e!r}")
+            raise
         return variables
 
     # ---- evaluation ---------------------------------------------------------

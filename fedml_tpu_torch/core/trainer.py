@@ -60,6 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
+from fedml_tpu_torch import obs
 from fedml_tpu_torch.models import init_params
 from fedml_tpu_torch.models.layers import in_dtype
 from fedml_tpu_torch.ops.aggregate import spec_of, unflatten_to_tree
@@ -166,24 +167,31 @@ def make_lr_schedule(mode: str, base_lr: float, total_steps: int,
 class Optimizer:
     """optax's client optimizers on one flat parameter vector:
 
-    * sgd:   chain([add_decayed_weights(wd)], [trace(momentum)], lr)
-    * adam:  chain([add_decayed_weights(wd)], scale_by_adam(), lr)
-    * adamw: chain(scale_by_adam(), add_decayed_weights(wd), lr) (adamw
-      owns its decay: it is not chained twice, trainer.py:86)
+    * sgd:   chain([clip], [add_decayed_weights(wd)], [trace(momentum)], lr)
+    * adam:  chain([clip], [add_decayed_weights(wd)], scale_by_adam(b1, b2),
+             lr)
+    * adamw: chain([clip], scale_by_adam(b1, b2), add_decayed_weights(wd),
+             lr) (adamw owns its decay: it is not chained twice,
+             trainer.py:86)
 
-    with scale_by_adam's defaults (b1 0.9, b2 0.999, eps 1e-8, eps_root 0)
-    and lr a float or a schedule of the step count.  State: ``trace``,
+    with scale_by_adam's eps 1e-8 and eps_root 0 (b1 0.9, b2 0.999 unless
+    given) and lr a float or a schedule of the step count.  ``clip_norm``
+    puts optax's ``clip_by_global_norm`` first: the gradient stays as it
+    is while its norm is below the bound, else becomes g / ||g|| * bound
+    (FedNAS's w optimizer clips before its decay).  State: ``trace``,
     ``mu``/``nu`` and ``adam_count`` as needed, and ``count``, the
     schedule's step."""
 
-    B1, B2, EPS = 0.9, 0.999, 1e-8
+    EPS = 1e-8
 
     def __init__(self, name: str, lr, momentum: float = 0.0,
-                 weight_decay: float = 0.0):
+                 weight_decay: float = 0.0, clip_norm: Optional[float] = None,
+                 b1: float = 0.9, b2: float = 0.999):
         if name not in ("sgd", "adam", "adamw"):
             raise ValueError(f"unknown optimizer {name!r}")
         self.name, self.lr = name, lr
         self.momentum, self.weight_decay = momentum, weight_decay
+        self.clip_norm, self.B1, self.B2 = clip_norm, b1, b2
 
     def init(self, params: torch.Tensor) -> dict:
         count = lambda: torch.zeros((), dtype=torch.int32, device=params.device)
@@ -202,6 +210,10 @@ class Optimizer:
         """(updates, new state); the caller adds the updates."""
         c = lambda v: in_dtype(v, grads.dtype)
         g, new = grads, {}
+        if self.clip_norm is not None:
+            norm = torch.sqrt((g * g).sum())
+            g = torch.where(norm < c(self.clip_norm), g,
+                            g / norm * c(self.clip_norm))
         if self.weight_decay and self.name != "adamw":
             g = g + c(self.weight_decay) * params
         if "trace" in state:
@@ -210,7 +222,10 @@ class Optimizer:
             mu = c(1 - self.B1) * g + c(self.B1) * state["mu"]
             nu = c(1 - self.B2) * (g * g) + c(self.B2) * state["nu"]
             n = state["adam_count"] + 1
-            correct = lambda m, b: m / (1 - b ** n.float()).to(m.dtype)
+            # the bias correction's power in f32 (f64 for f64 moments), as
+            # JAX's weakly typed float ** int32 count
+            correct = lambda m, b: m / (1 - b ** n.to(torch.promote_types(
+                m.dtype, torch.float32))).to(m.dtype)
             g = correct(mu, self.B1) / (torch.sqrt(correct(nu, self.B2))
                                         + c(self.EPS))
             new.update(mu=mu, nu=nu, adam_count=n)
@@ -412,20 +427,24 @@ class ClientTrainer:
         round's global flat vector, read by the FedProx term; `generator`
         feeds augmentation and dropout."""
         n_batches = shard["mask"].shape[0]
-        opt_state = self.init_opt(flat)
-        epoch_losses = []
-        for _ in range(epochs):
-            losses, counts = [], []
-            for b in range(n_batches):
-                batch = {k: v[b] for k, v in shard.items()}
-                flat, opt_state, loss = self.train_step(
-                    flat, batch, opt_state, global_params, generator)
-                losses.append(loss)
-                counts.append(batch["mask"].sum())
-            losses, counts = torch.stack(losses), torch.stack(counts)
-            # sample-weighted epoch loss: padding batches add nothing
-            epoch_losses.append((losses * counts).sum()
-                                / torch.clamp(counts.sum(), min=1.0))
+        # the JAX trainer's span of this name fires once a trace (its body
+        # runs under jit); in eager PyTorch it fires once a call, and
+        # times the host's enqueue of the client's steps
+        with obs.span("trace.local_train", epochs=epochs):
+            opt_state = self.init_opt(flat)
+            epoch_losses = []
+            for _ in range(epochs):
+                losses, counts = [], []
+                for b in range(n_batches):
+                    batch = {k: v[b] for k, v in shard.items()}
+                    flat, opt_state, loss = self.train_step(
+                        flat, batch, opt_state, global_params, generator)
+                    losses.append(loss)
+                    counts.append(batch["mask"].sum())
+                losses, counts = torch.stack(losses), torch.stack(counts)
+                # sample-weighted epoch loss: padding batches add nothing
+                epoch_losses.append((losses * counts).sum()
+                                    / torch.clamp(counts.sum(), min=1.0))
         return flat, torch.stack(epoch_losses).mean(), shard["mask"].sum()
 
     # -- eval ---------------------------------------------------------------
@@ -453,9 +472,11 @@ class ClientTrainer:
                 "count": count}
 
     def evaluate(self, flat: torch.Tensor, shard: dict) -> dict:
-        """eval_step summed over the batches of a padded shard."""
+        """eval_step summed over the batches of a padded shard (its span,
+        like local_train's, fires once a call)."""
         sums = None
-        for b in range(shard["mask"].shape[0]):
-            m = self.eval_step(flat, {k: v[b] for k, v in shard.items()})
-            sums = m if sums is None else {k: sums[k] + m[k] for k in m}
+        with obs.span("trace.evaluate"):
+            for b in range(shard["mask"].shape[0]):
+                m = self.eval_step(flat, {k: v[b] for k, v in shard.items()})
+                sums = m if sums is None else {k: sums[k] + m[k] for k in m}
         return sums

@@ -4,6 +4,7 @@ package timed in turns on one card.
 
     python3 fedml_tpu_torch/gn_timing.py --parent DIR [--out FILE]
     python3 fedml_tpu_torch/gn_timing.py --sweep
+    python3 fedml_tpu_torch/gn_timing.py --stress SECONDS
 
 runs, from the root of a checkout on a CUDA card, one process per turn in
 the order parent, change, change, parent (DIR holds the parent's
@@ -24,6 +25,11 @@ It prints one JSON line per turn and a summary, and writes them to FILE
 if one is given.
 ``--sweep`` times this checkout's wrappers at each setting of the launch
 plan's two knobs (bytes and threads a block aims for).
+``--stress`` repeats chip_smoke.py's GroupNorm check (``gn_check``) at the
+four stage shapes in the four pairings of bf16 and f32 x and gamma, on
+fresh inputs, until SECONDS have passed, and prints one JSON line: the
+rounds, the checks and every failure's message.  Run it in several fresh
+processes to look for a failure that shows only now and then.
 chip_smoke.py uses the same helpers for its phase 3.  Only torch is
 imported at module level: the measuring process picks its tree first.
 """
@@ -198,6 +204,31 @@ def sweep_plan(block_bytes=(4096, 8192, 16384),
     return out
 
 
+def stress(seconds: float) -> dict:
+    """chip_smoke.py's gn_check, again and again on new inputs from a new
+    seed each round, for `seconds`; its failures are recorded, not
+    raised."""
+    smoke = _load_smoke(Path(__file__).resolve().parent.parent)
+    t0, rounds, checks, failures = time.perf_counter(), 0, 0, []
+    while time.perf_counter() - t0 < seconds:
+        gen = torch.Generator(device="cuda").manual_seed(rounds)
+        for shape in GN_STAGES:
+            x, dy, gamma, beta = stage_inputs(shape, gen,
+                                              param_dtype=torch.float32)
+            g16, b16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+            for xx, dd in ((x, dy), (x.float(), dy.float())):
+                for gg, bb in ((g16, b16), (gamma, beta)):
+                    tag = f"{shape} x {xx.dtype}, gamma {gg.dtype}, round {rounds}"
+                    checks += 1
+                    try:
+                        smoke.gn_check(xx, dd, gg, bb, tag)
+                    except AssertionError as e:
+                        failures.append(str(e))
+        rounds += 1
+    return dict(seconds=time.perf_counter() - t0, rounds=rounds,
+                checks=checks, failures=failures)
+
+
 def _load_smoke(tree: Path):
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke", tree / "chip_smoke.py")
@@ -236,6 +267,8 @@ def main() -> int:
                     "summary to this JSON file")
     ap.add_argument("--sweep", action="store_true",
                     help="time the launch plan's knobs instead")
+    ap.add_argument("--stress", type=float, metavar="SECONDS",
+                    help="repeat chip_smoke.py's GroupNorm check instead")
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -245,6 +278,10 @@ def main() -> int:
         sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
         for row in sweep_plan():
             print(json.dumps(row))
+        return 0
+    if args.stress is not None:
+        sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+        print(json.dumps(stress(args.stress)))
         return 0
     if args.measure:
         print(json.dumps(measure_tree(args.measure)))

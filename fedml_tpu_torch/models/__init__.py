@@ -15,6 +15,8 @@ import torch
 from torch import nn
 
 from fedml_tpu_torch.models.cnn import CNNDropOut, CNNOriginalFedAvg
+from fedml_tpu_torch.models.darts import (DARTS_V2, DartsNetwork,
+                                          DartsSearchNetwork)
 from fedml_tpu_torch.models.efficientnet import EfficientNet
 from fedml_tpu_torch.models.layers import default_init
 from fedml_tpu_torch.models.lr import LogisticRegression
@@ -64,9 +66,8 @@ def create_model(model_name: str, output_dim: int, input_dim: int | None = None,
         variant = name.rsplit("-", 1)[-1] if "-" in name else "b0"
         return EfficientNet(num_classes=output_dim, variant=variant, **kw)
     if name == "darts":
-        raise NotImplementedError(
-            f"model {model_name!r} comes with its algorithm (fednas): "
-            "slice 7a-ii of the port")
+        return DartsNetwork(num_classes=output_dim,
+                            genotype=kw.pop("genotype", DARTS_V2), **kw)
     if name == "vgg11":
         return VGG11(num_classes=output_dim, **kw)
     if name == "vgg16":
@@ -91,7 +92,8 @@ def init_params(model: nn.Module, generator: torch.Generator) -> dict:
     return out
 
 
-__all__ = ["CNNDropOut", "CNNOriginalFedAvg", "EfficientNet",
+__all__ = ["CNNDropOut", "CNNOriginalFedAvg", "DartsNetwork",
+           "DartsSearchNetwork", "EfficientNet",
            "LogisticRegression", "MobileNetV1", "MobileNetV3",
            "RNNOriginalFedAvg", "RNNStackOverflow", "ResNet18GN",
            "SegEncoderDecoder", "TransformerLM", "VGG11", "VGG16", "create_model", "init_params",

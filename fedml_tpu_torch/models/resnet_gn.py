@@ -37,23 +37,25 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
 
 class SameConv2d(nn.Conv2d):
     """Conv with flax "SAME" padding (asymmetric where XLA's is); no bias
-    unless asked, `groups` for depthwise convs."""
+    unless asked, `groups` for depthwise convs, `dilation` for dilated
+    ones (padded for the dilated kernel's extent)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-                 groups: int = 1, bias: bool = False):
+                 groups: int = 1, bias: bool = False, dilation: int = 1):
         super().__init__(in_ch, out_ch, kernel, stride=stride, groups=groups,
-                         bias=bias)
+                         bias=bias, dilation=dilation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        (k, _), (s, _) = self.kernel_size, self.stride
+        (k, _), (s, _), (d, _) = self.kernel_size, self.stride, self.dilation
         conv = lambda t, **kw: F.conv2d(t, self.weight, self.bias,
-                                        groups=self.groups, **kw)
+                                        groups=self.groups, dilation=d, **kw)
         if k == 1:
             # a 1x1 stride-s conv reads every s-th pixel and pads nothing;
             # slicing first is the same function, and keeps clear of
             # oneDNN's strided 1x1 channels_last backward, whose weight
             # gradient is wrong on the CPU for narrow inputs
             return conv(x[:, :, ::s, ::s])
+        k = d * (k - 1) + 1
         top, bottom = same_padding(x.shape[2], k, s)
         left, right = same_padding(x.shape[3], k, s)
         if top == bottom and left == right:

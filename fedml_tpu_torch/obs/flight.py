@@ -1,0 +1,121 @@
+"""Flight recorder: a fixed-size ring of recent events that dumps to disk
+when something goes wrong, so a stall is diagnosable from its artifacts
+instead of from reruns (port of fedml_tpu/obs/flight.py, the same code).
+
+Triggers (wired in fedml_tpu_torch/obs/__init__.py and the engines' run
+loops):
+
+  * SIGUSR1: an operator, or a watchdog outside a stuck process, pokes
+    the process; the handler dumps the ring plus every thread's current
+    Python stack.  A process wedged inside a C call dumps as soon as the
+    interpreter resumes.
+  * a round-deadline overrun: `watchdog(seconds, tag)` arms a timer
+    around each round; if the round has not finished in time the dump
+    fires from the timer thread while the round is still stuck, which is
+    when the stacks are interesting.
+  * an unhandled engine error: the run loop dumps before re-raising.
+
+The dump is one self-contained JSON file: reason, recent events (oldest
+first), per-thread stacks, and a full metrics snapshot.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import itertools
+import json
+import os
+import sys
+import threading
+import time
+import traceback
+from typing import Iterator, Optional
+
+
+def thread_stacks() -> dict[str, list[str]]:
+    """Formatted Python stacks of every live thread, keyed by
+    "name(ident)" — the hang-triage payload."""
+    names = {t.ident: t.name for t in threading.enumerate()}
+    out = {}
+    for ident, frame in sys._current_frames().items():
+        key = f"{names.get(ident, 'unknown')}({ident})"
+        out[key] = traceback.format_stack(frame)
+    return out
+
+
+class FlightRecorder:
+    def __init__(self, capacity: int = 4096):
+        self.capacity = capacity
+        self._lock = threading.Lock()
+        self._ring: collections.deque = collections.deque(maxlen=capacity)
+        self._recorded = 0
+        self._dump_seq = itertools.count()
+        self.dumps: list[str] = []        # paths written so far
+        # when set (obs.configure points it at the span tracer's tail),
+        # dumps read recent events from there instead of the local ring
+        # — spans then cost NOTHING here on the hot path
+        self.source = None                # () -> list[dict] | None
+
+    def record(self, kind: str, payload: dict) -> None:
+        """Ring-append one event.  `payload` must be JSON-able; callers
+        keep it small (span name/ts/dur/args) — the ring is memory, not
+        an archive."""
+        with self._lock:
+            self._ring.append({"t": time.time(), "kind": kind, **payload})
+            self._recorded += 1
+
+    def dump(self, directory: str, reason: str,
+             extra: Optional[dict] = None) -> str:
+        """Write one dump file into `directory`; returns its path.
+        Never raises on I/O trouble from a signal/timer context — a
+        failed dump logs to stderr and returns "" rather than killing
+        the (possibly still healthy) run."""
+        with self._lock:
+            events = list(self._ring)
+            seq = next(self._dump_seq)
+        if self.source is not None:
+            events = self.source() + events
+        doc = {
+            "reason": reason,
+            "pid": os.getpid(),
+            "dumped_at_unix": time.time(),
+            "events_retained": len(events),
+            "events_recorded": self._recorded,
+            "thread_stacks": thread_stacks(),
+            "events": events,
+        }
+        if extra:
+            doc.update(extra)
+        path = os.path.join(
+            directory, f"flight-{os.getpid()}-{seq}.json")
+        try:
+            os.makedirs(directory, exist_ok=True)
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(doc, f, indent=1, default=str)
+            os.replace(tmp, path)
+        except OSError as e:                      # pragma: no cover - io
+            print(f"flight recorder dump failed: {e}", file=sys.stderr)
+            return ""
+        self.dumps.append(path)
+        return path
+
+    @contextlib.contextmanager
+    def watchdog(self, seconds: float, tag: str, directory: str,
+                 extra_fn=None) -> Iterator[None]:
+        """Arm a deadline: if the with-block is still running after
+        `seconds`, dump (reason deadline_overrun) from the timer thread
+        and keep waiting — the run is left to finish or hang on its
+        own; the dump is the diagnosis, not the kill."""
+        def fire():
+            self.dump(directory, f"deadline_overrun:{tag}",
+                      extra=(extra_fn() if extra_fn else None))
+
+        t = threading.Timer(seconds, fire)
+        t.daemon = True
+        t.name = f"obs-watchdog-{tag}"
+        t.start()
+        try:
+            yield
+        finally:
+            t.cancel()

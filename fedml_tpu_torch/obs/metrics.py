@@ -1,0 +1,458 @@
+"""Metrics registry: counters, gauges and histograms with Prometheus-text
+and JSON snapshot exporters (port of fedml_tpu/obs/metrics.py, the same
+code: it never touched JAX).
+
+The registry is the system of record for a run's operational metrics:
+bytes and messages on the wire, retries, round and transfer walls.
+
+Design constraints:
+
+* Thread-safe: receive loops, upload threads and the round loop write
+  concurrently, so every mutation takes the metric's lock (a bare
+  ``self.value += n`` is not atomic under the GIL: it is a load, an add
+  and a store that two threads can interleave).
+* Cheap: one lock and one float op per event.  Metrics stay on even when
+  span tracing is off; the costly parts of observability are span
+  records and exporter I/O, not counter increments.
+* Prometheus semantics: counters only go up, labels are stable
+  identities (get-or-create returns the same object), histograms are
+  cumulative-bucket.
+* Mergeable: a registry can emit a compact snapshot delta
+  (``delta_snapshot``) and fold a peer's delta into itself
+  (``merge_delta``): counters add, gauges take the max, histograms add
+  bucket-wise.  Those are the only commutative and associative choices,
+  so the order of merges cannot change the rollup.  A peer's series fold
+  in under an ``origin`` label (a cohort rollup, never per-client
+  labels), so the server's memory stays O(metrics).
+"""
+from __future__ import annotations
+
+import bisect
+import json
+import threading
+from typing import Optional, Sequence
+
+# Prometheus' default duration buckets, extended for multi-minute round
+# walls.
+DEFAULT_SECONDS_BUCKETS = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0, 600.0,
+)
+
+# Wire-frame decode walls (`comm_decode_seconds`): decodes of small control frames run ~10 µs and
+# model-sized uplinks single-digit ms — the default duration buckets
+# start at 1 ms and would flatten the whole distribution into two
+# buckets, so this ladder extends three decades lower.  Shared here so
+# every backend label and the ingest pool register ONE compatible
+# histogram (the registry rejects same-name/different-bucket
+# registrations).
+DECODE_SECONDS_BUCKETS = (
+    1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4, 0.001, 0.0025, 0.005,
+    0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+)
+
+# Staleness buckets for the async federation's `async_staleness`
+# histogram: staleness is COMMIT counts, not seconds
+# — integer-valued, small in healthy runs (FedBuff's useful regime is
+# single digits), heavy-tailed under churn.  Shared here so the
+# scheduler and the messaging FSM register one compatible histogram
+# (the registry rejects same-name/different-bucket registrations).
+STALENESS_BUCKETS = (0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0,
+                     24.0, 32.0, 48.0, 64.0)
+
+# Canonical ladders by metric NAME: a bare histogram(name) get (no
+# buckets argument) resolves here before falling back to the default
+# seconds ladder, so get-or-create ORDER cannot decide a named
+# instrument's resolution — without this, whichever caller ran first
+# (a bare get in a test, say) would pin the default ladder and the
+# next explicit registration would raise the bucket-conflict error.
+CANONICAL_BUCKETS = {
+    "comm_decode_seconds": DECODE_SECONDS_BUCKETS,
+    "async_staleness": STALENESS_BUCKETS,
+    # one-way frame transit estimates: LAN transits
+    # are sub-ms like decodes, WAN ones spill into the seconds tail
+    "trace_transit_seconds": DECODE_SECONDS_BUCKETS,
+    # the admission pipeline's per-row screen wall: one O(P) step,
+    # sub-ms like a decode — same ladder
+    "defense_screen_seconds": DECODE_SECONDS_BUCKETS,
+    # the reactor transport: how long one loop
+    # iteration's event batch held the loop — healthy is tens of µs,
+    # an overloaded loop spills into the ms decades the same sub-ms
+    # ladder resolves
+    "reactor_loop_lag_seconds": DECODE_SECONDS_BUCKETS,
+    # admission latency: transport hand-off ->
+    # buffer insert; the connection bench's p95 gate
+    "comm_admission_seconds": DECODE_SECONDS_BUCKETS,
+    # per-program-family host-side dispatch walls: an arrival fold
+    # dispatches in tens of µs, a
+    # full engine round in seconds — the same sub-ms-to-seconds ladder
+    # the decode walls use resolves both ends
+    "program_dispatch_seconds": DECODE_SECONDS_BUCKETS,
+    # per-rank commit-barrier waits: a
+    # loopback barrier gates in µs-ms, a straggler/death stall spills
+    # into seconds — the same sub-ms-to-seconds ladder covers both
+    "multihost_barrier_wait_seconds": DECODE_SECONDS_BUCKETS,
+}
+
+
+def quantile_from_cumulative(before, after, q: float) -> float:
+    """Approximate quantile of the observations BETWEEN two cumulative
+    snapshots of one histogram (`Histogram.cumulative()` lists), with
+    linear interpolation inside the bucket (lower edge 0 for the
+    first).  `before` may be None/empty for an all-time quantile.  The
+    ONE definition of histogram-delta percentiles: `Histogram.quantile`
+    resolves here."""
+    if not before:
+        before = [(le, 0) for le, _ in after]
+    deltas = [(le, a - b) for (le, a), (_, b) in zip(after, before)]
+    total = deltas[-1][1]
+    if total <= 0:
+        return 0.0
+    target = q * total
+    prev_le, prev_c = 0.0, 0
+    for le, c in deltas:
+        if c >= target:
+            if le == float("inf"):
+                return prev_le
+            span = c - prev_c
+            frac = (target - prev_c) / span if span > 0 else 1.0
+            return prev_le + frac * (le - prev_le)
+        prev_le, prev_c = (0.0 if le == float("inf") else le), c
+    return prev_le
+
+
+# label key merge_delta stamps on folded-in peer series; delta_snapshot
+# refuses to re-ship series carrying it (echo-loop guard)
+MERGE_ORIGIN_LABEL = "origin"
+
+
+def _label_key(labels: dict) -> tuple:
+    return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+
+
+def _escape(v: str) -> str:
+    return v.replace("\\", r"\\").replace('"', r'\"').replace("\n", r"\n")
+
+
+def _fmt_labels(labels: tuple) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(f'{k}="{_escape(v)}"' for k, v in labels)
+    return "{" + inner + "}"
+
+
+class Counter:
+    """Monotonic counter.  `inc` only; negative increments are rejected so
+    rates stay meaningful."""
+
+    kind = "counter"
+
+    def __init__(self, name: str, labels: tuple):
+        self.name = name
+        self.labels = labels
+        self._lock = threading.Lock()
+        self._value = 0.0
+
+    def inc(self, n: float = 1.0) -> None:
+        if n < 0:
+            raise ValueError(f"counter {self.name} cannot decrease ({n})")
+        with self._lock:
+            self._value += n
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+
+class Gauge:
+    """Last-value gauge with a `set_max` helper for peak tracking."""
+
+    kind = "gauge"
+
+    def __init__(self, name: str, labels: tuple):
+        self.name = name
+        self.labels = labels
+        self._lock = threading.Lock()
+        self._value = 0.0
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._value = float(v)
+
+    def inc(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value += n
+
+    def dec(self, n: float = 1.0) -> None:
+        self.inc(-n)
+
+    def set_max(self, v: float) -> None:
+        """Monotonic high-water mark (live/peak pairs share one code
+        path: `live.set(x); peak.set_max(x)`)."""
+        with self._lock:
+            if v > self._value:
+                self._value = float(v)
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+
+class Histogram:
+    """Cumulative-bucket histogram (Prometheus shape: per-bucket counts of
+    observations <= upper bound, plus sum and count)."""
+
+    kind = "histogram"
+
+    def __init__(self, name: str, labels: tuple,
+                 buckets: Sequence[float] = DEFAULT_SECONDS_BUCKETS):
+        self.name = name
+        self.labels = labels
+        self.buckets = tuple(sorted(buckets))
+        self._lock = threading.Lock()
+        self._counts = [0] * (len(self.buckets) + 1)   # last = +Inf
+        self._sum = 0.0
+        self._count = 0
+
+    def observe(self, v: float) -> None:
+        i = bisect.bisect_left(self.buckets, v)
+        with self._lock:
+            self._counts[i] += 1
+            self._sum += v
+            self._count += 1
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    @property
+    def sum(self) -> float:
+        with self._lock:
+            return self._sum
+
+    def cumulative(self) -> list[tuple[float, int]]:
+        """[(le, cumulative_count), ...] ending with (+inf, total)."""
+        with self._lock:
+            counts = list(self._counts)
+        out, acc = [], 0
+        for le, c in zip(self.buckets, counts):
+            acc += c
+            out.append((le, acc))
+        out.append((float("inf"), acc + counts[-1]))
+        return out
+
+    def quantile(self, q: float, since=None) -> float:
+        """Approximate q-quantile of this histogram's observations —
+        all-time, or of the window SINCE a `cumulative()` snapshot
+        (percentiles that leave out a warm-up)."""
+        return quantile_from_cumulative(since, self.cumulative(), q)
+
+    def raw_state(self) -> tuple[list[int], float, int]:
+        """(per-bucket counts incl. +Inf, sum, count) — one consistent
+        read, for delta/merge bookkeeping."""
+        with self._lock:
+            return list(self._counts), self._sum, self._count
+
+    def merge_counts(self, counts: Sequence[int], vsum: float,
+                     vcount: int) -> None:
+        """Bucket-wise add of a peer delta (same ladder — callers go
+        through MetricsRegistry.merge_delta, which resolves the ladder
+        before handing over)."""
+        if len(counts) != len(self._counts):
+            raise ValueError(
+                f"histogram {self.name}: merge of {len(counts)} buckets "
+                f"into {len(self._counts)}")
+        with self._lock:
+            for i, c in enumerate(counts):
+                self._counts[i] += int(c)
+            self._sum += vsum
+            self._count += int(vcount)
+
+
+class MetricsRegistry:
+    """Get-or-create registry keyed on (name, sorted labels).  Asking for
+    an existing name with a different metric kind is a programming error
+    and raises — silently returning the wrong type would corrupt both."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._metrics: dict[tuple, object] = {}
+        self._kinds: dict[str, type] = {}      # kind is per NAME, not
+        #                                        per label set: one name
+        #                                        = one # TYPE line
+
+    def _get(self, cls, name: str, labels: dict, **kw):
+        key = (name, _label_key(labels))
+        with self._lock:
+            known = self._kinds.setdefault(name, cls)
+            if known is not cls:
+                raise TypeError(f"metric {name!r} already registered as "
+                                f"{known.kind}, requested {cls.kind}")
+            m = self._metrics.get(key)
+            if m is None:
+                m = cls(name, _label_key(labels), **kw)
+                self._metrics[key] = m
+            return m
+
+    def counter(self, name: str, **labels) -> Counter:
+        return self._get(Counter, name, labels)
+
+    def gauge(self, name: str, **labels) -> Gauge:
+        return self._get(Gauge, name, labels)
+
+    def histogram(self, name: str,
+                  buckets: Optional[Sequence[float]] = None,
+                  **labels) -> Histogram:
+        if buckets is None:
+            buckets = CANONICAL_BUCKETS.get(name)
+        kw = {} if buckets is None else {"buckets": buckets}
+        h = self._get(Histogram, name, labels, **kw)
+        if buckets is not None and h.buckets != tuple(sorted(buckets)):
+            # same loud-failure policy as the kind conflict: silently
+            # returning a histogram with different buckets would strand
+            # observations at the wrong resolution
+            raise ValueError(
+                f"histogram {name!r} already registered with buckets "
+                f"{h.buckets}, requested {tuple(sorted(buckets))}")
+        return h
+
+    def metrics(self) -> list:
+        with self._lock:
+            return list(self._metrics.values())
+
+    # -- snapshot-delta merge protocol ---------------------------------------
+    # Merge semantics, the only commutative/associative choices:
+    #   counters   add
+    #   gauges     max  (peak semantics — "last" would depend on merge
+    #                    order, which a federation cannot promise)
+    #   histograms bucket-wise add (same ladder enforced)
+    # so  merge(a, merge(b, c)) == merge(merge(a, b), c)  and an empty
+    # delta is the identity — pinned in the tests.
+
+    def delta_snapshot(self, prev: Optional[dict] = None, *,
+                       include_merged: bool = False
+                       ) -> tuple[dict, dict]:
+        """One atomic pass over the registry: returns
+        ``(delta_doc, state)`` where `delta_doc` is the compact
+        JSON-able delta SINCE `prev` (a `state` from an earlier call;
+        None = since birth) and `state` is the new baseline.  Metrics
+        whose delta is empty (unmoved counters/gauges, histograms with
+        no new observations) are omitted — an idle client ships bytes
+        proportional to what it DID, not to what exists.  Series that
+        carry the merge-side ``origin`` label are SKIPPED by default:
+        they were folded in from a peer's delta, and re-shipping them
+        from a shared in-process registry would echo the rollup back
+        into itself (quadratic inflation).  An intermediate aggregator
+        re-exporting its fold up a hierarchy (client → edge → server)
+        passes ``include_merged=True`` — associativity of that
+        re-export is pinned in the tests."""
+        prev = prev or {}
+        entries, state = [], {}
+        for m in self.metrics():
+            if not include_merged and any(
+                    k == MERGE_ORIGIN_LABEL for k, _ in m.labels):
+                continue            # already-merged rollup, never re-ship
+            key = (m.name, m.labels)
+            labels = {k: v for k, v in m.labels}
+            if m.kind == "histogram":
+                counts, vsum, vcount = m.raw_state()
+                state[key] = (counts, vsum, vcount)
+                p_counts, p_sum, p_count = prev.get(
+                    key, ([0] * len(counts), 0.0, 0))
+                d_counts = [c - p for c, p in zip(counts, p_counts)]
+                if vcount - p_count <= 0:
+                    continue
+                entries.append({
+                    "name": m.name, "labels": labels, "kind": "histogram",
+                    "buckets": list(m.buckets), "counts": d_counts,
+                    "sum": vsum - p_sum, "count": vcount - p_count})
+            else:
+                v = m.value
+                state[key] = v
+                if m.kind == "counter":
+                    d = v - prev.get(key, 0.0)
+                    if d <= 0:
+                        continue
+                    entries.append({"name": m.name, "labels": labels,
+                                    "kind": "counter", "value": d})
+                else:
+                    if key in prev and v == prev[key]:
+                        continue
+                    entries.append({"name": m.name, "labels": labels,
+                                    "kind": "gauge", "value": v})
+        return {"schema": 1, "metrics": entries}, state
+
+    def merge_delta(self, delta: Optional[dict], **extra_labels) -> None:
+        """Fold a peer's `delta_snapshot` doc into this registry.
+        `extra_labels` are merged over the shipped labels — callers
+        pass a LOW-CARDINALITY ``origin`` (e.g. ``origin="remote"``),
+        never a per-client id: the million-client constraint is
+        O(metrics) server memory, cohort rollups instead of per-rank
+        label explosion.  The ``origin`` key also marks the series as
+        merged-in, which is what keeps delta_snapshot from re-shipping
+        it (the shared-registry echo-loop guard)."""
+        if not delta or not delta.get("metrics"):
+            return                      # empty delta is the merge identity
+        for e in delta["metrics"]:
+            labels = dict(e.get("labels", {}))
+            labels.update(extra_labels)
+            kind = e["kind"]
+            if kind == "counter":
+                self.counter(e["name"], **labels).inc(float(e["value"]))
+            elif kind == "gauge":
+                self.gauge(e["name"], **labels).set_max(float(e["value"]))
+            elif kind == "histogram":
+                h = self.histogram(e["name"], buckets=e["buckets"],
+                                   **labels)
+                h.merge_counts(e["counts"], float(e["sum"]),
+                               int(e["count"]))
+            else:
+                raise ValueError(f"unknown metric kind {kind!r} in delta")
+
+    # -- exporters -----------------------------------------------------------
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition (version 0.0.4)."""
+        by_name: dict[str, list] = {}
+        for m in self.metrics():
+            by_name.setdefault(m.name, []).append(m)
+        lines = []
+        for name in sorted(by_name):
+            group = by_name[name]
+            lines.append(f"# TYPE {name} {group[0].kind}")
+            for m in sorted(group, key=lambda m: m.labels):
+                if m.kind == "histogram":
+                    for le, c in m.cumulative():
+                        le_s = "+Inf" if le == float("inf") else repr(le)
+                        lines.append(
+                            f"{name}_bucket"
+                            f"{_fmt_labels(m.labels + (('le', le_s),))} {c}")
+                    lines.append(
+                        f"{name}_sum{_fmt_labels(m.labels)} {m.sum}")
+                    lines.append(
+                        f"{name}_count{_fmt_labels(m.labels)} {m.count}")
+                else:
+                    lines.append(f"{name}{_fmt_labels(m.labels)} {m.value}")
+        return "\n".join(lines) + "\n"
+
+    def snapshot(self) -> dict:
+        """JSON-able snapshot: {name{labels}: scalar-or-histogram-dict}."""
+        out = {}
+        for m in self.metrics():
+            key = m.name + _fmt_labels(m.labels)
+            if m.kind == "histogram":
+                out[key] = {
+                    "type": "histogram", "sum": m.sum, "count": m.count,
+                    "buckets": [
+                        {"le": ("+Inf" if le == float("inf") else le),
+                         "cumulative_count": c}
+                        for le, c in m.cumulative()],
+                }
+            else:
+                out[key] = m.value
+        return out
+
+    def to_json(self) -> str:
+        return json.dumps(self.snapshot(), indent=2, sort_keys=True)

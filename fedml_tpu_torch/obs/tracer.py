@@ -1,0 +1,225 @@
+"""Span tracer: nestable wall-clock spans with Chrome-trace and JSONL
+exporters (port of fedml_tpu/obs/tracer.py, the same code).
+
+One tracer per process collects complete trace events ("ph": "X") from
+every thread against one perf_counter epoch, so a span recorded on a
+background thread lines up on the same timeline as the round's spans.
+Nesting needs no parent links: Chrome and Perfetto rebuild the stack per
+`tid` from ts/dur containment.  The spans time the host: a CUDA launch
+returns before the card finishes, so a span around device work measures
+its enqueue unless the work ends in a synchronize.
+
+Cost when tracing is on: two perf_counter calls and one locked deque
+append per span.  The event buffer is a fixed-size ring (200k events by
+default) so a long run cannot exhaust the host's memory; drops are
+counted and reported by every export (Chrome metadata, the JSONL meta
+line, `obs.rollup()`).  A long run that must not lose the trace's head
+can also stream every event to a JSONL spill file, up to a byte cap
+(`spill_limit_bytes`), past which truncation is counted: the ring (tail)
+and the spill (head) together lose nothing until the cap.  With
+observability off the tracer is never built: `obs.span()` returns a
+shared no-op (fedml_tpu_torch/obs/__init__.py).
+
+`export_jsonl` leads with one `__meta__` line (pid, epoch_unix, drop and
+spill accounting) so a merge tool can rebase each process's
+perf_counter-relative timestamps onto the unix clock; `digest()` is the
+compact per-name span summary (name -> [count, total_us]).
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import itertools
+import json
+import os
+import threading
+import time
+from typing import Iterator, Optional
+
+DEFAULT_SPILL_LIMIT = 256 * 1024 * 1024      # bytes of spill JSONL
+
+
+class SpanTracer:
+    def __init__(self, max_events: int = 200_000,
+                 spill_path: Optional[str] = None,
+                 spill_limit_bytes: int = DEFAULT_SPILL_LIMIT):
+        self._lock = threading.Lock()
+        self._events: collections.deque = collections.deque(
+            maxlen=max_events)
+        self._recorded = 0
+        self._epoch = time.perf_counter()
+        # wall-clock of the epoch so exported ts can be correlated with
+        # log timestamps (stored in export metadata)
+        self.epoch_unix = time.time()
+        self.pid = os.getpid()
+        # incremental per-name aggregate — digest() must not walk a
+        # 200k-event ring on the frame-send hot path
+        self._agg: dict[str, list] = {}
+        self._spill_lock = threading.Lock()
+        self._spill_f = None
+        self._spill_bytes = 0
+        self._spill_limit = spill_limit_bytes
+        self._spilled = 0
+        self._spill_truncated = 0
+        self.spill_path = spill_path
+        if spill_path is not None:
+            self._spill_f = open(spill_path, "a", buffering=1)
+
+    def _now_us(self) -> float:
+        return (time.perf_counter() - self._epoch) * 1e6
+
+    def _record(self, ev: dict) -> None:
+        # serialize for the spill BEFORE taking the event lock: the
+        # json.dumps + line-buffered write must not serialize every
+        # tracing thread through disk I/O (the spill has its own lock,
+        # so the spill-off hot path stays two perf_counters + one
+        # locked append)
+        line = json.dumps(ev) + "\n" if self._spill_f is not None else None
+        with self._lock:
+            self._events.append(ev)
+            self._recorded += 1
+            a = self._agg.get(ev["name"])
+            if a is None:
+                self._agg[ev["name"]] = [1, ev.get("dur", 0.0)]
+            else:
+                a[0] += 1
+                a[1] += ev.get("dur", 0.0)
+        if line is not None:
+            with self._spill_lock:
+                if self._spill_f is None:       # closed under our feet
+                    return
+                if self._spill_bytes < self._spill_limit:
+                    self._spill_bytes += len(line)
+                    self._spilled += 1
+                    self._spill_f.write(line)
+                else:
+                    self._spill_truncated += 1
+
+    @contextlib.contextmanager
+    def span(self, name: str, **attrs) -> Iterator[None]:
+        ts = self._now_us()
+        try:
+            yield
+        finally:
+            dur = self._now_us() - ts
+            self._record({"name": name, "ph": "X", "ts": ts, "dur": dur,
+                          "pid": self.pid, "tid": threading.get_ident(),
+                          "args": attrs})
+
+    def instant(self, name: str, **attrs) -> None:
+        """Zero-duration marker (Chrome "i" event, thread scope)."""
+        self._record({"name": name, "ph": "i", "ts": self._now_us(),
+                      "s": "t", "pid": self.pid,
+                      "tid": threading.get_ident(), "args": attrs})
+
+    # -- introspection -------------------------------------------------------
+    def events(self) -> list[dict]:
+        with self._lock:
+            return list(self._events)
+
+    def tail(self, n: int) -> list[dict]:
+        """Most recent `n` events (oldest first) — the flight
+        recorder's dump payload.  Spans are NOT write-through-copied
+        into the flight ring (that doubled the hot-path cost); dumps
+        read this tail instead, which holds strictly more context
+        (max_events vs the old 4096-event flight ring)."""
+        with self._lock:
+            if n >= len(self._events):
+                return list(self._events)
+            return list(itertools.islice(
+                self._events, len(self._events) - n, None))
+
+    @property
+    def dropped(self) -> int:
+        with self._lock:
+            return self._recorded - len(self._events)
+
+    @property
+    def spilled(self) -> int:
+        """Events persisted to the spill file (0 when spill is off)."""
+        with self._spill_lock:
+            return self._spilled
+
+    @property
+    def spill_truncated(self) -> int:
+        """Events the spill byte-cap refused (still in the ring until
+        evicted — the cap bounds disk, the ring bounds memory)."""
+        with self._spill_lock:
+            return self._spill_truncated
+
+    def digest(self, top: int = 8) -> dict[str, list]:
+        """Compact span summary: {name: [count, total_us]} for the `top`
+        names by total wall.  O(#distinct names), not O(events)."""
+        with self._lock:
+            items = sorted(self._agg.items(), key=lambda kv: -kv[1][1])
+        return {name: [int(c), round(float(t), 1)]
+                for name, (c, t) in items[:top]}
+
+    def _meta(self) -> dict:
+        return {"pid": self.pid, "epoch_unix": self.epoch_unix,
+                "dropped_events": self.dropped,
+                "spilled_events": self.spilled,
+                "spill_truncated": self.spill_truncated,
+                "spill_path": self.spill_path}
+
+    # -- exporters -----------------------------------------------------------
+    def export_chrome(self, path: str) -> str:
+        """Chrome trace-event JSON (load in chrome://tracing or
+        https://ui.perfetto.dev).  Thread names become M (metadata)
+        events so the timeline rows are readable."""
+        events = self.events()
+        tids = {e["tid"] for e in events}
+        names = {t.ident: t.name for t in threading.enumerate()}
+        meta = [{"name": "thread_name", "ph": "M", "pid": self.pid,
+                 "tid": tid,
+                 "args": {"name": names.get(tid, f"thread-{tid}")}}
+                for tid in sorted(tids)]
+        doc = {"traceEvents": meta + events,
+               "displayTimeUnit": "ms",
+               "otherData": {"epoch_unix": self.epoch_unix,
+                             "dropped_events": self.dropped,
+                             "spilled_events": self.spilled,
+                             "spill_truncated": self.spill_truncated}}
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+        os.replace(tmp, path)
+        return path
+
+    def export_jsonl(self, path: str) -> str:
+        """One JSON object per line; the FIRST line is a `__meta__`
+        record (pid, epoch_unix, drop/spill accounting) that aligns this
+        process's events with other processes' exports."""
+        with self._spill_lock:
+            if self._spill_f is not None:
+                self._spill_f.flush()
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(json.dumps({"__meta__": self._meta()}) + "\n")
+            for ev in self.events():
+                f.write(json.dumps(ev) + "\n")
+        os.replace(tmp, path)
+        return path
+
+    def close(self) -> None:
+        with self._spill_lock:
+            if self._spill_f is not None:
+                self._spill_f.close()
+                self._spill_f = None
+
+
+class _NoopSpan:
+    """Shared no-op context manager — the disabled-by-default fast path.
+    Stateless, so one instance serves every call site and nesting level
+    concurrently; entering costs two trivial method calls."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoopSpan":
+        return self
+
+    def __exit__(self, *exc) -> Optional[bool]:
+        return None
+
+
+NOOP_SPAN = _NoopSpan()

@@ -23,6 +23,19 @@ cluster of up to 8 blocks that holds the group in shared memory;
 On a CPU tensor the wrappers run the plain PyTorch version below; on a CUDA
 tensor they launch the kernel or raise.  ``gn_forward.launches`` and
 ``gn_backward.launches`` count kernel launches.
+
+The op can be differentiated twice (FedNAS's exact second-order
+architect differentiates through a training step).  The backward is an
+autograd function of its own, ``_GroupNormBackwardFn``: its forward runs
+the backward kernel (the plain version, without a graph, on the CPU) and
+its backward is the analytic double backward, written in torch ops from
+the saved tensors: the gradients of (dx, dgamma, dbeta) with respect to
+x (through the mean and rstd as well), dy and gamma.  This is the one
+place on a path where plain ops stand in a kernel's backward.  The JAX
+package has no Pallas kernel for it either: its Pallas op is a
+``custom_vjp``, which JAX cannot differentiate twice, and its FedNAS runs
+flax's GroupNorm under XLA.  Without ``create_graph`` the backward calls
+the kernel wrapper directly, as it always did.
 """
 from __future__ import annotations
 
@@ -48,31 +61,38 @@ BLOCK_THREADS = 128            # threads a block aims for
 # plain PyTorch versions (the CPU path, and the card's yardstick)
 # ---------------------------------------------------------------------------
 
+def _compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """The plain versions compute in f32, or in f64 for f64 x."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def _grouped(x: torch.Tensor, num_groups: int) -> torch.Tensor:
     N, C = x.shape[0], x.shape[-1]
-    return x.float().reshape(N, -1, num_groups, C // num_groups)
+    return x.to(_compute_dtype(x)).reshape(N, -1, num_groups, C // num_groups)
 
 
 def gn_forward_plain(x, gamma, beta, num_groups: int, eps: float):
-    """(y, mean [N, G], rstd [N, G]); stats in f32, two-pass variance."""
+    """(y, mean [N, G], rstd [N, G]); stats in f32 (f64 for f64 x),
+    two-pass variance."""
     xf = _grouped(x, num_groups)
     mean = xf.mean(dim=(1, 3))
     var = ((xf - mean[:, None, :, None]) ** 2).mean(dim=(1, 3))
     rstd = torch.rsqrt(var + eps)
     xhat = ((xf - mean[:, None, :, None]) * rstd[:, None, :, None])
-    y = xhat.reshape(x.shape) * gamma.float() + beta.float()
+    dt = xf.dtype
+    y = xhat.reshape(x.shape) * gamma.to(dt) + beta.to(dt)
     return y.to(x.dtype), mean, rstd
 
 
 def gn_backward_plain(x, dy, gamma, mean, rstd, num_groups: int):
     """(dx, dgamma, dbeta) from the saved statistics; dgamma/dbeta in
-    gamma's dtype, rounded once from their f32 sums."""
+    gamma's dtype, rounded once from their f32 (f64) sums."""
     C = x.shape[-1]
     Cg = C // num_groups
     xg = _grouped(x, num_groups)
     xhat = (xg - mean[:, None, :, None]) * rstd[:, None, :, None]
     dyg = _grouped(dy, num_groups)
-    dxhat = dyg * gamma.float().reshape(1, 1, num_groups, Cg)
+    dxhat = dyg * gamma.to(xg.dtype).reshape(1, 1, num_groups, Cg)
     m = xg.shape[1] * Cg
     s1 = dxhat.sum(dim=(1, 3))
     s2 = (dxhat * xhat).sum(dim=(1, 3))
@@ -310,6 +330,72 @@ gn_backward.launches = 0
 # public op and module
 # ---------------------------------------------------------------------------
 
+def gn_double_backward(x, dy, gamma, mean, rstd, num_groups: int,
+                       g_dx, g_dgamma, g_dbeta):
+    """The gradients of the backward's outputs (dx, dgamma, dbeta), given
+    the gradients on them (g_dx, g_dgamma, g_dbeta), with respect to its
+    inputs (x, dy, gamma); mean and rstd are functions of x.
+
+    Per (sample, group) of m elements, with xhat = (x - mean) * rstd,
+    a = dy * gamma, B = mean(a * xhat), u = g_dx:
+      P = rstd * (u - mean(u) - xhat * mean(u * xhat))
+      d/d dy    = gamma * P + g_dgamma * xhat + g_dbeta
+      d/d gamma = sum over samples and positions of dy * P
+      d/d xhat  = -rstd * (B * u + a * mean(u * xhat)) + g_dgamma * dy
+      d/d rstd  = sum(u * (a - mean(a) - xhat * B))      (dx = rstd * (...))
+      d/d x     = rstd * (h - mean(h) - xhat * mean(h * xhat))
+                  - d/d rstd * rstd^2 * xhat / m          (h = d/d xhat)
+    computed in f32 (f64 for f64 x) and rounded to each input's dtype."""
+    C = x.shape[-1]
+    Cg = C // num_groups
+    xg = _grouped(x, num_groups)
+    dt = xg.dtype
+    m = xg.shape[1] * Cg
+    r = rstd.to(dt)[:, None, :, None]
+    xhat = (xg - mean.to(dt)[:, None, :, None]) * r
+    dyg = _grouped(dy, num_groups)
+    per_channel = lambda t: t.to(dt).reshape(1, 1, num_groups, Cg)
+    gam = per_channel(gamma)
+    a = dyg * gam
+    u = _grouped(g_dx, num_groups)
+    group_mean = lambda t: t.mean(dim=(1, 3), keepdim=True)
+    B = group_mean(a * xhat)
+    u_xhat = group_mean(u * xhat)
+    P = r * (u - group_mean(u) - xhat * u_xhat)
+    v, w = per_channel(g_dgamma), per_channel(g_dbeta)
+    d_dy = gam * P + v * xhat + w
+    d_gamma = (dyg * P).sum(dim=(0, 1)).reshape(C)
+    h = -r * (B * u + a * u_xhat) + v * dyg
+    d_rstd = (u * (a - group_mean(a) - xhat * B)).sum(dim=(1, 3), keepdim=True)
+    d_x = (r * (h - group_mean(h) - xhat * group_mean(h * xhat))
+           - d_rstd * r * r * xhat / m)
+    return (d_x.reshape(x.shape).to(x.dtype), d_dy.reshape(dy.shape).to(dy.dtype),
+            d_gamma.to(gamma.dtype))
+
+
+class _GroupNormBackwardFn(torch.autograd.Function):
+    """(x, dy, gamma, mean, rstd) -> (dx, dgamma, dbeta) through the
+    backward kernel (the plain version on the CPU, recording no graph, as
+    the kernel records none), differentiable through the analytic double
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, dy, gamma, mean, rstd, num_groups):
+        with torch.no_grad():
+            dx, dgamma, dbeta = gn_backward(x, dy, gamma, mean, rstd,
+                                            num_groups)
+        ctx.save_for_backward(x, dy, gamma, mean, rstd)
+        ctx.num_groups = num_groups
+        return dx, dgamma, dbeta
+
+    @staticmethod
+    def backward(ctx, g_dx, g_dgamma, g_dbeta):
+        x, dy, gamma, mean, rstd = ctx.saved_tensors
+        d_x, d_dy, d_gamma = gn_double_backward(
+            x, dy, gamma, mean, rstd, ctx.num_groups, g_dx, g_dgamma, g_dbeta)
+        return d_x, d_dy, d_gamma, None, None, None
+
+
 class _GroupNormFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, num_groups, eps):
@@ -323,8 +409,13 @@ class _GroupNormFn(torch.autograd.Function):
         x, gamma, mean, rstd = ctx.saved_tensors
         # autograd may hand a non-contiguous gradient; the kernel reads the
         # same layout as x (a no-op when it already matches)
-        dx, dgamma, dbeta = gn_backward(x, dy.contiguous(), gamma, mean,
-                                        rstd, ctx.num_groups)
+        dy = dy.contiguous()
+        if torch.is_grad_enabled():      # create_graph: a second derivative
+            dx, dgamma, dbeta = _GroupNormBackwardFn.apply(
+                x, dy, gamma, mean, rstd, ctx.num_groups)
+        else:
+            dx, dgamma, dbeta = gn_backward(x, dy, gamma, mean, rstd,
+                                            ctx.num_groups)
         return dx, dgamma, dbeta, None, None
 
 

@@ -46,6 +46,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from fedml_tpu_torch import obs
 from fedml_tpu_torch.algorithms.fedavg import FedAvgEngine
 from fedml_tpu_torch.algorithms.fedavg_robust import check_defense
 from fedml_tpu_torch.algorithms.fednova import fednova_tau
@@ -270,11 +271,14 @@ class MeshFedAvgEngine(FedAvgEngine):
         `_host_shards()`, stack_dtype applied, uploaded to the engine's
         device: ({x, y, mask} [K, B, bs, ...], weights [K] f32)."""
         ids = self.sampler.sample(round_idx)
-        cohort = self._cast_stack_x({k: np.take(np.asarray(v), ids, axis=0)
-                                     for k, v in self._host_shards().items()})
-        w = np.take(np.asarray(self.data.client_num_samples, np.float32), ids)
-        return ({k: v.to(self.device) for k, v in cohort.items()},
-                torch.from_numpy(w).to(self.device))
+        with obs.span("h2d.upload_cohort", clients=len(ids)):
+            cohort = self._cast_stack_x({
+                k: np.take(np.asarray(v), ids, axis=0)
+                for k, v in self._host_shards().items()})
+            w = np.take(np.asarray(self.data.client_num_samples, np.float32),
+                        ids)
+            return ({k: v.to(self.device) for k, v in cohort.items()},
+                    torch.from_numpy(w).to(self.device))
 
     def _local_train_stack(self) -> dict:
         return self._cast_stack_x(self._host_shards())
