@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's FedAvg, robust-aggregation, model-zoo,
-data-layer, one-card-algorithm and FedNAS paths on one CUDA card, and
-hold every hand-written kernel against its plain PyTorch version.
+data-layer, one-card-algorithm, FedNAS and message-driven FedAvg paths on
+one CUDA card, and hold every hand-written kernel against its plain
+PyTorch version.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -27,8 +28,8 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    bf16 ClientTrainer at lr 0.1, 8 clients of 390 CIFAR-10-shaped
    samples (13 batches of 32), 3 rounds then one evaluation; the launch
    counters, zeroed just before, must equal the counts the shapes give;
-   then one more round under torch.profiler: the card's busy share and
-   where its time goes;
+   then a round of one chunk's 2 clients under torch.profiler: the
+   card's busy share and where its time goes;
 6. one f32 norm-clipped FedAvgRobustEngine round (3 clients x 2 batches
    of 32, full width, TF32 off) on the card and on the CPU, with the bound
    set so that some clients are clipped and some are not; then the
@@ -50,11 +51,12 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    batch's logits and gradients in eval mode; each family's update
    distance against its limit;
 11. the ResNet-56 path: MeshFedAvgEngine with the main path's recipe on
-   ResNet-56 (BatchNorm statistics in the row), 3 rounds then one
+   ResNet-56 (BatchNorm statistics in the row), 2 rounds then one
    evaluation, the fold's launches exact, the fold against its plain
    version at the row's [2, 860,160], the global statistics against the
-   plain weighted mean of the clients', and a profiled round: busy share
-   and device time by kind (convolutions, BatchNorm, copies, other);
+   plain weighted mean of the clients', and a profiled round of 2
+   clients: busy share and device time by kind (convolutions, BatchNorm,
+   copies, other);
 12. a word-LSTM round on MeshFedAvgEngine at full width, with the
    sequence axis and <pad> left out of the eval;
 13. the data layer (slice 3b), from CIFAR-10 pickles written into a
@@ -73,9 +75,9 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    push-sum, vertical FL, SplitNN, FedSeg with its metrics, FedGKT with
    its server logits, FedGAN given the same z), within phase 4's limits
    and with exact launch counts; the slice's path, FedGKT at the full
-   width of its pair on phase 5's clients (3 rounds, one evaluation, exact
+   width of its pair on phase 5's clients (2 rounds, one evaluation, exact
    GroupNorm launches, each phase's share of the round, a profiled
-   round); and FedSeg at full width on the pascal_voc stand-in (2 rounds,
+   round of 1 client); and FedSeg at full width on the pascal_voc stand-in (2 rounds,
    its last evaluation's metrics, exact launches);
 15. slice 7a-ii, FedNAS with the DARTS search space, and the obs core:
    both GroupNorm kernels at the DARTS nets' eight (C, G) shapes (the
@@ -88,16 +90,31 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    own norm; one f32 round of each search mode (first order, exact second
    order, GDAS) in the micro space and at full width, card against CPU
    with exact launches; the slice's path, FedNAS at the published DARTS
-   widths (2 first-order rounds, 1 second-order, 1 GDAS, each with an
-   evaluation, the derived genotype, then its retrain at C 36 and 20
+   widths (1 first-order round, 1 second-order on 1 client, 1 GDAS, each
+   with an evaluation, the derived genotype, then its retrain at C 36 and 20
    layers for one FedAvg round), with exact launches, s/round by mode and
    a profiled first-order step; and one main-path round with
    observability off and on, bitwise equal, its trace holding the round,
    eval and upload spans;
-16. one JSON line of the zoo's, C.1's, the data path's and slices 7a-i's
-   and 7a-ii's numbers, one listing every TPU kernel of the JAX package
-   with its port's numbers and its launches on every path, then the last
-   line {"ok": true, "device": {...}}.
+16. slice 5b-i, the wire core and message-driven FedAvg: the codec on
+   ResNet-18-GN's variables taken from the card in f32 and bf16 (v1
+   bitwise, decode_into equal to decode, the bf16 transport equal to the
+   card's .to(bfloat16), int8 within half an affine step, sparse_topk
+   keeping exactly each leaf's k largest entries, encode_parts joining to
+   encode; bytes and MB/s); run_messaging_fedavg on the main path's
+   recipe (8 client threads, bf16 masters) for 2 rounds over INPROC, TCP
+   (the Python reactor) and NATIVE_TCP, each with exact GroupNorm and fold
+   launches, s/round beside FedAvgEngine on the same clients, wire bytes
+   and the shares of the fsm.local_train, comm.decode and fsm.aggregate
+   spans; one round with the bf16 downlink (half the bytes, within phase
+   4's limits of the exact round); one f32 round over TCP against one
+   FedAvgEngine round (within 1e-6 of the update's norm); remote SplitNN
+   (split_cnn, 2 clients, one epoch of 4 batches) on the card over
+   INPROC and TCP against the same protocol on the CPU;
+17. one JSON line of the zoo's, C.1's, the data path's and slices 7a-i's,
+   7a-ii's and 5b-i's numbers, one listing every TPU kernel of the JAX
+   package with its port's numbers and its launches on every path, then
+   the last line {"ok": true, "device": {...}}.
 
 It needs one card; it imports nothing of JAX or of fedml_tpu.
 """
@@ -108,12 +125,14 @@ import json
 import math
 import pickle
 import re
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -133,7 +152,16 @@ from fedml_tpu_torch.algorithms.fedseg import FedSegEngine
 from fedml_tpu_torch.algorithms.split_nn import SplitNNEngine
 from fedml_tpu_torch.algorithms.turboaggregate import TurboAggregateEngine
 from fedml_tpu_torch.algorithms.vertical_fl import VFLEngine
+from fedml_tpu_torch.comm.fedavg_messaging import (MyMessage,
+                                                   run_messaging_fedavg)
+from fedml_tpu_torch.comm.inproc import InProcRouter
+from fedml_tpu_torch.comm.message import Message, MessageCodec
+from fedml_tpu_torch.comm.split_messaging import (SplitClientCompute,
+                                                  SplitNNClientManager,
+                                                  SplitNNServerManager,
+                                                  SplitServerCompute)
 from fedml_tpu_torch.core import robust as robust_ops
+from fedml_tpu_torch.core.flatmodel import FlatModel
 from fedml_tpu_torch.core.partition import partition_homo
 from fedml_tpu_torch.core.pytree import clip_scale
 from fedml_tpu_torch.core.topology import (AsymmetricTopologyManager,
@@ -178,6 +206,7 @@ N_PARAMS = 11_173_962          # ResNet-18-GN at num_filters=64, 10 classes
 P_PADDED = N_PARAMS + (-N_PARAMS) % 512
 BATCH, SAMPLES, BATCHES = 32, 390, 13
 MAIN_CLIENTS, MAIN_CHUNK, MAIN_ROUNDS = 8, 2, 3
+R56_ROUNDS = 2                 # phase 11 (cut from 3 to hold the script's time)
 SIDE_CLIENTS = 4               # phases 7 and 9
 BN_RANGE = "fedml_batch_norm"  # the profiled BatchNorm forwards' range
 # the TPU kernel each port kernel replaces: (the pl.pallas_call that
@@ -607,8 +636,18 @@ def phase_main_path() -> dict:
     print(f"[main path] s/round {round_s} -> {steady:.4f} s/round over rounds "
           f"2-{MAIN_ROUNDS} ({card_line()})")
     print(f"[main path] launches {counts} == expected")
-    profile_round(lambda: engine.round_fn_streaming(
-        variables, server_state, cohort, weights), steady)
+    # the busy share from a round of one chunk's clients (the same steps per
+    # client; a whole round's trace takes most of a minute to read)
+    sub = {k: v[:MAIN_CHUNK] for k, v in cohort.items()}
+    sub_round = lambda: engine.round_fn_streaming(
+        variables, server_state, sub, weights[:MAIN_CHUNK])
+    sub_round()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sub_round()
+    torch.cuda.synchronize()
+    profile_round(sub_round, time.perf_counter() - t0,
+                  tag=f"profile, {MAIN_CHUNK} clients")
     return counts
 
 
@@ -1304,14 +1343,14 @@ def bn_layer_ms() -> list:
 def phase_resnet56_path(gen: torch.Generator) -> dict:
     """ResNet-56 on CIFAR-10-shaped clients through MeshFedAvgEngine with
     the main path's recipe (8 clients x 13 batches of 32, one epoch of SGD
-    at lr 0.1, bf16 compute on bf16 local masters, chunk 2), 3 rounds then
-    one evaluation.  Its row is 855,770 parameters and 4,256 BatchNorm
+    at lr 0.1, bf16 compute on bf16 local masters, chunk 2), R56_ROUNDS
+    rounds then one evaluation.  Its row is 855,770 parameters and 4,256 BatchNorm
     statistics, padded to 860,160; the fold kernel must run exactly once a
     chunk (4 a round) and nothing else of the port's.  Then: the fold
     against its plain version at [2, 860,160]; a round whose global
     statistics must equal the plain weighted mean of the clients' trained
     statistics rows (within 1e-6 of sum_k |w_k v_k| / sum(w), computed in
-    f64 on the host); and a profiled round."""
+    f64 on the host); and a profiled round of one chunk's 2 clients."""
     torch.backends.cudnn.allow_tf32 = True
     data = synthetic_data(MAIN_CLIENTS, SAMPLES, seed=5)
     cfg = FedConfig(model="resnet56", dataset="cifar10",
@@ -1332,7 +1371,7 @@ def phase_resnet56_path(gen: torch.Generator) -> dict:
 
     reset_launch_counts()
     round_s, losses = [], []
-    for r in range(MAIN_ROUNDS):
+    for r in range(R56_ROUNDS):
         t0 = time.perf_counter()
         variables, _, m = engine.round_fn_streaming(variables, (), cohort,
                                                     weights, r)
@@ -1342,7 +1381,7 @@ def phase_resnet56_path(gen: torch.Generator) -> dict:
     torch.cuda.synchronize()
     counts = launch_counts()
     expected = {"gn_forward": 0, "gn_backward": 0,
-                "wsum": MAIN_ROUNDS * (MAIN_CLIENTS // MAIN_CHUNK),
+                "wsum": R56_ROUNDS * (MAIN_CLIENTS // MAIN_CHUNK),
                 "sqnorm": 0, "clip_agg": 0}
     if counts != expected:
         raise AssertionError(f"resnet56 launches {counts} != {expected}")
@@ -1362,7 +1401,7 @@ def phase_resnet56_path(gen: torch.Generator) -> dict:
           f"statistics, row {RESNET56_ROW})")
     print(f"[resnet56 path] train_loss per round {losses}; eval {stats}")
     print(f"[resnet56 path] s/round {round_s} -> {steady:.4f} s/round over "
-          f"rounds 2-{MAIN_ROUNDS} ({card_line()})")
+          f"rounds 2-{R56_ROUNDS} ({card_line()})")
     print(f"[resnet56 path] launches {counts} == expected (one fold a chunk); "
           f"every statistics leaf moved, {len(same)} of "
           f"{len(trainer.param_names)} parameter leaves did not (updates "
@@ -1395,11 +1434,23 @@ def phase_resnet56_path(gen: torch.Generator) -> dict:
     print(f"[resnet56 path] global statistics segment ({n - n_p} values) = the "
           f"plain weighted mean of the {len(V)} clients' statistics rows: max "
           f"abs err {err:.3e} (limit 1e-6 of sum|w v| / sum w)")
-    prof = profile_round(lambda: engine.round_fn_streaming(
-        variables, (), cohort, weights), steady, tag="resnet56 path")
+    # the profile reads a round of one chunk's clients: a whole round's
+    # trace (~300,000 events) takes minutes to read
+    sub = {k: v[:MAIN_CHUNK] for k, v in cohort.items()}
+    sub_round = lambda: engine.round_fn_streaming(variables, (), sub,
+                                                  weights[:MAIN_CHUNK])
+    sub_round()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sub_round()
+    torch.cuda.synchronize()
+    sub_s = time.perf_counter() - t0
+    prof = profile_round(sub_round, sub_s,
+                         tag=f"resnet56 path, {MAIN_CHUNK} clients")
     return dict(s_per_round=round_s, steady_s=steady, losses=losses,
                 eval=stats, launches=counts, fold=fold_rec,
                 stats_fold_max_abs_err=err, profile=prof,
+                profiled_round_s=sub_s, profiled_clients=MAIN_CHUNK,
                 bn_layer=bn_layer_ms())
 
 
@@ -1801,7 +1852,8 @@ def phase_data_path() -> dict:
 GKT_GN_SHAPES = ((32, 32, 32, 16), (32, 16, 16, 32), (32, 8, 8, 64))   # G = 2
 SEG_GN_SHAPES = ((8, 32, 32, 32), (8, 16, 16, 64), (8, 8, 8, 128))     # G = 4
 GKT_CLIENT_GN, GKT_SERVER_GN, SEG_GN = 7, 38, 5   # GroupNorm layers per net
-GKT_ROUNDS, SEG_ROUNDS = 3, 2
+GKT_ROUNDS, SEG_ROUNDS = 2, 2   # FedGKT cut from 3 rounds to hold the time
+GKT_PROFILED = 1               # clients in FedGKT's profiled round (was 2)
 GKT_PARAMS = (14_650, 563_658)
 SEG_PARAMS = 181_813
 
@@ -2067,9 +2119,9 @@ def phase_gkt_path() -> dict:
     """The slice's path: FedGKT at the published widths of its pair
     (ResNetClientGKT, ResNetServerGKT), f32, on phase 5's 8 clients of 13
     batches of 32, client SGD at lr 0.1, the server's SGD with momentum
-    0.9 and wd 1e-4; 3 rounds, then one evaluation; exact GroupNorm
-    launch counts; each phase's share of the round; then a round of 2 of
-    the clients, timed and under the profiler."""
+    0.9 and wd 1e-4; GKT_ROUNDS rounds, then one evaluation; exact GroupNorm
+    launch counts; each phase's share of the round; then a round of
+    GKT_PROFILED of the clients, timed and under the profiler."""
     data = synthetic_data(MAIN_CLIENTS, SAMPLES, seed=0)
     cfg = FedConfig(dataset="cifar10", client_num_in_total=MAIN_CLIENTS,
                     client_num_per_round=MAIN_CLIENTS, epochs=1,
@@ -2144,25 +2196,27 @@ def phase_gkt_path() -> dict:
           f"rounds 2-{GKT_ROUNDS}; client phase {share['client']:.1%}, server "
           f"phase {share['server']:.1%} of the round ({card_line()})")
     print(f"[fedgkt path] launches {counts} == expected")
-    # the busy share from a round of 2 of the 8 clients (the same steps per
+    # the busy share from a round of 1 of the 8 clients (the same steps per
     # client; a whole round's trace takes minutes of host time to read)
     for name in totals:
         delattr(engine, name)                      # the untimed methods again
-    sub = {k: v[:2] for k, v in shards.items()}
-    sub_round = lambda: engine.train_round(flats[:2], sp, opt, slog[:2], sub)
+    sub = {k: v[:GKT_PROFILED] for k, v in shards.items()}
+    sub_round = lambda: engine.train_round(flats[:GKT_PROFILED], sp, opt,
+                                           slog[:GKT_PROFILED], sub)
     sub_round()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sub_round()
     torch.cuda.synchronize()
     sub_s = time.perf_counter() - t0
-    prof = profile_round(sub_round, sub_s, tag="fedgkt path, 2 clients")
-    print(f"[fedgkt path] the profiled 2-client round took "
+    prof = profile_round(sub_round, sub_s,
+                         tag=f"fedgkt path, {GKT_PROFILED} client")
+    print(f"[fedgkt path] the profiled {GKT_PROFILED}-client round took "
           f"{time.perf_counter() - t0:.1f} s of command time")
     return dict(s_per_round=round_s, steady_s=steady, phase_share=share,
                 client_losses=c_losses, server_losses=s_losses, eval=stats,
                 launches=counts, feature_bytes=feat_bytes, peak_bytes=peak,
-                two_client_round_s=sub_s,
+                profiled_round_s=sub_s, profiled_clients=GKT_PROFILED,
                 profile={k: v for k, v in prof.items() if k != "top"})
 
 
@@ -2257,9 +2311,10 @@ NAS_MICRO_STEP_GN = {"first_order": (2 * 37, 37 + 6),
                      "unrolled": (3 * 37, 3 * 37 + 6),
                      "gdas": (2 * 37, 37 + 6)}
 NAS_GN_FORWARD = 705
-# (mode, rounds, clients a round): the second-order round takes 2 of the 4
-# clients, to keep the phase's time (its steps cost ~5x a first-order one)
-NAS_PATH_ROUNDS = (("first_order", 2, NAS_CLIENTS), ("unrolled", 1, 2),
+# (mode, rounds, clients a round): one round of each mode, the second-order
+# round on 1 of the 4 clients, to keep the script's time (its steps cost
+# ~5x a first-order one)
+NAS_PATH_ROUNDS = (("first_order", 1, NAS_CLIENTS), ("unrolled", 1, 1),
                    ("gdas", 1, NAS_CLIENTS))
 
 
@@ -2509,8 +2564,8 @@ def phase_fednas_path() -> dict:
     CIFAR-10-shaped clients of NAS_BATCHES batches of 32 (the interleaved
     split: 2 train and 2 validation batches each), the published
     optimizers (w: clip 5, wd 3e-4, SGD lr 0.025 momentum 0.9; alphas:
-    Adam 3e-4, b1 0.5, wd 1e-3): 2 first-order rounds, 1 exact
-    second-order round (2 of the clients) and 1 GDAS round, each with an
+    Adam 3e-4, b1 0.5, wd 1e-3): NAS_PATH_ROUNDS (1 first-order round, 1
+    exact second-order round on 1 of the clients, 1 GDAS round), each with an
     evaluation; the derived genotype; then make_train_engine(genotype, C
     36, 20 layers) on the same clients, one FedAvg round and an
     evaluation.  TF32 is off (the caller's f32_off).  Exact launch counts
@@ -2591,7 +2646,9 @@ def phase_fednas_path() -> dict:
     print(f"[fednas path] FedNASSearchEngine, DartsSearchNetwork (C 16, 8 "
           f"cells, {NAS_PARAMS} params, {NAS_GN_FORWARD} GroupNorm layers), "
           f"f32 with TF32 off, {NAS_CLIENTS} clients x {NAS_BATCHES} batches "
-          f"of {BATCH} (the second-order round on 2 of them); peak device "
+          f"of {BATCH} (the second-order round on "
+          f"{dict((m, c) for m, _, c in NAS_PATH_ROUNDS)['unrolled']} of "
+          f"them); peak device "
           f"memory {peak} B; GroupNorm ran at {len(gn_seen)} (shape, groups) "
           f"({card_line()})")
     for mode, rec in per_mode.items():
@@ -2722,9 +2779,487 @@ def phase_slice7a_ii(gen: torch.Generator) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# slice 5b-i: the wire core and message-driven FedAvg
+# ---------------------------------------------------------------------------
+
+MSG_ROUNDS = 2                 # rounds of each messaging backend
+MSG_BACKENDS = ("INPROC", "TCP", "NATIVE_TCP")
+MSG_F32_CLIENTS, MSG_F32_BATCHES = 4, 4       # the f32 FedAvg check
+SPLIT_CLIENTS, SPLIT_BATCHES = 2, 4
+MSG_SPANS = ("fsm.local_train", "comm.decode", "fsm.aggregate")
+
+
+def free_base_port(n: int) -> int:
+    """A base port p with p .. p + n - 1 free: p from a socket bound to
+    port 0, the rest checked."""
+    for _ in range(50):
+        socks = []
+        try:
+            s = socket.socket()
+            socks.append(s)
+            s.bind(("0.0.0.0", 0))
+            base = s.getsockname()[1]
+            if base + n > 65535:
+                continue
+            for r in range(1, n):
+                t = socket.socket()
+                socks.append(t)
+                t.bind(("0.0.0.0", base + r))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError(f"no {n} consecutive free ports")
+
+
+def backend_kw(backend: str, size: int) -> dict:
+    """The comm backend's arguments for `size` ranks on this host: TCP is
+    the Python transport on the reactor, NATIVE_TCP the C++ one."""
+    if backend == "INPROC":
+        return {}
+    kw = dict(ip_config={r: "127.0.0.1" for r in range(size)},
+              base_port=free_base_port(size))
+    if backend == "TCP":
+        kw.update(force_python_tcp=True, reactor=True)
+    return kw
+
+
+def row_layout(tree: dict, key: str) -> SimpleNamespace:
+    """decode_into's row layout of a flat {name: tensor} tree."""
+    off, offsets = 0, {}
+    for name, t in tree.items():
+        offsets[f"/{key}/{name}"] = (off, t.numel(), tuple(t.shape))
+        off += t.numel()
+    return SimpleNamespace(key=key, p=off, offsets=offsets)
+
+
+def codec_full_width() -> dict:
+    """The codec on ResNet-18-GN's variables, taken from the card in f32 and
+    bf16: v1 bitwise, the bf16 transport equal to the card's .to(bf16), int8
+    within its affine half-step, sparse_topk keeping exactly its k largest
+    entries, encode_parts joining to encode; bytes and MB/s of encode (card
+    to frame, the copy to the host included) and decode."""
+    trainer = ClientTrainer(create_model("resnet18_gn", 10), lr=0.1)
+    f32 = trainer.init(torch.Generator().manual_seed(5), "cuda")
+    trees = {"f32": f32, "bf16": {k: v.to(torch.bfloat16)
+                                  for k, v in f32.items()}}
+    host = {k: {n: v.cpu() for n, v in t.items()} for k, t in trees.items()}
+    rec = {}
+
+    def frame(tree, kind=None):
+        m = Message(3, 1, 0)
+        m.add_params("model_params", tree)
+        if kind:
+            m.set_wire_transport("model_params", kind)
+        return m
+
+    def timed(fn, reps=3):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        return out, (time.perf_counter() - t0) / reps
+
+    for dtype, tree in trees.items():
+        payload, enc_s = timed(lambda: MessageCodec.encode(frame(tree)))
+        msg, dec_s = timed(lambda: MessageCodec.decode(payload))
+        got = msg.get("model_params")
+        bad = [k for k in tree if got[k].dtype != tree[k].dtype
+               or not torch.equal(got[k], host[dtype][k])]
+        if bad:
+            raise AssertionError(f"codec v1 {dtype}: {len(bad)} leaves not "
+                                 f"bitwise ({bad[:3]})")
+        total, parts = MessageCodec.encode_parts(frame(tree))
+        if b"".join(parts) != payload or total != len(payload):
+            raise AssertionError(f"codec {dtype}: encode_parts != encode")
+        row = torch.empty(sum(t.numel() for t in tree.values()))
+        layout = row_layout(tree, "model_params")
+        _, into_s = timed(lambda: MessageCodec.decode_into(payload, row,
+                                                           layout))
+        if not torch.equal(row, torch.cat([host[dtype][k].reshape(-1).float()
+                                           for k in tree])):
+            raise AssertionError(f"codec {dtype}: decode_into != decode")
+        mb = len(payload) / 1e6
+        rec[f"v1_{dtype}"] = dict(bytes=len(payload), encode_s=enc_s,
+                                  decode_s=dec_s, decode_into_s=into_s,
+                                  encode_mb_s=mb / enc_s,
+                                  decode_mb_s=mb / dec_s,
+                                  decode_into_mb_s=mb / into_s)
+    payload, enc_s = timed(lambda: MessageCodec.encode(frame(f32, "bf16")))
+    got, dec_s = timed(lambda: MessageCodec.decode(payload).get(
+        "model_params"))
+    bad = [k for k in f32 if not torch.equal(
+        got[k], f32[k].to(torch.bfloat16).float().cpu())]
+    if bad:
+        raise AssertionError(f"bf16 transport != the card's .to(bfloat16) on "
+                             f"{len(bad)} leaves ({bad[:3]})")
+    rec["bf16_transport"] = dict(bytes=len(payload), encode_s=enc_s,
+                                 decode_s=dec_s,
+                                 encode_mb_s=len(payload) / 1e6 / enc_s)
+    payload, enc_s = timed(lambda: MessageCodec.encode(frame(f32, "int8")))
+    got = MessageCodec.decode(payload).get("model_params")
+    worst = 0.0
+    for k, v in host["f32"].items():
+        x = v.double()
+        step = max((float(x.max()) - float(x.min())) / 255.0, 0.0) or 1.0
+        err = float((got[k].double() - x).abs().max())
+        limit = 0.5 * step * (1 + 1e-6) + 2.0 ** -23 * float(x.abs().max())
+        if err > limit:
+            raise AssertionError(f"int8 transport {k}: max error {err:.3e} "
+                                 f"beyond half a step {0.5 * step:.3e}")
+        worst = max(worst, err / step)
+    rec["int8_transport"] = dict(bytes=len(payload), encode_s=enc_s,
+                                 worst_err_in_steps=worst)
+    payload, enc_s = timed(lambda: MessageCodec.encode(frame(f32,
+                                                             "sparse_topk")))
+    layout = row_layout(f32, "model_params")
+    _, idx, vals = MessageCodec.decode_sparse(payload, layout)
+    flat = torch.cat([host["f32"][k].reshape(-1) for k in f32])
+    want_k, off = 0, 0
+    for k, v in host["f32"].items():
+        n = v.numel()
+        kk = max(1, n // 16)
+        if kk >= n:
+            raise AssertionError(f"sparse_topk: leaf {k} of {n} rides exact")
+        sel = idx[(idx >= off) & (idx < off + n)] - off
+        mag = v.reshape(-1).abs()
+        kept = torch.zeros(n, dtype=torch.bool)
+        kept[sel] = True
+        if sel.numel() != kk or (kept.any() and (~kept).any() and float(
+                mag[kept].min()) < float(mag[~kept].max())):
+            raise AssertionError(f"sparse_topk {k}: kept {sel.numel()} of "
+                                 f"k={kk}, or not the largest")
+        want_k, off = want_k + kk, off + n
+    if idx.numel() != want_k or not torch.equal(vals, flat[idx]):
+        raise AssertionError("sparse_topk: the kept values are not the model's")
+    rec["sparse_topk"] = dict(bytes=len(payload), encode_s=enc_s, k=want_k)
+    line = card_line()
+    print(f"[codec] ResNet-18-GN ({N_PARAMS} params), encode from the card "
+          f"and decode on the host ({line}):")
+    for key, r in rec.items():
+        print(f"[codec]   {key}: {r['bytes']} B"
+              + (f", encode {r['encode_mb_s']:.1f} MB/s" if "encode_mb_s" in r
+                 else f", encode {r['encode_s'] * 1e3:.1f} ms")
+              + (f", decode {r['decode_mb_s']:.1f} MB/s, decode_into "
+                 f"{r['decode_into_mb_s']:.1f} MB/s" if "decode_mb_s" in r
+                 else ""))
+    print(f"[codec] v1 bitwise (f32, bf16), decode_into == decode, bf16 "
+          f"transport == .to(bfloat16) on the card, int8 within "
+          f"{worst:.4f} of a step (limit 0.5), sparse_topk kept exactly "
+          f"{want_k} entries, each leaf's largest ({line})")
+    return rec
+
+
+def span_seconds(names) -> dict:
+    """Summed host seconds of each named span in the tracer (all threads)."""
+    out = {n: 0.0 for n in names}
+    for e in obs.tracer().events():
+        if e.get("ph") == "X" and e["name"] in out:
+            out[e["name"]] += e["dur"] / 1e6
+    return out
+
+
+def messaging_run(trainer, data, cfg, backend: str, v0: dict, **kw) -> dict:
+    """One run_messaging_fedavg on the card under tracing: the final
+    variables, the launches it made (counted from zero), wire bytes, its
+    rounds' walls and span seconds, and each round's global model."""
+    sent = lambda: sum(obs.registry().counter(
+        "comm_sent_bytes_total", backend=b).value
+        for b in ("inproc", "tcp", "native_tcp"))
+    marks, models = [], []
+
+    def on_round(idx, variables):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        models.append({k: v.clone() for k, v in variables.items()})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        obs.configure(tmp, install_signal=False, export_at_exit=False)
+        try:
+            b0 = sent()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = run_messaging_fedavg(trainer, data, cfg, backend=backend,
+                                       variables=v0, on_round_done=on_round,
+                                       timeout=600, **kw,
+                                       **backend_kw(backend,
+                                                    cfg.client_num_per_round
+                                                    + 1))
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            wall = time.perf_counter() - t0
+            spans = span_seconds(MSG_SPANS)
+            wire = sent() - b0
+        finally:
+            obs.reset()
+    rounds = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+    return dict(variables=out, launches=counts, wire_bytes=wire,
+                round_s=rounds, wall_s=wall, spans=spans, models=models)
+
+
+def messaging_path() -> dict:
+    """run_messaging_fedavg on the main path's recipe (ResNet-18-GN at full
+    width, 8 clients of 13 batches of 32, one epoch of SGD at lr 0.1, bf16
+    compute and local masters), MSG_ROUNDS rounds over each backend, each
+    client a FedAvgClientManager thread: launches exact, s/round beside
+    FedAvgEngine on the same clients, wire bytes, the spans' shares; then one
+    round with the bf16 downlink against the exact first round."""
+    data = synthetic_data(MAIN_CLIENTS, SAMPLES, seed=0)
+    cfg = FedConfig(model="resnet18_gn", dataset="cifar10",
+                    client_num_in_total=MAIN_CLIENTS,
+                    client_num_per_round=MAIN_CLIENTS, epochs=1,
+                    batch_size=BATCH, lr=0.1, comm_round=MSG_ROUNDS,
+                    frequency_of_the_test=10_000)
+    trainer = ClientTrainer(create_model("resnet18_gn", 10), lr=cfg.lr,
+                            train_dtype=torch.bfloat16)
+    v0 = trainer.init(torch.Generator().manual_seed(cfg.seed), "cuda")
+    steps = MSG_ROUNDS * MAIN_CLIENTS * BATCHES
+    expected = {"gn_forward": 20 * steps, "gn_backward": 20 * steps,
+                "wsum": MSG_ROUNDS, "sqnorm": 0, "clip_agg": 0}
+    engine = FedAvgEngine(trainer, data, cfg)
+    engine_s, v, state = [], dict(v0), engine.server_init(v0)
+    for r in range(MSG_ROUNDS):
+        t0 = time.perf_counter()
+        v, state, m = engine.round_fn(v, state, *engine._round_args(r))
+        float(m["train_loss"])
+        engine_s.append(time.perf_counter() - t0)
+    line = card_line()
+    runs = {}
+    for backend in MSG_BACKENDS:
+        run = messaging_run(trainer, data, cfg, backend, dict(v0),
+                            local_dtype=torch.bfloat16)
+        if run["launches"] != expected:
+            raise AssertionError(f"messaging {backend}: launches "
+                                 f"{run['launches']} != expected {expected}")
+        bad = [k for k, t in run["variables"].items()
+               if not torch.isfinite(t).all() or t.dtype != torch.float32]
+        same = [k for k in v0 if torch.equal(run["variables"][k], v0[k])]
+        if bad or len(same) == len(v0):
+            raise AssertionError(f"messaging {backend}: {len(bad)} leaves not "
+                                 f"finite f32, {len(same)} unchanged")
+        share = {n: s / run["wall_s"] for n, s in run["spans"].items()}
+        runs[backend] = run
+        print(f"[messaging] {backend}: s/round {run['round_s']} (FedAvgEngine "
+              f"on the same clients {engine_s}); wire "
+              f"{run['wire_bytes'] / MSG_ROUNDS:.0f} B a round; span seconds "
+              "over the run's wall: " + ", ".join(
+                  f"{n} {s:.3f}" for n, s in share.items())
+              + f" (the client spans overlap: {MAIN_CLIENTS} threads); launches "
+              f"{run['launches']} == expected ({line})")
+    # the bf16 downlink: one round from the same init; the clients' bf16
+    # masters round the f32 downlink to the same values
+    frames = {}
+
+    class Capture(InProcRouter):
+        def route(self, msg):
+            n = super().route(msg)
+            if msg.get_type() == MyMessage.MSG_TYPE_S2C_INIT_CONFIG:
+                frames.setdefault(msg.wire_transport.get(
+                    MyMessage.MSG_ARG_KEY_MODEL_PARAMS, "exact"), []).append(n)
+            return n
+
+    one = dataclasses.replace(cfg, comm_round=1)
+    results = {}
+    for transport in (None, "bf16"):
+        results[transport] = run_messaging_fedavg(
+            trainer, data, one, variables=dict(v0), router=Capture(),
+            model_transport=transport, local_dtype=torch.bfloat16,
+            timeout=600)
+    whole, worst = update_distance("bf16 downlink", v0, results["bf16"],
+                                   {k: t.cpu() for k, t in v0.items()},
+                                   {k: t.cpu() for k, t in
+                                    results[None].items()})
+    bitwise = all(torch.equal(results["bf16"][k], results[None][k])
+                  for k in v0)
+    down = {k: sum(v) / len(v) for k, v in frames.items()}
+    ratio = down["bf16"] / down["exact"]
+    print(f"[messaging] bf16 downlink: {down['bf16']:.0f} B a client against "
+          f"{down['exact']:.0f} ({ratio:.4f}); the round's update "
+          f"{whole:.3e} of its norm from the exact round's (limit 1e-3), "
+          f"worst leaves " + ", ".join(f"{k} {v:.3e}" for k, v in worst)
+          + f" (limit 1e-2); bitwise {bitwise} ({line})")
+    if whole > 1e-3 or worst[0][1] > 1e-2 or not 0.49 < ratio < 0.51:
+        raise AssertionError("bf16 downlink: bytes not halved, or the round "
+                             "beyond phase 4's limits of the exact round")
+    return dict(engine_s=engine_s, expected=expected, fold=messaging_fold(),
+                runs={b: {k: v for k, v in r.items()
+                          if k not in ("variables", "models")}
+                      for b, r in runs.items()},
+                bf16_downlink=dict(bytes=down, ratio=ratio, distance=whole,
+                                   worst=worst, bitwise=bitwise))
+
+
+def messaging_fold() -> dict:
+    """The messaging server's fold: the finalize form over the [8, P] bf16
+    upload rows into a new f32 model, against its plain version (within
+    1e-6 of sum_k |w_k v_k| / sum(w)), timed beside its byte bound and
+    the library's matrix-vector product."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    V = torch.randn(MAIN_CLIENTS, P_PADDED, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    w = torch.full((MAIN_CLIENTS,), float(SAMPLES), device="cuda")
+    got, want = weighted_mean_flat(V, w), weighted_mean_flat_plain(V, w)
+    scale = (w[:, None] * V.float()).abs().sum(0) / w.sum()
+    err = float((got - want).abs().max())
+    if not bool(((got - want).abs() <= 1e-6 * scale + 1e-12).all()):
+        raise AssertionError(f"messaging fold: max abs err {err:.3e}")
+    rec = dict(shape=[MAIN_CLIENTS, P_PADDED], dtype="bfloat16",
+               max_abs_err=err,
+               ms=cuda_ms(lambda: weighted_mean_flat(V, w)),
+               plain_ms=cuda_ms(lambda: weighted_mean_flat_plain(V, w)),
+               library_ms=cuda_ms(lambda: (w @ V.float()) / w.sum()),
+               bound=bound_ms(MAIN_CLIENTS * P_PADDED * 2 + P_PADDED * 4
+                              + MAIN_CLIENTS * 4, 2 * MAIN_CLIENTS * P_PADDED))
+    print(f"[kernel] wsum finalize [{MAIN_CLIENTS}, {P_PADDED}] bf16 -> f32 "
+          f"(the messaging server's fold): max abs err {err:.3e}; "
+          f"{rec['ms'] * 1e3:.2f} us, plain {rec['plain_ms'] * 1e3:.2f} us, "
+          f"library ((w @ V.float()) / w.sum()) {rec['library_ms'] * 1e3:.2f} "
+          f"us, bound {rec['bound'][0] * 1e3:.2f} us ({rec['bound'][1]}) "
+          f"({card_line()})")
+    return rec
+
+
+def messaging_f32_is_fedavg() -> dict:
+    """One f32 round over TCP against one FedAvgEngine round on the card,
+    from the same init, TF32 off and cuDNN's deterministic algorithms: the
+    updates within 1e-6 of the update's norm."""
+    data = synthetic_data(MSG_F32_CLIENTS, MSG_F32_BATCHES * BATCH, seed=4)
+    cfg = FedConfig(model="resnet18_gn", dataset="cifar10",
+                    client_num_in_total=MSG_F32_CLIENTS,
+                    client_num_per_round=MSG_F32_CLIENTS, epochs=1,
+                    batch_size=BATCH, lr=0.1, comm_round=1,
+                    frequency_of_the_test=10_000)
+    trainer = ClientTrainer(create_model("resnet18_gn", 10), lr=cfg.lr)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        engine = FedAvgEngine(trainer, data, cfg)
+        v0 = engine.init_variables()
+        v_engine = engine.run(variables=dict(v0), rounds=1)
+        v_msg = run_messaging_fedavg(trainer, data, cfg, backend="TCP",
+                                     variables=dict(v0), timeout=600,
+                                     **backend_kw("TCP", MSG_F32_CLIENTS + 1))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    whole, worst = update_distance(
+        "f32 messaging", v0, v_msg, {k: t.cpu() for k, t in v0.items()},
+        {k: t.cpu() for k, t in v_engine.items()})
+    bitwise = all(torch.equal(v_msg[k], v_engine[k]) for k in v0)
+    print(f"[messaging] f32 round over TCP vs FedAvgEngine ({MSG_F32_CLIENTS} "
+          f"clients x {MSG_F32_BATCHES} batches, full width, TF32 off): update "
+          f"distance {whole:.3e} of its norm (limit 1e-6); bitwise {bitwise} "
+          f"({card_line()})")
+    if whole > 1e-6:
+        raise AssertionError("f32 messaging round is not the FedAvgEngine "
+                             "round within 1e-6")
+    return dict(distance=whole, bitwise=bitwise)
+
+
+def split_shards(seed: int) -> dict:
+    rs = np.random.RandomState(seed)
+    return {"x": rs.rand(SPLIT_BATCHES, BATCH, 28, 28, 1).astype(np.float32),
+            "y": rs.randint(0, 10, (SPLIT_BATCHES, BATCH)).astype(np.int64),
+            "mask": np.ones((SPLIT_BATCHES, BATCH), np.float32)}
+
+
+def split_run(device, backend: str, init: tuple) -> dict:
+    """Remote SplitNN (split_cnn, SPLIT_CLIENTS clients, one epoch) on
+    `device` over `backend`: the server's and every client's final
+    params, and the validation history."""
+    lower, upper = split_cnn()
+    ccomp = SplitClientCompute(lower, lr=0.1, device=device)
+    scomp = SplitServerCompute(upper, lr=0.1, device=device)
+    kw = (dict(router=InProcRouter()) if backend == "INPROC"
+          else backend_kw(backend, SPLIT_CLIENTS + 1))
+    sp, sopt = scomp.init(params=init[1])
+    server = SplitNNServerManager(scomp, sp, sopt, max_rank=SPLIT_CLIENTS,
+                                  backend=backend, **kw)
+    clients = []
+    for r in range(1, SPLIT_CLIENTS + 1):
+        cp, copt = ccomp.init(params=init[0])
+        clients.append(SplitNNClientManager(
+            ccomp, cp, copt, split_shards(r), split_shards(100 + r), rank=r,
+            max_rank=SPLIT_CLIENTS, epochs=1, backend=backend, **kw))
+    try:
+        for m in [server] + clients:
+            m.run_async()
+        clients[0].start_protocol()
+        if not server.done.wait(timeout=300):
+            raise AssertionError(f"split {device} {backend}: protocol hung")
+    finally:
+        for m in clients + [server]:
+            m.finish()
+    return dict(server=server.params, clients=[c.params for c in clients],
+                history=server.val_history)
+
+
+def split_card_cpu() -> dict:
+    """Remote SplitNN on the card over INPROC and TCP against the same
+    protocol on the CPU, f32 (TF32 off), within phase 4's limits."""
+    lower, upper = split_cnn()
+    g = torch.Generator().manual_seed(6)
+    init = (FlatModel(lower).init(g, "cpu"), FlatModel(upper).init(g, "cpu"))
+    cpu = split_run("cpu", "INPROC", init)
+    out = {}
+    for backend in ("INPROC", "TCP"):
+        card = split_run("cuda", backend, init)
+        dists = {}
+        for name, (g1, c1, g0) in {
+                "server": (card["server"], cpu["server"], init[1]),
+                **{f"client{i + 1}": (card["clients"][i], cpu["clients"][i],
+                                      init[0])
+                   for i in range(SPLIT_CLIENTS)}}.items():
+            dists[name] = update_distance(f"split {backend} {name}", g0, g1,
+                                          g0, c1)
+        whole = max(d[0] for d in dists.values())
+        leaf = max(d[1][0][1] for d in dists.values())
+        print(f"[split] split_cnn over {backend} on the card vs the CPU: "
+              f"updates {whole:.3e} of their norms (limit 1e-3), worst leaf "
+              f"{leaf:.3e} (limit 1e-2); val_acc card "
+              f"{[h['val_acc'] for h in card['history']]} CPU "
+              f"{[h['val_acc'] for h in cpu['history']]} ({card_line()})")
+        if whole > 1e-3 or leaf > 1e-2:
+            raise AssertionError(f"remote SplitNN over {backend}: the card "
+                                 "beyond phase 4's limits of the CPU")
+        out[backend] = dict(distance=whole, worst_leaf=leaf)
+    return out
+
+
+def phase_slice5b_i() -> dict:
+    """Phase 16: the codec at full width, the messaging path over three
+    backends, the f32 messaging round against FedAvgEngine, the bf16
+    downlink, and remote SplitNN card against CPU; each part's seconds."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    rec, seconds = {}, {}
+    try:
+        for key, part in (("codec", codec_full_width),
+                          ("messaging_path", messaging_path),
+                          ("f32_round", lambda: (f32_off(),
+                                                 messaging_f32_is_fedavg())[1]),
+                          ("split", split_card_cpu)):
+            t0 = time.perf_counter()
+            rec[key] = part()
+            seconds[key] = time.perf_counter() - t0
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    rec["seconds"] = seconds
+    print(f"[slice 5b-i] phase 16 took {sum(seconds.values()):.1f} s: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+          + f" ({card_line()})")
+    return rec
+
+
 def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
                 counts: dict, robust_counts: dict, resnet56: dict,
-                paths: dict, gn_slice7a: list, gn_slice7a_ii: list) -> dict:
+                paths: dict, gn_slice7a: list, gn_slice7a_ii: list,
+                messaging_fold_rec: dict) -> dict:
     """One entry per ported kernel.  GroupNorm's numbers are per training
     step: its 20 launches, five at each stage shape, summed, with bf16
     gamma/beta (ms_f32_gamma: with f32 gamma; layer_ms_per_step: the
@@ -2735,7 +3270,8 @@ def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
     for the two robust kernels; ``launches_by_path`` gives every path's
     count (each zeroed just before its path ran), and the GroupNorm
     entries carry phase 14's and phase 15's shapes (f32 device time and
-    bound a call)."""
+    bound a call), and the fold's entry its finalize form at the messaging
+    server's [8, P] bf16 rows."""
     entries = []
     for name, rec in (("gn_forward", gn_fwd), ("gn_backward", gn_bwd)):
         sh = rec["shapes"]
@@ -2770,6 +3306,8 @@ def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
         library_ms=fold_rec["library_ms"],
         unit=f"one chunk fold: [{MAIN_CHUNK}, P] bf16 into f32 acc",
         finalize=fold_rec["finalize"],
+        messaging_path={k: (v[0] if k == "bound" else v)
+                        for k, v in messaging_fold_rec.items()},
         resnet56_path={k: (v[0] if k == "bound" else v)
                        for k, v in resnet56["fold"].items()}))
     for name in ("sqnorm", "clip_agg"):
@@ -2805,34 +3343,50 @@ def main() -> int:
     print(card)
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    gn_fwd, gn_bwd = phase_gn(gen)
-    fold_rec = phase_fold(gen)
-    robust_rec = phase_robust_kernels(gen)
-    phase_f32_round()
-    counts = phase_main_path()
-    c1 = phase_robust_f32_round()
-    phase_orderstat()
-    robust_counts = phase_robust_main_path()
-    phase_side_engines()
-    zoo = phase_zoo()
-    resnet56 = phase_resnet56_path(gen)
-    word_lstm = phase_word_lstm()
-    data_path = phase_data_path()
-    slice7a = phase_slice7a(gen)
-    slice7a_ii = phase_slice7a_ii(gen)
+    seconds = {}
+
+    def clock(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    gn_fwd, gn_bwd = clock("3 gn", phase_gn, gen)
+    fold_rec = clock("3 fold", phase_fold, gen)
+    robust_rec = clock("3 robust", phase_robust_kernels, gen)
+    clock("4 f32 round", phase_f32_round)
+    counts = clock("5 main path", phase_main_path)
+    c1 = clock("6 robust f32 round", phase_robust_f32_round)
+    clock("7 order statistics", phase_orderstat)
+    robust_counts = clock("8 robust main path", phase_robust_main_path)
+    clock("9 side engines", phase_side_engines)
+    zoo = clock("10 zoo", phase_zoo)
+    resnet56 = clock("11 resnet56", phase_resnet56_path, gen)
+    word_lstm = clock("12 word lstm", phase_word_lstm)
+    data_path = clock("13 data path", phase_data_path)
+    slice7a = clock("14 slice 7a-i", phase_slice7a, gen)
+    slice7a_ii = clock("15 slice 7a-ii", phase_slice7a_ii, gen)
+    slice5b_i = clock("16 slice 5b-i", phase_slice5b_i)
     print(json.dumps({"zoo": zoo, "resnet56_path": {
         k: v for k, v in resnet56.items() if k != "fold"},
         "word_lstm": word_lstm, "c1": c1, "data_path": data_path,
-        "slice7a": slice7a, "slice7a_ii": slice7a_ii}, default=str))
+        "slice7a": slice7a, "slice7a_ii": slice7a_ii,
+        "slice5b_i": slice5b_i, "seconds": seconds}, default=str))
+    print("[timing] seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"; total {sum(seconds.values()):.1f} ({card})")
     paths = {"fedavg main path": counts, "robust main path": robust_counts,
              "data path": data_path["launches"],
              "fedgkt path": slice7a["fedgkt_path"]["launches"],
              "fedseg path": slice7a["fedseg_path"]["launches"],
-             "fednas": slice7a_ii["fednas_path"]["launches"]}
+             "fednas": slice7a_ii["fednas_path"]["launches"],
+             **{f"messaging {b.lower()}": r["launches"] for b, r in
+                slice5b_i["messaging_path"]["runs"].items()}}
     print(json.dumps(kernel_line(gn_fwd, gn_bwd, fold_rec, robust_rec, counts,
                                  robust_counts, resnet56, paths,
                                  slice7a["gn_shapes"],
-                                 slice7a_ii["gn_shapes"])))
+                                 slice7a_ii["gn_shapes"],
+                                 slice5b_i["messaging_path"]["fold"])))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,16 +27,20 @@ and reads no tensor: results are bitwise the same with observability on
 or off.  The spans time the host; a span around device work measures its
 enqueue unless the work ends in a synchronize.
 
-What the JAX package has and the port does not yet (slice 5b): the jax
-compile listener (``jit_compile_*``, with no counterpart in eager
-PyTorch), the per-program dispatch accounting (``programs.py``, which
-becomes CUDA-event timing of the round families), trace propagation
-across processes, the SLO engine and the cluster observatory.
+Trace propagation across processes (``propagate.py``) came with the
+wire core: the comm managers stamp and strip a trace block on every
+frame while tracing is on.  What the JAX package has and the port does
+not yet (slice 5b-ii): the jax compile listener (``jit_compile_*``, with
+no counterpart in eager PyTorch), the per-program dispatch accounting
+(``programs.py``, which becomes CUDA-event timing of the round
+families), the timeline analyzer, the SLO engine and the cluster
+observatory.
 """
 from __future__ import annotations
 
 import atexit
 import contextlib
+import json
 import os
 import signal
 import threading
@@ -153,6 +157,8 @@ def reset() -> None:
         old_tracer.close()
     if old_http is not None:
         old_http.close()
+    from fedml_tpu_torch.obs import propagate
+    propagate.reset_clocks()
 
 
 # -- tracing -----------------------------------------------------------------
@@ -313,6 +319,9 @@ def export() -> dict[str, str]:
                             by a __meta__ line (pid, epoch, drops)
         metrics.prom        Prometheus text exposition
         metrics.json        JSON metrics snapshot
+        clock_offsets.json  the comm managers' peer clock offsets
+                            (obs/propagate.py), when any traffic was
+                            trace-stamped
 
     Returns {artifact: path}; {} when disabled."""
     t, d = _tracer, _dir
@@ -331,6 +340,13 @@ def export() -> dict[str, str]:
     with open(mj, "w") as f:
         f.write(_registry.to_json())
     out["metrics_json"] = mj
+    from fedml_tpu_torch.obs import propagate
+    clocks = propagate.clock_exports()
+    if clocks:
+        cj = os.path.join(d, "clock_offsets.json")
+        with open(cj, "w") as f:
+            json.dump(clocks, f, indent=1)
+        out["clock_offsets"] = cj
     return out
 
 

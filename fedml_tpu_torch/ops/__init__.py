@@ -4,6 +4,7 @@ from fedml_tpu_torch.ops.aggregate import (clip_agg, clip_fold, fold,
                                            robust_weighted_mean, sqnorm,
                                            weighted_mean, weighted_mean_flat,
                                            wsum)
+from fedml_tpu_torch.ops.build import reset_counts
 from fedml_tpu_torch.ops.groupnorm import (GroupNorm, gn_backward, gn_forward,
                                            group_norm)
 
@@ -12,8 +13,7 @@ KERNEL_WRAPPERS = (gn_forward, gn_backward, wsum, sqnorm, clip_agg)
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS:
-        fn.launches = 0
+    reset_counts(KERNEL_WRAPPERS)
 
 
 def launch_counts() -> dict:

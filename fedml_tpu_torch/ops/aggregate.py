@@ -164,7 +164,7 @@ def wsum(out: torch.Tensor, V: torch.Tensor, w: torch.Tensor,
             out.data_ptr(), V.data_ptr(), w.data_ptr(), k, P, V.stride(0),
             int(finalize), _DTYPES[V.dtype], _vec(V, out), _stream())
     build.check(rc, "wsum")
-    wsum.launches += 1
+    build.count_launch(wsum)
 
 
 wsum.launches = 0
@@ -230,7 +230,7 @@ def sqnorm(V: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                               g.data_ptr(), k, P, V.stride(0), _DTYPES[V.dtype],
                               _vec(V, g), _stream())
     build.check(rc, "sqnorm")
-    sqnorm.launches += 1
+    build.count_launch(sqnorm)
     return out
 
 
@@ -264,7 +264,7 @@ def clip_agg(out: torch.Tensor, V: torch.Tensor, g: torch.Tensor,
             base_ptr, base_const, k, P, V.stride(0), int(accumulate),
             _DTYPES[V.dtype], _vec(V, g, out), _stream())
     build.check(rc, "clip_agg")
-    clip_agg.launches += 1
+    build.count_launch(clip_agg)
 
 
 clip_agg.launches = 0

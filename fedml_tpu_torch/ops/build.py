@@ -11,6 +11,11 @@ kernel) is kept beside the library as ``<name>.log``.
 
 Nothing here runs at import: the CPU tests import every module, and
 ``nvcc`` is only called when a wrapper launches a kernel on the card.
+
+Clients may train in threads on one card (the message-driven FedAvg of
+``comm/fedavg_messaging.py``): ``library()`` builds and loads under a
+lock, once, and ``count_launch`` adds to a wrapper's launch count under
+another, so that no increment is lost between threads.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -49,6 +55,8 @@ SIGNATURES = {
 }
 
 _lib: ctypes.CDLL | None = None
+_lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -112,18 +120,35 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call, by one thread: the
+    others wait for it)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.fedml_error_string.argtypes = [ctypes.c_int]
-        lib.fedml_error_string.restype = ctypes.c_char_p
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.fedml_error_string.argtypes = [ctypes.c_int]
+            lib.fedml_error_string.restype = ctypes.c_char_p
+            _lib = lib
     return _lib
+
+
+def count_launch(wrapper) -> None:
+    """One more launch of `wrapper`'s kernel (its ``launches``), safe
+    across threads."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
+def reset_counts(wrappers) -> None:
+    with _count_lock:
+        for fn in wrappers:
+            fn.launches = 0
 
 
 def check(rc: int, what: str) -> None:

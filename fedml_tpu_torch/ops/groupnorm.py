@@ -40,6 +40,7 @@ the kernel wrapper directly, as it always did.
 from __future__ import annotations
 
 import math
+import threading
 from typing import NamedTuple
 
 import torch
@@ -244,17 +245,32 @@ def _vector_width(x: torch.Tensor, num_groups: int, *tensors) -> int:
 
 
 _FINISH_COUNTERS: dict = {}
+_FINISH_STREAMS: dict = {}
+_FINISH_LOCK = threading.Lock()
 
 
 def _finish_counter(device: torch.device, num_groups: int) -> torch.Tensor:
     """The backward's arrival counters on `device`, one per (group, block
     rank of a cluster): allocated zeroed once (grown if a layer has more
-    groups); each launch leaves them at zero again."""
+    groups); each launch leaves them at zero again.  Launches share them
+    safely only because they run in order on one stream: clients that
+    train in threads on one card all launch on its default stream.  The
+    first backward on a device claims its current stream for the counters,
+    and a backward on another stream of that device raises (one such
+    launch could run beside another and corrupt the count)."""
     need = num_groups * MAX_CLUSTER
-    buf = _FINISH_COUNTERS.get(device)
-    if buf is None or buf.numel() < need:
-        buf = torch.zeros(max(need, 64), dtype=torch.int32, device=device)
-        _FINISH_COUNTERS[device] = buf
+    stream = torch.cuda.current_stream().cuda_stream
+    with _FINISH_LOCK:
+        owner = _FINISH_STREAMS.setdefault(device, stream)
+        if owner != stream:
+            raise RuntimeError(
+                f"group_norm backward on stream {stream:#x} of {device}, but "
+                f"its arrival counters serve stream {owner:#x}: launch every "
+                "GroupNorm backward of a device on one stream")
+        buf = _FINISH_COUNTERS.get(device)
+        if buf is None or buf.numel() < need:
+            buf = torch.zeros(max(need, 64), dtype=torch.int32, device=device)
+            _FINISH_COUNTERS[device] = buf
     return buf
 
 
@@ -283,7 +299,7 @@ def gn_forward(x, gamma, beta, num_groups: int, eps: float):
             _DTYPES[x.dtype], _DTYPES[g.dtype], *_plan_args(plan),
             torch.cuda.current_stream().cuda_stream)
     build.check(rc, "gn_fwd")
-    gn_forward.launches += 1
+    build.count_launch(gn_forward)
     return y, mean, rstd
 
 
@@ -319,7 +335,7 @@ def gn_backward(x, dy, gamma, mean, rstd, num_groups: int):
             num_groups, _DTYPES[x.dtype], _DTYPES[g.dtype], *_plan_args(plan),
             torch.cuda.current_stream().cuda_stream)
     build.check(rc, "gn_bwd")
-    gn_backward.launches += 1
+    build.count_launch(gn_backward)
     return dx, dgamma, dbeta
 
 
