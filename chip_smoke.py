@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's FedAvg, robust-aggregation, model-zoo,
 data-layer, one-card-algorithm, FedNAS and message-driven FedAvg paths on
-one CUDA card, and hold every hand-written kernel against its plain
-PyTorch version.
+one CUDA card (the last also under injected faults and over MQTT, with
+program timing and the observatory), and hold every hand-written kernel
+against its plain PyTorch version.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -10,7 +11,9 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
 
 1. the card: name and power limit, as nvidia-smi prints them;
 2. the build: the CUDA kernels under fedml_tpu_torch/csrc are compiled
-   for sm_90a into fedml_tpu_torch/_build (or the build is reused);
+   for sm_90a into fedml_tpu_torch/_build (or the build is reused), and
+   the native transport with g++; the build counters (kernel_build_total)
+   count exactly the libraries built;
 3. each kernel against its plain version at the main paths' shapes, with
    its time, the plain version's time, one library call's time as a
    yardstick, and its bound from the bytes it must move.  GroupNorm runs
@@ -110,11 +113,27 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    4's limits of the exact round); one f32 round over TCP against one
    FedAvgEngine round (within 1e-6 of the update's norm); remote SplitNN
    (split_cnn, 2 clients, one epoch of 4 batches) on the card over
-   INPROC and TCP against the same protocol on the CPU;
-17. one JSON line of the zoo's, C.1's, the data path's and slices 7a-i's,
-   7a-ii's and 5b-i's numbers, one listing every TPU kernel of the JAX
-   package with its port's numbers and its launches on every path, then
-   the last line {"ok": true, "device": {...}}.
+   INPROC and TCP, twice each with cuDNN's deterministic algorithms,
+   against the same protocol on the CPU (ROADMAP C.11);
+17. slice 5b-ii: one f32 round of message-driven FedAvg at full width
+   over TCP on threads, clean and then with every rank hardened
+   (reliability envelope, a seeded chaos policy dropping, duplicating,
+   reordering, delaying and corrupting frames): bitwise equal, the same
+   launches, every fault kind injected; each run traced, its critical
+   path finding the one round, the default SLO pack judging it; the
+   main path's MeshFedAvgEngine and FedAvgEngine on 2 clients, one round
+   each under the FLOP census, through the bare round function with
+   observability off and through the instrumented one with observability
+   on: bitwise equal, one dispatch a family, stream seconds from CUDA
+   events positive and within the host wall + 1 ms, no build after
+   phase 2;
+   FedML's edge leg, messaging FedAvg over MQTT through the in-repo
+   broker (LR on the mnist stand-in, 8 clients, 2 rounds, then one with
+   FMLZ), bitwise equal to INPROC, one fold a round;
+18. one JSON line of the zoo's, C.1's, the data path's and slices 7a-i's,
+   7a-ii's, 5b-i's and 5b-ii's numbers, one listing every TPU kernel of
+   the JAX package with its port's numbers and its launches on every
+   path, then the last line {"ok": true, "device": {...}}.
 
 It needs one card; it imports nothing of JAX or of fedml_tpu.
 """
@@ -131,6 +150,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -138,7 +158,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fedml_tpu_torch import obs
+from fedml_tpu_torch import native, obs
 from fedml_tpu_torch.algorithms import (DecentralizedGossipEngine,
                                         HierarchicalFedAvgEngine)
 from fedml_tpu_torch.algorithms.centralized import CentralizedTrainer
@@ -152,10 +172,15 @@ from fedml_tpu_torch.algorithms.fedseg import FedSegEngine
 from fedml_tpu_torch.algorithms.split_nn import SplitNNEngine
 from fedml_tpu_torch.algorithms.turboaggregate import TurboAggregateEngine
 from fedml_tpu_torch.algorithms.vertical_fl import VFLEngine
-from fedml_tpu_torch.comm.fedavg_messaging import (MyMessage,
+from fedml_tpu_torch.comm.chaos import ChaosConfig, ChaosPolicy
+from fedml_tpu_torch.comm.fedavg_messaging import (FedAvgAggregator,
+                                                   FedAvgClientManager,
+                                                   FedAvgServerManager,
+                                                   MyMessage,
                                                    run_messaging_fedavg)
 from fedml_tpu_torch.comm.inproc import InProcRouter
 from fedml_tpu_torch.comm.message import Message, MessageCodec
+from fedml_tpu_torch.comm.mqtt_wire import MiniMqttBroker
 from fedml_tpu_torch.comm.split_messaging import (SplitClientCompute,
                                                   SplitNNClientManager,
                                                   SplitNNServerManager,
@@ -180,6 +205,8 @@ from fedml_tpu_torch.models import create_model
 from fedml_tpu_torch.models.gan import Discriminator, Generator
 from fedml_tpu_torch.models.resnet_gkt import ResNetClientGKT, ResNetServerGKT
 from fedml_tpu_torch.models.split import split_cnn
+from fedml_tpu_torch.obs import programs, timeline
+from fedml_tpu_torch.obs.slo import SloEngine, default_slo_pack
 from fedml_tpu_torch.ops import build, launch_counts, reset_launch_counts
 from fedml_tpu_torch.ops.aggregate import (clip_agg, clip_agg_plain, fold,
                                            flatten_stacked_tree, fold_plain,
@@ -264,11 +291,24 @@ def card_line() -> str:
 
 
 def phase_build() -> None:
-    """Build (or reuse) the kernels, and read the compiler's -Xptxas -v
-    report: every kernel entry and which of them spill registers."""
+    """Build (or reuse) the kernels and the native transport, and read the
+    compiler's -Xptxas -v report: every kernel entry and which of them
+    spill registers.  The build counters (kernel_build_total) must count
+    exactly the libraries that were not built yet."""
     t0 = time.perf_counter()
+    fresh = (not (build.BUILD_DIR / f"libfedml_kernels_{build._sources()[1]}"
+                  ".so").exists()) + (not native.library_built())
     path = build.build()
     build.library()
+    if native.load_library() is None:
+        raise AssertionError("the native transport did not build")
+    BUILDS.update({n: obs.counter(n).value for n in (
+        "kernel_build_total", "kernel_build_seconds_total")},
+        unattributed=obs.counter("kernel_build_total",
+                                 family="unattributed").value)
+    if BUILDS["kernel_build_total"] != fresh or BUILDS["unattributed"] != fresh:
+        raise AssertionError(f"build counters {BUILDS} != {fresh} libraries "
+                             "built")
     log = path.with_suffix(".log").read_text()
     entries = log.count("Compiling entry function")
     spills, name = [], None
@@ -279,7 +319,10 @@ def phase_build() -> None:
         if found and (int(found.group(1)) or int(found.group(2))):
             spills.append(f"{name}: {found.group(0)}")
     print(f"[build] {path.relative_to(build.PACKAGE_DIR.parent)} ready in "
-          f"{time.perf_counter() - t0:.1f} s (sm_90a, nvcc); ptxas: {entries} "
+          f"{time.perf_counter() - t0:.1f} s (sm_90a, nvcc), the native "
+          f"transport too; {fresh} built here (kernel_build_total "
+          f"{BUILDS['kernel_build_total']:.0f}, "
+          f"{BUILDS['kernel_build_seconds_total']:.1f} s); ptxas: {entries} "
           f"kernel entries, {len(spills)} with register spills"
           + "".join(f"\n[build]   {s}" for s in spills))
 
@@ -3170,10 +3213,18 @@ def split_shards(seed: int) -> dict:
 def split_run(device, backend: str, init: tuple) -> dict:
     """Remote SplitNN (split_cnn, SPLIT_CLIENTS clients, one epoch) on
     `device` over `backend`: the server's and every client's final
-    params, and the validation history."""
+    params, the validation history, and the order in which the server
+    trained the batches (a CRC of each train batch's labels)."""
     lower, upper = split_cnn()
     ccomp = SplitClientCompute(lower, lr=0.1, device=device)
     scomp = SplitServerCompute(upper, lr=0.1, device=device)
+    order, train_step = [], scomp.train_step
+
+    def traced_step(params, opt_state, acts, y, mask):
+        order.append(zlib.crc32(torch.as_tensor(y).cpu().numpy().tobytes()))
+        return train_step(params, opt_state, acts, y, mask)
+
+    scomp.train_step = traced_step
     kw = (dict(router=InProcRouter()) if backend == "INPROC"
           else backend_kw(backend, SPLIT_CLIENTS + 1))
     sp, sopt = scomp.init(params=init[1])
@@ -3195,38 +3246,61 @@ def split_run(device, backend: str, init: tuple) -> dict:
         for m in clients + [server]:
             m.finish()
     return dict(server=server.params, clients=[c.params for c in clients],
-                history=server.val_history)
+                history=server.val_history, order=order)
 
 
 def split_card_cpu() -> dict:
-    """Remote SplitNN on the card over INPROC and TCP against the same
-    protocol on the CPU, f32 (TF32 off), within phase 4's limits."""
+    """Remote SplitNN on the card over INPROC and TCP, twice each, against
+    the same protocol on the CPU, f32 (TF32 off) with cuDNN's
+    deterministic algorithms: each run within phase 4's limits of the CPU,
+    a backend's two runs bitwise equal, and the server training the
+    batches in the CPU's order.  (Without the deterministic algorithms a
+    run read up to 2.1e-4 of a client's update from the CPU: cuDNN's
+    nondeterministic weight gradient, grown by SGD momentum; ROADMAP
+    C.11.)"""
     lower, upper = split_cnn()
     g = torch.Generator().manual_seed(6)
     init = (FlatModel(lower).init(g, "cpu"), FlatModel(upper).init(g, "cpu"))
     cpu = split_run("cpu", "INPROC", init)
     out = {}
-    for backend in ("INPROC", "TCP"):
-        card = split_run("cuda", backend, init)
-        dists = {}
-        for name, (g1, c1, g0) in {
-                "server": (card["server"], cpu["server"], init[1]),
-                **{f"client{i + 1}": (card["clients"][i], cpu["clients"][i],
-                                      init[0])
-                   for i in range(SPLIT_CLIENTS)}}.items():
-            dists[name] = update_distance(f"split {backend} {name}", g0, g1,
-                                          g0, c1)
-        whole = max(d[0] for d in dists.values())
-        leaf = max(d[1][0][1] for d in dists.values())
-        print(f"[split] split_cnn over {backend} on the card vs the CPU: "
-              f"updates {whole:.3e} of their norms (limit 1e-3), worst leaf "
-              f"{leaf:.3e} (limit 1e-2); val_acc card "
-              f"{[h['val_acc'] for h in card['history']]} CPU "
-              f"{[h['val_acc'] for h in cpu['history']]} ({card_line()})")
-        if whole > 1e-3 or leaf > 1e-2:
-            raise AssertionError(f"remote SplitNN over {backend}: the card "
-                                 "beyond phase 4's limits of the CPU")
-        out[backend] = dict(distance=whole, worst_leaf=leaf)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for backend in ("INPROC", "TCP"):
+            cards = [split_run("cuda", backend, init) for _ in range(2)]
+            dists = {}
+            for name, (g1, c1, g0) in {
+                    "server": (cards[0]["server"], cpu["server"], init[1]),
+                    **{f"client{i + 1}": (cards[0]["clients"][i],
+                                          cpu["clients"][i], init[0])
+                       for i in range(SPLIT_CLIENTS)}}.items():
+                dists[name] = update_distance(f"split {backend} {name}", g0,
+                                              g1, g0, c1)
+            whole = max(d[0] for d in dists.values())
+            leaf = max(d[1][0][1] for d in dists.values())
+            again = [(part, k) for part in ("server", "clients")
+                     for a, b in ([(cards[0][part], cards[1][part])]
+                                  if part == "server" else
+                                  zip(cards[0][part], cards[1][part]))
+                     for k in a if not torch.equal(a[k], b[k])]
+            same_order = cards[0]["order"] == cards[1]["order"] == cpu["order"]
+            print(f"[split] split_cnn over {backend} on the card vs the CPU, "
+                  f"cuDNN deterministic: updates {whole:.3e} of their norms "
+                  f"(limit 1e-3), worst leaf {leaf:.3e} (limit 1e-2); the "
+                  f"second run bitwise the first: {not again}; the server's "
+                  f"batch order the CPU's: {same_order}; val_acc card "
+                  f"{[h['val_acc'] for h in cards[0]['history']]} CPU "
+                  f"{[h['val_acc'] for h in cpu['history']]} ({card_line()})")
+            if whole > 1e-3 or leaf > 1e-2 or again or not same_order:
+                raise AssertionError(
+                    f"remote SplitNN over {backend}: the card beyond phase "
+                    f"4's limits of the CPU, {len(again)} leaves differ "
+                    f"between two runs ({again[:3]}), or the batch order "
+                    "differs")
+            out[backend] = dict(distance=whole, worst_leaf=leaf,
+                                repeat_bitwise=not again)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     return out
 
 
@@ -3251,6 +3325,334 @@ def phase_slice5b_i() -> dict:
          torch.backends.cuda.matmul.allow_tf32) = tf32
     rec["seconds"] = seconds
     print(f"[slice 5b-i] phase 16 took {sum(seconds.values()):.1f} s: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+          + f" ({card_line()})")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# slice 5b-ii: chaos and reliability, MQTT, program timing, the observatory
+# ---------------------------------------------------------------------------
+
+# Every rank gets its own policy with this seed, as every process of a
+# deployment reads one --chaos_seed.  On the chaos round's topology (4
+# clients over Python TCP on threads) the server's receive streams 0-3 are
+# the readers of its downlinks' acks and 4-7 the clients' uploads, and a
+# client's stream 0 is its downlink: the first draws of streams 0-7 of
+# this seed are drop, -, -, -, reorder, corrupt, dup, delay, so every kind
+# fires once the round has run (drawn with numpy, the policy's generator).
+CHAOS_SEED = 2210
+CHAOS_RATES = dict(drop=0.05, dup=0.05, reorder=0.05, delay=0.05,
+                   corrupt=0.02)
+CHAOS_KINDS = tuple(CHAOS_RATES)
+RELIABILITY_COUNTERS = ("comm_reliable_retries_total",
+                        "comm_reliable_dups_suppressed_total",
+                        "comm_frames_quarantined_total",
+                        "comm_reliable_nacks_total",
+                        "comm_reliable_abandoned_total")
+MQTT_CLIENTS, MQTT_ROUNDS = 8, 2
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
+BUILDS = {}                    # phase 2's build counters (obs resets later)
+
+
+def hardened_round(trainer, data, cfg, v0: dict, chaos: bool) -> dict:
+    """One round of message-driven FedAvg over Python TCP on threads, the
+    server, aggregator and clients built as run_messaging_fedavg builds
+    them; with `chaos`, every rank hardened as a deployment's CLI does
+    under --reliable --chaos_*: enable_reliability() and a ChaosPolicy of
+    its own.  Traced and judged: returns the final variables, the launches
+    the round made (counted from zero), its wall, the policies' summaries,
+    the reliability counters, the critical path over the trace and the
+    default SLO pack's report."""
+    size = cfg.client_num_per_round + 1
+    kw = dict(backend_kw("TCP", size), reactor=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        obs.configure(tmp, install_signal=False, export_at_exit=False)
+        try:
+            judge = SloEngine(default_slo_pack())
+            judge.prime()
+            agg = FedAvgAggregator(v0, size - 1, cfg.client_num_in_total,
+                                   size - 1)
+            managers = [FedAvgServerManager(agg, cfg.comm_round, 0, size,
+                                            "TCP", **kw)]
+            managers += [FedAvgClientManager(trainer, data, cfg.epochs, r,
+                                             size, "TCP", seed=cfg.seed, **kw)
+                         for r in range(1, size)]
+            policies = []
+            if chaos:
+                for m in managers:
+                    if not m.com_manager.enable_reliability():
+                        raise AssertionError("reliability refused on TCP")
+                    policies.append(ChaosPolicy(ChaosConfig(
+                        seed=CHAOS_SEED, **CHAOS_RATES)))
+                    m.com_manager.install_chaos(policies[-1])
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                for m in managers[1:] + managers[:1]:
+                    m.run_async()
+                managers[0].send_init_msg()
+                if not managers[0].done.wait(timeout=600):
+                    raise AssertionError(f"hardened round (chaos {chaos}) "
+                                         "did not finish in 600 s")
+            finally:
+                for m in managers[1:] + managers[:1]:
+                    m.finish()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            path = timeline.critical_path(obs.tracer().events())
+            verdict = judge.evaluate()
+            counters = {n: obs.counter(n).value for n in RELIABILITY_COUNTERS}
+        finally:
+            obs.reset()
+    injected = {}
+    for p in policies:
+        for k, v in p.summary().items():
+            injected[k] = injected.get(k, 0) + v
+    return dict(variables=agg.variables, launches=counts, wall_s=wall,
+                injected=injected, counters=counters, critical_path=path,
+                slo=verdict, seen=[m.rounds_seen for m in managers[1:]])
+
+
+def chaos_round() -> dict:
+    """17a and 17b: FedML's cross-silo deployment under faults at full
+    width (ResNet-18-GN, f32, TF32 off, cuDNN deterministic) on phase 16's
+    f32 clients, one round clean and one hardened under chaos from the
+    same init: bitwise equal, the same launches (no client trained twice
+    on a duplicate), every fault kind injected; the critical path of each
+    trace finds the one round; the default SLO pack judges each."""
+    data = synthetic_data(MSG_F32_CLIENTS, MSG_F32_BATCHES * BATCH, seed=4)
+    cfg = FedConfig(model="resnet18_gn", dataset="cifar10",
+                    client_num_in_total=MSG_F32_CLIENTS,
+                    client_num_per_round=MSG_F32_CLIENTS, epochs=1,
+                    batch_size=BATCH, lr=0.1, comm_round=1,
+                    frequency_of_the_test=10_000)
+    trainer = ClientTrainer(create_model("resnet18_gn", 10), lr=cfg.lr)
+    v0 = trainer.init(torch.Generator().manual_seed(cfg.seed), "cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {name: hardened_round(trainer, data, cfg, dict(v0), chaos)
+                for name, chaos in (("clean", False), ("chaos", True))}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    clean, chaos = runs["clean"], runs["chaos"]
+    line = card_line()
+    steps = MSG_F32_CLIENTS * MSG_F32_BATCHES
+    expected = {"gn_forward": 20 * steps, "gn_backward": 20 * steps,
+                "wsum": 1, "sqnorm": 0, "clip_agg": 0}
+    differ = [k for k in v0 if not torch.equal(chaos["variables"][k],
+                                               clean["variables"][k])]
+    for name, run in runs.items():
+        cp = run["critical_path"]
+        print(f"[chaos] {name}: {run['wall_s']:.3f} s for the round; "
+              f"launches {run['launches']}; critical path "
+              f"{cp['n_rounds']} round(s), stage shares "
+              f"{cp.get('stage_share')}; default SLO pack: healthy "
+              f"{run['slo']['healthy']}, breached {run['slo']['breached']} "
+              f"({line})")
+        if run["launches"] != expected or run["seen"] != [1] * MSG_F32_CLIENTS:
+            raise AssertionError(f"chaos {name}: launches {run['launches']} "
+                                 f"!= {expected} or rounds seen "
+                                 f"{run['seen']}: a client trained twice")
+        if cp["n_rounds"] != cfg.comm_round:
+            raise AssertionError(f"chaos {name}: the critical path found "
+                                 f"{cp['n_rounds']} rounds, ran "
+                                 f"{cfg.comm_round}")
+    missing = [k for k in CHAOS_KINDS if not chaos["injected"].get(k)]
+    print(f"[chaos] seed {CHAOS_SEED}, rates {CHAOS_RATES}: injected "
+          f"{chaos['injected']}; reliability {chaos['counters']}; clean "
+          f"{clean['wall_s']:.3f} s/round, chaos {chaos['wall_s']:.3f} "
+          f"s/round; {len(differ)} of {len(v0)} leaves differ from the clean "
+          f"round ({line})")
+    if differ or missing:
+        raise AssertionError(f"chaos round: {len(differ)} leaves differ "
+                             f"({differ[:3]}), kinds never injected "
+                             f"{missing}")
+    return {name: {k: v for k, v in run.items() if k != "variables"}
+            for name, run in runs.items()}
+
+
+def traced_run(eng, v0: dict, census: bool = False):
+    """eng.run(variables=v0, rounds=1) with observability on (and the FLOP
+    census): (variables, programs report of the run, builds in it)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        obs.configure(tmp, install_signal=False, export_at_exit=False)
+        programs.enable_census(census)
+        try:
+            snap = programs.snapshot()
+            out = eng.run(variables=dict(v0), rounds=1)
+            torch.cuda.synchronize()
+            return (out, programs.report(snap, peak=BF16_FLOPS_PER_S),
+                    obs.counter("kernel_build_total").value)
+        finally:
+            programs.enable_census(False)
+            obs.reset()
+
+
+def program_timing() -> dict:
+    """17c: phase 5's MeshFedAvgEngine (chunk 2, bf16 masters) cut to 2
+    clients and 1 round, and FedAvgEngine on the same clients, cuDNN
+    deterministic.  Each engine runs its round three times from the same
+    init: under the FLOP census (the first dispatch counted by
+    FlopCounterMode), through the bare round function with observability
+    off, and through the instrumented one with observability on.  All
+    three bitwise equal; in the last, one dispatch for the family, its
+    stream seconds positive and at most its host wall + 1 ms, MFU from the
+    census's FLOPs; no native library built after phase 2."""
+    data = synthetic_data(MAIN_CHUNK, SAMPLES, seed=0)
+    cfg = FedConfig(model="resnet18_gn", dataset="cifar10",
+                    client_num_in_total=MAIN_CHUNK,
+                    client_num_per_round=MAIN_CHUNK, epochs=1,
+                    batch_size=BATCH, lr=0.1, frequency_of_the_test=10_000)
+    trainer = ClientTrainer(create_model("resnet18_gn", 10), lr=cfg.lr,
+                            train_dtype=torch.bfloat16)
+    engines = (MeshFedAvgEngine(trainer, data, cfg, chunk=MAIN_CHUNK,
+                                local_dtype=torch.bfloat16),
+               FedAvgEngine(trainer, data, cfg))
+    line = card_line()
+    rec = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    obs.reset()
+    try:
+        for eng in engines:
+            v0 = eng.init_variables()
+            counted, census, census_builds = traced_run(eng, v0, census=True)
+            wrapped = eng.round_fn
+            eng.round_fn = wrapped.inner
+            try:
+                off = eng.run(variables=dict(v0), rounds=1)
+            finally:
+                eng.round_fn = wrapped
+            torch.cuda.synchronize()
+            on, rep, builds = traced_run(eng, v0)
+            row = next(r for r in rep["families"]
+                       if r["family"] == eng.program_family)
+            crow = next(r for r in census["families"]
+                        if r["family"] == eng.program_family)
+            differ = [k for k in v0 if not (torch.equal(off[k], on[k])
+                                            and torch.equal(off[k],
+                                                            counted[k]))]
+            print(f"[programs] {type(eng).__name__} ({eng.program_family}, "
+                  f"stage {row['stage']}): {row['dispatches']} dispatch, host "
+                  f"wall {row['dispatch_wall_s']:.6f} s, stream "
+                  f"{row['stream_s']:.6f} s (elapsed between the round's two "
+                  f"events, idle gaps included); torch-op FLOPs a dispatch "
+                  f"{row['flops_per_dispatch']:.4g} ({row['census_source']}; "
+                  f"the census's dispatch {crow['dispatch_wall_s']:.3f} s), "
+                  f"MFU against bf16's {BF16_FLOPS_PER_S:.3g}: {row['mfu']} "
+                  f"over the run's {rep['window_s']} s; census, off and on: "
+                  f"{len(differ)} of {len(v0)} leaves differ; builds "
+                  f"{builds + census_builds:.0f} ({line})")
+            if (row["dispatches"] != 1 or not 0.0 < row["stream_s"]
+                    <= row["dispatch_wall_s"] + 1e-3 or differ
+                    or builds or census_builds):
+                raise AssertionError(
+                    f"programs {eng.program_family}: dispatches "
+                    f"{row['dispatches']} (ran 1), stream {row['stream_s']} "
+                    f"s vs wall {row['dispatch_wall_s']} s, {len(differ)} "
+                    f"leaves differ, {builds + census_builds} builds after "
+                    "phase 2")
+            rec[eng.program_family] = dict(row, census_wall_s=crow[
+                "dispatch_wall_s"], window_s=rep["window_s"])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"[programs] phase 2 built {BUILDS['kernel_build_total']:.0f} "
+          f"libraries in {BUILDS['kernel_build_seconds_total']:.1f} s "
+          f"(kernel_build_total, unattributed "
+          f"{BUILDS['unattributed']:.0f}); none after it")
+    return dict(families=rec, phase2_builds=BUILDS)
+
+
+def mqtt_edge() -> dict:
+    """17d: FedML's edge leg, run_messaging_fedavg(backend="MQTT") through
+    a MiniMqttBroker on loopback, on the mobile recipe: LR on the mnist
+    stand-in, 8 clients, 2 rounds, f32 on the card, then one round with
+    FMLZ: every round's global model bitwise the INPROC run's (f32 rides
+    JSON floats exactly), one fold launch a round; JSON bytes a round and
+    s/round."""
+    data = load_data("mnist", client_num_in_total=MQTT_CLIENTS, batch_size=10,
+                     synthetic_scale=0.05, seed=0)
+    cfg = FedConfig(model="lr", dataset="mnist",
+                    client_num_in_total=MQTT_CLIENTS,
+                    client_num_per_round=MQTT_CLIENTS, epochs=1,
+                    batch_size=10, lr=0.03, comm_round=MQTT_ROUNDS,
+                    frequency_of_the_test=10_000)
+    trainer = ClientTrainer(create_model("lr", 10), lr=cfg.lr)
+    v0 = trainer.init(torch.Generator().manual_seed(cfg.seed), "cuda")
+    broker = MiniMqttBroker(port=free_base_port(1))
+    sent = lambda: obs.registry().counter("comm_sent_bytes_total",
+                                          backend="mqtt").value
+    runs = {}
+    try:
+        for name, backend, rounds, kw in (
+                ("inproc", "INPROC", MQTT_ROUNDS, {}),
+                ("mqtt", "MQTT", MQTT_ROUNDS, {}),
+                ("mqtt_fmlz", "MQTT", 1, dict(wire_compress=True))):
+            if backend == "MQTT":
+                kw = dict(kw, host=broker.host, port=broker.port)
+            models, marks = [], []
+
+            def on_round(idx, variables):
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+                models.append({k: v.clone() for k, v in variables.items()})
+
+            b0 = sent()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            run_messaging_fedavg(trainer, data,
+                                 dataclasses.replace(cfg, comm_round=rounds),
+                                 backend=backend, variables=dict(v0),
+                                 on_round_done=on_round, timeout=600, **kw)
+            torch.cuda.synchronize()
+            runs[name] = dict(models=models, launches=launch_counts(),
+                              json_bytes_a_round=(sent() - b0) / rounds,
+                              round_s=[b - a for a, b in
+                                       zip([t0] + marks[:-1], marks)])
+    finally:
+        broker.close()
+    line = card_line()
+    want = runs["inproc"]["models"]
+    for name, run in runs.items():
+        differ = [(r, k) for r, m in enumerate(run["models"])
+                  for k in v0 if not torch.equal(m[k], want[r][k])]
+        print(f"[mqtt] {name}: {len(run['models'])} rounds, s/round "
+              f"{run['round_s']}, JSON bytes a round "
+              f"{run['json_bytes_a_round']:.0f} (server and clients), "
+              f"launches {run['launches']}; {len(differ)} leaves differ from "
+              f"INPROC's rounds ({line})")
+        if differ or run["launches"]["wsum"] != len(run["models"]):
+            raise AssertionError(f"mqtt {name}: {differ[:3]} differ from "
+                                 f"INPROC, or wsum launches "
+                                 f"{run['launches']['wsum']} != rounds")
+    return {name: {k: v for k, v in run.items() if k != "models"}
+            for name, run in runs.items()}
+
+
+def phase_slice5b_ii() -> dict:
+    """Phase 17: the chaos round and its observatory (f32, TF32 off,
+    restored after), program timing on the main path, MQTT; each part's
+    seconds."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    rec, seconds = {}, {}
+    try:
+        for key, part in (("chaos", lambda: (f32_off(), chaos_round())[1]),
+                          ("programs", program_timing),
+                          ("mqtt", mqtt_edge)):
+            t0 = time.perf_counter()
+            rec[key] = part()
+            seconds[key] = time.perf_counter() - t0
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    rec["seconds"] = seconds
+    print(f"[slice 5b-ii] phase 17 took {sum(seconds.values()):.1f} s: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
           + f" ({card_line()})")
     return rec
@@ -3367,11 +3769,13 @@ def main() -> int:
     slice7a = clock("14 slice 7a-i", phase_slice7a, gen)
     slice7a_ii = clock("15 slice 7a-ii", phase_slice7a_ii, gen)
     slice5b_i = clock("16 slice 5b-i", phase_slice5b_i)
+    slice5b_ii = clock("17 slice 5b-ii", phase_slice5b_ii)
     print(json.dumps({"zoo": zoo, "resnet56_path": {
         k: v for k, v in resnet56.items() if k != "fold"},
         "word_lstm": word_lstm, "c1": c1, "data_path": data_path,
         "slice7a": slice7a, "slice7a_ii": slice7a_ii,
-        "slice5b_i": slice5b_i, "seconds": seconds}, default=str))
+        "slice5b_i": slice5b_i, "slice5b_ii": slice5b_ii,
+        "seconds": seconds}, default=str))
     print("[timing] seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {sum(seconds.values()):.1f} ({card})")
@@ -3381,7 +3785,10 @@ def main() -> int:
              "fedseg path": slice7a["fedseg_path"]["launches"],
              "fednas": slice7a_ii["fednas_path"]["launches"],
              **{f"messaging {b.lower()}": r["launches"] for b, r in
-                slice5b_i["messaging_path"]["runs"].items()}}
+                slice5b_i["messaging_path"]["runs"].items()},
+             "messaging tcp under chaos": slice5b_ii["chaos"]["chaos"][
+                 "launches"],
+             "mqtt": slice5b_ii["mqtt"]["mqtt"]["launches"]}
     print(json.dumps(kernel_line(gn_fwd, gn_bwd, fold_rec, robust_rec, counts,
                                  robust_counts, resnet56, paths,
                                  slice7a["gn_shapes"],

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from fedml_tpu_torch import obs
+from fedml_tpu_torch.obs import programs as obs_programs
 from fedml_tpu_torch.core.sampling import ClientSampler
 from fedml_tpu_torch.core.trainer import ClientTrainer, client_generator
 from fedml_tpu_torch.data.federated import FederatedData
@@ -38,10 +39,19 @@ def stack_rows(trainer: ClientTrainer, rows: list) -> dict:
 
 class FedAvgEngine:
     """Standalone-simulation FedAvg on one device (CUDA unless `device`
-    names another)."""
+    names another).
+
+    `round_fn` dispatches through the obs/programs.py profile registry
+    under `program_family`, the JAX package's name for the round (each
+    subclass names its own): per-family dispatch counts, host walls and
+    the card's stream time, values untouched."""
+
+    program_family = "fedavg_resident"
 
     def __init__(self, trainer: ClientTrainer, data: FederatedData,
                  cfg: FedConfig, device=None):
+        self.round_fn = obs_programs.instrument(self.program_family,
+                                                self.round_fn)
         self.device = resolve_device(device)
         self.trainer = trainer
         self.data = data

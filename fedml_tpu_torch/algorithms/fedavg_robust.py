@@ -40,6 +40,8 @@ class FedAvgRobustEngine(FedAvgEngine):
     "trimmed_mean".  `attack_fn` corrupts the stacked client updates
     ({name: [K, ...]}) before the defense sees them."""
 
+    program_family = "robust_orderstat"
+
     def __init__(self, trainer, data, cfg, defense: str = "norm_clip",
                  n_byzantine: int = 0, multi_krum_m: Optional[int] = None,
                  attack_fn: Optional[Callable] = None, device=None):

@@ -28,6 +28,8 @@ def fednova_tau(shard: dict, epochs: int) -> torch.Tensor:
 
 
 class FedNovaEngine(FedAvgEngine):
+    program_family = "fednova_resident"
+
     def _round(self, variables: dict, server_state, cohort: dict,
                round_idx: int = 0):
         g = self.trainer.flatten(variables, torch.float32)

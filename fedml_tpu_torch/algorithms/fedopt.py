@@ -148,6 +148,8 @@ class FedOptEngine(FedAvgEngine):
     """FedAvg whose server applies `cfg.server_optimizer` to the
     pseudo-gradient; the optimizer state is the round's server_state."""
 
+    program_family = "fedopt_resident"
+
     def __init__(self, trainer, data, cfg, device=None):
         self.server_tx = make_server_optimizer(
             cfg.server_optimizer, cfg.server_lr, cfg.server_momentum)

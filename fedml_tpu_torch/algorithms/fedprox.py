@@ -12,6 +12,8 @@ from fedml_tpu_torch.algorithms.fedavg import FedAvgEngine
 
 
 class FedProxEngine(FedAvgEngine):
+    program_family = "fedprox_resident"
+
     def __init__(self, trainer, data, cfg, device=None):
         if trainer.prox_mu <= 0.0:
             # never mutate the caller's trainer: another engine may share it

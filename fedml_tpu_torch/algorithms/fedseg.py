@@ -71,6 +71,8 @@ class SegEvalMixin:
 class FedSegEngine(SegEvalMixin, FedAvgEngine):
     """FedAvg with segmentation eval."""
 
+    program_family = "fedseg_resident"
+
     def __init__(self, trainer, data, cfg, device=None):
         super().__init__(trainer, data, cfg, device=device)
         self._init_seg_eval()

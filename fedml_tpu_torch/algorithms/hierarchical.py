@@ -23,6 +23,8 @@ from fedml_tpu_torch.ops.aggregate import weighted_mean_flat
 
 
 class HierarchicalFedAvgEngine(FedAvgEngine):
+    program_family = "hierarchical"
+
     def __init__(self, trainer, data, cfg, group_num: int = 2,
                  group_comm_round: int = 1, device=None):
         self.group_num = group_num

@@ -43,6 +43,8 @@ class TurboAggregateEngine(FedAvgEngine):
     elements, identical to fixed-point precision, with no view of any one
     w_i."""
 
+    program_family = "turboaggregate_resident"
+
     def __init__(self, trainer, data, cfg, scale: int = 2 ** 16,
                  prime: int = mpc.DEFAULT_PRIME, device=None):
         super().__init__(trainer, data, cfg, device=device)

@@ -7,14 +7,18 @@ reference's cross-silo / edge deployments where clients are separate
 processes or machines: BaseCommunicationManager + Message + Observer
 (fedml_core/distributed/communication/, SURVEY.md §2.1) with pluggable
 backends — in-process (tests/simulation), gRPC (WAN cross-silo), TCP in
-Python (threads or the selector reactor) and the native C++ transport
-(fedml_tpu_torch/native/).  MQTT, the chaos injector and the connection
-swarm are slice 5b-ii of the port.
+Python (threads or the selector reactor), the native C++ transport
+(fedml_tpu_torch/native/) and MQTT (the edge leg, through a broker:
+mqtt_backend.py, with the in-repo broker and client of mqtt_wire.py).
+Around them: the seeded fault injector (chaos.py, installed with
+``install_chaos``), the reliability envelope (reliability.py,
+``enable_reliability``) and the connection swarm (connswarm.py), a
+one-loop client fleet that loads a server's reactor.
 
 The frames are the JAX package's byte for byte (comm/message.py), so a
 port peer and a JAX peer exchange plain array trees over any transport.
-This package never imports grpc (backends import lazily): the card's
-machine may have no grpcio.
+This package never imports grpc or paho (backends import lazily): the
+card's machine may have neither.
 
 Differences from the reference, by design:
   * no 0.3 s polling loops or killable daemon threads
@@ -28,6 +32,7 @@ Differences from the reference, by design:
 """
 from fedml_tpu_torch.comm.message import Message, MessageCodec
 from fedml_tpu_torch.comm.base import BaseCommManager, Observer
+from fedml_tpu_torch.comm.chaos import ChaosConfig, ChaosPolicy
 from fedml_tpu_torch.comm.inproc import InProcBackend, InProcRouter
 from fedml_tpu_torch.comm.managers import ClientManager, ServerManager
 from fedml_tpu_torch.comm.reactor import (FdExhaustionError, ReactorConfig,

@@ -80,9 +80,10 @@ class FedAvgAggregator:
     `init_variables` is a flat {name: tensor or array} dict; the global
     model lives on `device` (the card unless the caller names another),
     in the init's dtypes.  Each upload is written into its slot's row of
-    one [worker_num, P] matrix on the device, in the upload's dtype; the
-    aggregate is one launch of the weighted-mean kernel over the rows
-    that arrived."""
+    one [worker_num, P] matrix on the device, in the uploads' promoted
+    dtype (as the JAX aggregator's ``np.stack`` promotes: an f32 and a
+    bf16 upload fold in f32); the aggregate is one launch of the
+    weighted-mean kernel over the rows that arrived."""
 
     def __init__(self, init_variables: Pytree, worker_num: int,
                  client_num_in_total: int, client_num_per_round: int,
@@ -102,11 +103,18 @@ class FedAvgAggregator:
         self._lock = threading.Lock()
 
     def _slot_rows(self, dtype: torch.dtype) -> torch.Tensor:
-        """The [worker_num, P_padded] upload matrix in `dtype` (zeroed, so
-        the pad tail stays zero), allocated at the first upload."""
-        if self._rows is None or self._rows.dtype != dtype:
+        """The [worker_num, P_padded] upload matrix (zeroed, so the pad
+        tail stays zero), allocated at the first upload, in a dtype that
+        holds `dtype` exactly: an upload wider than the matrix promotes
+        it, the rows already written copied across, so that every slot
+        that uploaded keeps its row."""
+        if self._rows is None:
             self._rows = torch.zeros(self.worker_num, self.spec.padded,
                                      dtype=dtype, device=self.device)
+        else:
+            wide = torch.promote_types(self._rows.dtype, dtype)
+            if wide != self._rows.dtype:
+                self._rows = self._rows.to(wide)
         return self._rows
 
     def add_local_trained_result(self, index: int, variables: Pytree,

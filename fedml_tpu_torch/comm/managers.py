@@ -8,7 +8,8 @@ type (register_message_receive_handler, client_manager.py:67-68).
 
 Backend strings: "INPROC" (router passed via kwargs), "GRPC", "TCP"
 (the native C++ transport when its library is already built, else the
-Python one), "NATIVE_TCP", "MQTT" (slice 5b-ii of the port: raises).  The
+Python one), "NATIVE_TCP", "MQTT" (a broker at `host`:`port`; paho when
+installed, else the in-repo wire client; `client_factory` overrides).  The
 reference's "MPI" process model has no counterpart by design — one-card
 cohorts use the engines of fedml_tpu_torch/algorithms and parallel/.
 """
@@ -71,9 +72,10 @@ def _build_backend(backend: str, rank: int, size: int, **kw) -> BaseCommManager:
                           reactor=kw.get("reactor"),
                           reactor_config=kw.get("reactor_config"))
     if b == "MQTT":
-        raise NotImplementedError(
-            "the MQTT backend (comm/mqtt_backend.py with mqtt_wire.py) is "
-            "slice 5b-ii of the port")
+        from fedml_tpu_torch.comm.mqtt_backend import MqttBackend
+        return MqttBackend(rank, size, host=kw.get("host", "127.0.0.1"),
+                           port=kw.get("port", 1883),
+                           client_factory=kw.get("client_factory"))
     raise ValueError(f"unknown comm backend {backend!r}")
 
 

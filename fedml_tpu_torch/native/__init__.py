@@ -6,7 +6,8 @@ it with g++ on first use into ``fedml_tpu_torch/_build/`` (beside the CUDA
 kernels' library, git-ignored), under a name keyed on the source's hash.
 Returns None when no toolchain is available; the caller decides what that
 means (an explicit NATIVE_TCP backend raises, "TCP" stays on the Python
-transport).
+transport).  A build that compiles counts once in ``kernel_build_total``
+and ``kernel_build_seconds_total`` (``obs.note_kernel_build``).
 """
 from __future__ import annotations
 
@@ -16,7 +17,10 @@ import logging
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from fedml_tpu_torch import obs
 
 log = logging.getLogger(__name__)
 
@@ -77,12 +81,15 @@ def load_library():
             # builds (parallel test sessions) never load a half-written
             # file
             tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
+            t0 = time.perf_counter()
             try:
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(_SRC)],
                                check=True, capture_output=True, text=True,
                                timeout=120)
                 os.replace(tmp, _SO)
+                obs.note_kernel_build(time.perf_counter() - t0,
+                                      "native_transport")
                 log.info("built %s", _SO)
             except (OSError, subprocess.SubprocessError) as e:
                 detail = getattr(e, "stderr", "") or str(e)

@@ -27,14 +27,23 @@ and reads no tensor: results are bitwise the same with observability on
 or off.  The spans time the host; a span around device work measures its
 enqueue unless the work ends in a synchronize.
 
-Trace propagation across processes (``propagate.py``) came with the
-wire core: the comm managers stamp and strip a trace block on every
-frame while tracing is on.  What the JAX package has and the port does
-not yet (slice 5b-ii): the jax compile listener (``jit_compile_*``, with
-no counterpart in eager PyTorch), the per-program dispatch accounting
-(``programs.py``, which becomes CUDA-event timing of the round
-families), the timeline analyzer, the SLO engine and the cluster
-observatory.
+The layers above the core, as in the JAX package:
+
+* ``propagate.py``: the comm managers stamp and strip a trace block on
+  every frame while tracing is on;
+* ``programs.py``: per-family dispatch counts and host walls of the
+  engines' round functions, and their stream time on the card between
+  a CUDA event pair per dispatch (resolved lazily, in its reports);
+* ``timeline.py``: the round critical path from the span streams;
+* ``slo.py``: the SLO engine over this registry (``/slo``);
+* ``cluster.py``: the cluster observatory (``/cluster``).
+
+The JAX facade's jax compile listener (``jit_compile_*``) has no
+counterpart in eager PyTorch: what the port builds at run time is its
+native libraries, the CUDA kernels and the native transport, each once
+per process at first use, and ``note_kernel_build`` counts those builds
+(``kernel_build_total``, ``kernel_build_seconds_total``, unlabelled and
+by the program family that was running).
 """
 from __future__ import annotations
 
@@ -58,7 +67,7 @@ __all__ = [
     "obs_dir", "span", "instant", "counter", "gauge", "histogram",
     "registry", "tracer", "flight", "deadline", "dump_flight", "export",
     "rollup", "sample_device_memory", "reset", "serve_http", "http_server",
-    "thread_stacks",
+    "thread_stacks", "note_kernel_build",
 ]
 
 ENV_VAR = "FEDML_OBS_DIR"
@@ -159,6 +168,10 @@ def reset() -> None:
         old_http.close()
     from fedml_tpu_torch.obs import propagate
     propagate.reset_clocks()
+    from fedml_tpu_torch.obs import cluster, programs, slo
+    programs.reset()
+    slo.reset()
+    cluster.reset()
 
 
 # -- tracing -----------------------------------------------------------------
@@ -197,6 +210,26 @@ def gauge(name: str, **labels) -> Gauge:
 
 def histogram(name: str, buckets=None, **labels) -> Histogram:
     return _registry.histogram(name, buckets=buckets, **labels)
+
+
+def note_kernel_build(seconds: float, what: str) -> None:
+    """Count one first-use build of a native library (`what`: "kernels"
+    for the CUDA kernels, "native_transport" for the C++ transport): the
+    eager port's counterpart of the JAX facade's compile listener.  The
+    unlabelled pair is the process total; the ``family`` pair names the
+    program family whose dispatch triggered the build (obs/programs.py),
+    or "unattributed"."""
+    from fedml_tpu_torch.obs import programs
+    fam = programs.current()
+    _registry.counter("kernel_build_total").inc()
+    _registry.counter("kernel_build_seconds_total").inc(seconds)
+    _registry.counter("kernel_build_total",
+                      family=fam or "unattributed").inc()
+    _registry.counter("kernel_build_seconds_total",
+                      family=fam or "unattributed").inc(seconds)
+    t = _tracer
+    if t is not None:
+        t.instant("kernel.build", seconds=seconds, family=fam, what=what)
 
 
 def sample_device_memory() -> None:
@@ -322,6 +355,9 @@ def export() -> dict[str, str]:
         clock_offsets.json  the comm managers' peer clock offsets
                             (obs/propagate.py), when any traffic was
                             trace-stamped
+        barrier_ledger.json the cluster observatory's per-barrier
+                            arrival/wait ledger (obs/cluster.py), when
+                            any barrier was recorded
 
     Returns {artifact: path}; {} when disabled."""
     t, d = _tracer, _dir
@@ -347,6 +383,11 @@ def export() -> dict[str, str]:
         with open(cj, "w") as f:
             json.dump(clocks, f, indent=1)
         out["clock_offsets"] = cj
+    from fedml_tpu_torch.obs import cluster
+    cluster.export_dir(d)
+    bl = os.path.join(d, "barrier_ledger.json")
+    if os.path.exists(bl):
+        out["barrier_ledger"] = bl
     return out
 
 
@@ -358,11 +399,19 @@ def _atexit_export() -> None:                # pragma: no cover - exit path
 
 
 def rollup() -> dict:
-    """A small summary for embedding in a result line: where the
-    artifacts are, and the span accounting (drops and spills, so that a
-    truncated trace never passes for a complete one)."""
+    """A small summary for embedding in a result line: the installed SLO
+    engine's verdict, the program families, where the artifacts are, the
+    span accounting (drops and spills, so that a truncated trace never
+    passes for a complete one) and the native-library build counters."""
     t = _tracer
+    from fedml_tpu_torch.obs import programs, slo
+    eng = slo.active()
     return {
+        "slo": (eng.report() if eng is not None else None),
+        "slo_breaches_total": sum(
+            m.value for m in _registry.metrics()
+            if m.name == "slo_breaches_total"),
+        "program_families": sorted(programs.families()),
         "obs_dir": _dir,
         "spans_recorded": (0 if t is None
                            else len(t.events()) + t.dropped),
@@ -370,5 +419,8 @@ def rollup() -> dict:
         "spans_spilled": 0 if t is None else t.spilled,
         "spill_truncated": 0 if t is None else t.spill_truncated,
         "http_port": None if _http is None else _http.port,
+        "kernel_build_total": counter("kernel_build_total").value,
+        "kernel_build_seconds_total":
+            counter("kernel_build_seconds_total").value,
         "flight_dumps": [] if _flight is None else list(_flight.dumps),
     }

@@ -8,13 +8,19 @@ signalled.  One daemon ThreadingHTTPServer (no dependencies) serves:
     /metrics   Prometheus text exposition (the always-on registry)
     /rollup    obs.rollup() JSON: headline counters and artifact paths
     /healthz   200 + {status, pid, uptime_s}: the liveness probe
+    /slo       the installed SLO engine's pack report (obs/slo.py); 503
+               until one is installed (``SloEngine.start`` or
+               ``slo.install``).  It carries ``scope: local|cluster``:
+               "local" is one rank's view, and a dashboard must not read
+               a worker's green as the cluster's
+    /cluster   the cluster observatory (obs/cluster.py): per-rank
+               liveness, epoch and last-fold age, the barrier straggler
+               summary, the cluster SLO view, the top counters — a
+               cluster-wide view only on the coordinator
+               (scope == "cluster")
     /flight    POST: trigger a flight-recorder dump, return its path.
                GET: return the last dump's path without triggering one
                (a scraper or a browser's prefetch must never dump)
-
-The JAX package's /slo and /cluster endpoints read the SLO engine and the
-cluster observatory, which come to the port with slice 5b; until then
-they answer 404 like any unknown path.
 
 Enable it with ``FEDML_OBS_HTTP_PORT=<port>`` (read by
 ``obs.configure``) or ``obs.serve_http(port)``.  Port 0 binds an
@@ -33,6 +39,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 class ObsHttpServer:
     def __init__(self, port: int = 0, host: str = "127.0.0.1"):
         from fedml_tpu_torch import obs
+        from fedml_tpu_torch.obs import cluster as cluster_mod
+        from fedml_tpu_torch.obs import slo as slo_mod
         started = time.monotonic()
 
         class Handler(BaseHTTPRequestHandler):
@@ -59,6 +67,20 @@ class ObsHttpServer:
                     self._json(200, {"status": "ok", "pid": os.getpid(),
                                      "uptime_s": round(
                                          time.monotonic() - started, 3)})
+                elif path == "/slo":
+                    eng = slo_mod.active()
+                    if eng is None:
+                        self._json(503, {"error": "no SLO engine "
+                                                  "installed "
+                                                  "(SloEngine.start)"})
+                    else:
+                        doc = eng.report()
+                        # whose truth this is: "local" = this rank only;
+                        # "cluster" = the coordinator's folded view
+                        doc["scope"] = cluster_mod.scope()
+                        self._json(200, doc)
+                elif path == "/cluster":
+                    self._json(200, cluster_mod.cluster_report())
                 elif path == "/flight":
                     # read-only: report the last dump, never trigger one
                     f = obs.flight()

@@ -12,6 +12,10 @@ kernel) is kept beside the library as ``<name>.log``.
 Nothing here runs at import: the CPU tests import every module, and
 ``nvcc`` is only called when a wrapper launches a kernel on the card.
 
+A build that compiles counts once in ``kernel_build_total`` and
+``kernel_build_seconds_total`` (``obs.note_kernel_build``), attributed to
+the program family that triggered it; a reused build counts nothing.
+
 Clients may train in threads on one card (the message-driven FedAvg of
 ``comm/fedavg_messaging.py``): ``library()`` builds and loads under a
 lock, once, and ``count_launch`` adds to a wrapper's launch count under
@@ -26,7 +30,10 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
+
+from fedml_tpu_torch import obs
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PACKAGE_DIR / "csrc"
@@ -90,6 +97,7 @@ def build() -> Path:
     target = BUILD_DIR / f"libfedml_kernels_{key}.so"
     if target.exists():
         return target
+    t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -116,6 +124,7 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
         target.with_suffix(".log").write_text("\n".join(logs))
         os.replace(so, target)
+    obs.note_kernel_build(time.perf_counter() - t0, "kernels")
     return target
 
 

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from fedml_tpu_torch import obs
+from fedml_tpu_torch.obs import programs as obs_programs
 from fedml_tpu_torch.algorithms.fedavg import FedAvgEngine
 from fedml_tpu_torch.algorithms.fedavg_robust import check_defense
 from fedml_tpu_torch.algorithms.fednova import fednova_tau
@@ -170,12 +171,17 @@ class MeshFedAvgEngine(FedAvgEngine):
     (`stack_dtype`: torch.uint8 or torch.bfloat16; see the module
     docstring).  Aggregation is unchanged by either dtype: each client's
     weights enter the fold in f32 and the global model stays f32 across
-    rounds."""
+    rounds.  Its rounds count under the JAX family of the round on an
+    uploaded cohort (``round_fn_streaming``)."""
+
+    program_family = "fedavg_streaming"
 
     def __init__(self, trainer: ClientTrainer, data: FederatedData,
                  cfg: FedConfig, chunk: int | None = None, local_dtype=None,
                  stack_dtype=None, device=None):
         super().__init__(trainer, data, cfg, device=device)
+        self.round_fn_streaming = obs_programs.instrument(
+            self.program_family, self.round_fn_streaming)
         if chunk is not None and chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         if stack_dtype not in (None, torch.uint8) and not (
@@ -340,6 +346,8 @@ class MeshFedProxEngine(MeshFedAvgEngine):
     """FedProx on the chunked engine: the proximal term lives in the
     trainer's loss; the aggregation is FedAvg's."""
 
+    program_family = "fedprox_streaming"
+
     def __init__(self, trainer: ClientTrainer, data: FederatedData,
                  cfg: FedConfig, **kw):
         if trainer.prox_mu <= 0:
@@ -353,6 +361,8 @@ class MeshFedOptEngine(MeshFedAvgEngine):
     """Server-optimizer FL: the pseudo-gradient w_global - w_avg goes to
     `cfg.server_optimizer` (FedOptAggregator.py:94-123); its state persists
     across rounds in server_state."""
+
+    program_family = "fedopt_streaming"
 
     def __init__(self, trainer: ClientTrainer, data: FederatedData,
                  cfg: FedConfig, **kw):
@@ -378,6 +388,8 @@ class MeshFedNovaEngine(MeshFedAvgEngine):
     the round's model in the local dtype, as the JAX engine's chunk body
     reads it.  The collections take the plain weighted mean
     (engine.py:1158-1160)."""
+
+    program_family = "fednova_streaming"
 
     def _shard_sums(self, variables: dict, cohort: dict, weights: torch.Tensor,
                     round_idx: int = 0):
@@ -425,7 +437,10 @@ class MeshRobustEngine(MeshFedAvgEngine):
     the [K, P] f32 matrix and the defense runs there.
 
     `stream_block` (the two-phase beyond-HBM order-statistic path) is a
-    later slice of the port."""
+    later slice of the port.  Every defense counts under the JAX family
+    "robust_orderstat" (norm_clip shares it there too)."""
+
+    program_family = "robust_orderstat"
 
     def __init__(self, trainer: ClientTrainer, data: FederatedData,
                  cfg: FedConfig, defense: str = "norm_clip",

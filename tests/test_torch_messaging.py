@@ -12,7 +12,10 @@
   and a stale upload is dropped (tests/test_straggler.py's three cases).
 * Remote SplitNN matches the JAX protocol on test_split_messaging.py's
   _Lower/_Upper pair from JAX's params, over INPROC and TCP.
-* secure= and MQTT refuse by name; the entry points default to the card.
+* The aggregator folds mixed f32 and bf16 uploads as the JAX package's
+  does (promoted to f32), in either arrival order, exactly.
+* secure= refuses by name, and MQTT with no broker refuses the connection;
+  the entry points default to the card.
 """
 import threading
 import time
@@ -424,6 +427,48 @@ def test_split_messaging_over_tcp_equals_inproc():
 
 
 # ---------------------------------------------------------------------------
+# mixed upload dtypes fold as the JAX aggregator's np.stack promotes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("order", [("float32", "bfloat16"),
+                                   ("bfloat16", "float32")])
+def test_mixed_upload_dtypes_fold_as_jax(order):
+    """Two slots upload in different dtypes: the port promotes the row
+    matrix (copying the rows already written), so no slot is lost, and
+    the fold equals JAX's FedAvgAggregator bitwise, in f32."""
+    import ml_dtypes
+    from fedml_tpu.comm.fedavg_messaging import \
+        FedAvgAggregator as JaxAggregator
+    rs = np.random.RandomState(11)
+    init = {"a": np.zeros(5, np.float32), "b": np.zeros((2, 3), np.float32)}
+    ups = [{k: rs.randn(*v.shape).astype(np.float32) for k, v in
+            init.items()} for _ in order]
+    for u, dt in zip(ups, order):     # the bf16 upload's exact values
+        if dt == "bfloat16":
+            for k in u:
+                u[k] = u[k].astype(ml_dtypes.bfloat16).astype(np.float32)
+    ns = [3.0, 5.0]
+    port = FedAvgAggregator(init, 2, 2, 2, device="cpu")
+    jagg = JaxAggregator(init, 2, 2, 2)
+    for i, (u, dt, n) in enumerate(zip(ups, order, ns)):
+        port.add_local_trained_result(
+            i, {k: torch.from_numpy(v).to(getattr(torch, dt))
+                for k, v in u.items()}, n)
+        jagg.add_local_trained_result(
+            i, {k: v.astype(ml_dtypes.bfloat16 if dt == "bfloat16"
+                            else np.float32) for k, v in u.items()}, n)
+    got, want = port.aggregate(), jagg.aggregate()
+    for k in init:
+        w = np.asarray(want[k])
+        assert w.dtype == np.float32 and got[k].dtype == torch.float32
+        np.testing.assert_array_equal(got[k].numpy(), w)
+        # neither slot was dropped: the sample-weighted mean of both
+        np.testing.assert_allclose(
+            got[k].numpy(), (ns[0] * ups[0][k] + ns[1] * ups[1][k]) / 8.0,
+            rtol=1e-6, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
 # refusals and the default device
 # ---------------------------------------------------------------------------
 
@@ -438,9 +483,11 @@ def test_secure_and_mqtt_refuse_by_name():
     with pytest.raises(NotImplementedError, match="slice 4"):
         FedAvgClientManager(trainer, data, 1, 1, 2, secure=object(),
                             device="cpu", router=InProcRouter())
-    with pytest.raises(NotImplementedError, match="slice 5b-ii"):
+    # MQTT is built now: with no broker at the port, the connect refuses
+    from tests.test_torch_transports import free_base_port
+    with pytest.raises(ConnectionRefusedError):
         run_messaging_fedavg(trainer, data, cfg, backend="MQTT",
-                             device="cpu")
+                             device="cpu", port=free_base_port(1))
     assert "secagg" not in " ".join(
         n for n in dir(fm) if not n.startswith("_")).lower()
 

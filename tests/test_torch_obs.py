@@ -423,10 +423,14 @@ def test_http_endpoint_metrics_rollup_flight(clean_obs, tmp_path):
         "http_trigger"
     fl2 = json.loads(urllib.request.urlopen(f"{base}/flight").read())
     assert fl2["last_dump"] == fl["dump"] and fl2["dumps"] == 1
-    for path in ("/nope", "/slo", "/cluster"):
+    # /slo answers 503 until an SLO engine is installed, /cluster the
+    # observatory's report; any other path is unknown
+    for path, code in (("/nope", 404), ("/slo", 503)):
         with pytest.raises(urllib.error.HTTPError) as err:
             urllib.request.urlopen(f"{base}{path}")
-        assert err.value.code == 404
+        assert err.value.code == code
+    assert json.loads(urllib.request.urlopen(f"{base}/cluster").read()
+                      )["scope"] == "local"
     obs.reset()
     with pytest.raises(OSError):
         urllib.request.urlopen(f"{base}/metrics", timeout=2)
