@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's FedAvg, robust-aggregation, model-zoo,
-data-layer, one-card-algorithm, FedNAS and message-driven FedAvg paths on
-one CUDA card (the last also under injected faults and over MQTT, with
-program timing and the observatory), and hold every hand-written kernel
-against its plain PyTorch version.
+data-layer, one-card-algorithm, FedNAS, message-driven FedAvg and async
+paths on one CUDA card (message-driven FedAvg also under injected faults
+and over MQTT, with program timing and the observatory), and hold every
+hand-written kernel against its plain PyTorch version.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -130,10 +130,23 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    FedML's edge leg, messaging FedAvg over MQTT through the in-repo
    broker (LR on the mnist stand-in, 8 clients, 2 rounds, then one with
    FMLZ), bitwise equal to INPROC, one fold a round;
-18. one JSON line of the zoo's, C.1's, the data path's and slices 7a-i's,
-   7a-ii's, 5b-i's and 5b-ii's numbers, one listing every TPU kernel of
-   the JAX package with its port's numbers and its launches on every
-   path, then the last line {"ok": true, "device": {...}}.
+18. slice 4a, the async server: AsyncFedAvgEngine on the main path's
+   recipe (8 clients, K = 4, polynomial staleness, seeded latencies,
+   crashes and rejoins) for 4 commits with exact launches, s/commit and
+   one profiled 2-client commit's busy share; the degenerate f32 config
+   bitwise FedAvgEngine; the streaming commit bitwise the drained one on
+   the card (every staleness mode, full and partial) and the arrival and
+   screened folds timed beside their bounds; one f32 commit card against
+   CPU; the attacked, defended scheduler (exact squared-distance and
+   clipped-fold launches, quarantines by reason) and NaN/±inf rows that
+   change no accumulator bit; run_async_messaging over INPROC (4 client
+   threads, 3 commits, launches exact) and one secure round at full
+   width whose masked field sum, folded on the card, is the plain
+   fixed-point sum word for word;
+19. one JSON line of the zoo's, C.1's, the data path's and slices 7a-i's,
+   7a-ii's, 5b-i's, 5b-ii's and 4a's numbers, one listing every TPU
+   kernel of the JAX package with its port's numbers and its launches on
+   every path, then the last line {"ok": true, "device": {...}}.
 
 It needs one card; it imports nothing of JAX or of fedml_tpu.
 """
@@ -172,6 +185,13 @@ from fedml_tpu_torch.algorithms.fedseg import FedSegEngine
 from fedml_tpu_torch.algorithms.split_nn import SplitNNEngine
 from fedml_tpu_torch.algorithms.turboaggregate import TurboAggregateEngine
 from fedml_tpu_torch.algorithms.vertical_fl import VFLEngine
+from fedml_tpu_torch.async_ import (STALENESS_MODES, AsyncBuffer,
+                                    AsyncClientManager, AsyncFedAvgEngine,
+                                    AttackConfig, DefenseConfig,
+                                    LifecycleConfig, UpdateAdmission,
+                                    make_drain_fold_fn, make_fold_fn,
+                                    make_stream_commit_fn,
+                                    run_async_messaging)
 from fedml_tpu_torch.comm.chaos import ChaosConfig, ChaosPolicy
 from fedml_tpu_torch.comm.fedavg_messaging import (FedAvgAggregator,
                                                    FedAvgClientManager,
@@ -185,13 +205,14 @@ from fedml_tpu_torch.comm.split_messaging import (SplitClientCompute,
                                                   SplitNNClientManager,
                                                   SplitNNServerManager,
                                                   SplitServerCompute)
+from fedml_tpu_torch.core import mpc
 from fedml_tpu_torch.core import robust as robust_ops
 from fedml_tpu_torch.core.flatmodel import FlatModel
 from fedml_tpu_torch.core.partition import partition_homo
 from fedml_tpu_torch.core.pytree import clip_scale
 from fedml_tpu_torch.core.topology import (AsymmetricTopologyManager,
                                            SymmetricTopologyManager)
-from fedml_tpu_torch.core.trainer import ClientTrainer
+from fedml_tpu_torch.core.trainer import ClientTrainer, client_generator
 from fedml_tpu_torch.data import augment
 from fedml_tpu_torch.data.augment import make_augment_fn
 from fedml_tpu_torch.data.federated import (FederatedData, build_client_shards,
@@ -224,6 +245,7 @@ from fedml_tpu_torch.parallel.engine import (MeshFedAvgEngine,
                                              MeshFedProxEngine,
                                              MeshRobustEngine,
                                              chunked_weighted_train)
+from fedml_tpu_torch.secure import SecAggConfig, SecureAggregator
 from fedml_tpu_torch.utils.config import FedConfig
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
@@ -3658,10 +3680,504 @@ def phase_slice5b_ii() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 18: slice 4a, the async server
+# ---------------------------------------------------------------------------
+
+ASYNC_COMMITS, ASYNC_K = 4, 4
+# the lifecycle of parts (a) and (b): seed 7 crashes 3 dispatches, all of
+# which rejoin, within the 4 commits (the trace does not depend on the model)
+ASYNC_LIFECYCLE = dict(latency="lognormal", latency_scale=1.0,
+                       latency_sigma=0.8, heterogeneity=0.5, dropout_prob=0.2,
+                       rejoin_prob=1.0, rejoin_delay_s=2.0, seed=7)
+ASYNC_MSG_WORKERS, ASYNC_MSG_COMMITS = 4, 3
+ASYNC_PROFILED = 2             # clients in the profiled commit
+
+
+def async_recipe(n_clients: int, commits: int, samples: int = SAMPLES,
+                 dtype=torch.bfloat16, seed: int = 0):
+    """The main path's recipe for the async paths: (trainer, data, cfg)."""
+    data = synthetic_data(n_clients, samples, seed=seed)
+    cfg = FedConfig(model="resnet18_gn", dataset="cifar10",
+                    client_num_in_total=n_clients,
+                    client_num_per_round=n_clients, epochs=1,
+                    batch_size=BATCH, lr=0.1, comm_round=commits,
+                    frequency_of_the_test=10_000)
+    trainer = ClientTrainer(create_model("resnet18_gn", 10), lr=cfg.lr,
+                            train_dtype=dtype)
+    return trainer, data, cfg
+
+
+def trace_kinds(trace: list) -> dict:
+    kinds: dict = {}
+    for t in trace:
+        kinds[t[0]] = kinds.get(t[0], 0) + 1
+    return kinds
+
+
+def async_expected(eng: AsyncFedAvgEngine, batches: int) -> dict:
+    """The launches an async run must have made, from its trace: every
+    client of a wave trains (a crash draw comes after training), 20
+    GroupNorm layers a step, 2 eval batches an evaluation; the drain
+    commit is one finalize launch; a defended arrival is one squared
+    distance, an admitted one a clipped fold."""
+    kinds = trace_kinds(eng.trace)
+    steps = batches * (kinds.get("dispatch", 0) + kinds.get("crash", 0))
+    evals = 2 * len(eng.metrics_history)
+    arrivals, quarantined = kinds.get("arrive", 0), kinds.get("quarantine", 0)
+    defended = eng.defense is not None
+    return {"gn_forward": 20 * (steps + evals), "gn_backward": 20 * steps,
+            "wsum": 0 if defended else kinds.get("commit", 0),
+            "sqnorm": arrivals if defended else 0,
+            "clip_agg": arrivals - quarantined if defended else 0}
+
+
+def async_run(eng: AsyncFedAvgEngine, v0: dict, tag: str) -> dict:
+    """Run `eng` for ASYNC_COMMITS commits from v0 with the launch counts
+    zeroed just before: launches exact, the model finite f32 and moved."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    v = eng.run(variables=dict(v0), rounds=ASYNC_COMMITS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    expected = async_expected(eng, BATCHES)
+    if counts != expected:
+        raise AssertionError(f"{tag}: launches {counts} != expected "
+                             f"{expected}")
+    bad = [k for k, t in v.items()
+           if not torch.isfinite(t).all() or t.dtype != torch.float32]
+    same = [k for k in v0 if torch.equal(v[k], v0[k])]
+    if bad or len(same) == len(v0):
+        raise AssertionError(f"{tag}: {len(bad)} leaves not finite f32, "
+                             f"{len(same)} unchanged")
+    rep = eng.async_report()
+    kinds = trace_kinds(eng.trace)
+    print(f"[{tag}] {ASYNC_COMMITS} commits of K={eng.buffer_k} from "
+          f"{eng.concurrency} clients in flight: {wall:.2f} s, "
+          f"{wall / ASYNC_COMMITS:.3f} s/commit; trace {kinds}; staleness "
+          f"p50 {rep['staleness_p50']} p95 {rep['staleness_p95']}; launches "
+          f"{counts} == expected ({card_line()})")
+    return dict(wall_s=wall, s_per_commit=wall / ASYNC_COMMITS,
+                launches=counts, trace=kinds, report=rep, variables=v)
+
+
+def async_scheduler_path() -> dict:
+    """18a: AsyncFedAvgEngine on the main path's recipe (ResNet-18-GN at
+    full width, bf16 compute, 8 clients of 13 batches of 32) with
+    polynomial λ (a = 0.5), K = 4, and the seeded lifecycle's latencies,
+    crashes and rejoins, for 4 commits; then one commit of 2 clients
+    profiled for the device's busy share."""
+    trainer, data, cfg = async_recipe(MAIN_CLIENTS, ASYNC_COMMITS)
+    eng = AsyncFedAvgEngine(trainer, data, cfg, buffer_k=ASYNC_K,
+                            concurrency=MAIN_CLIENTS, staleness="polynomial",
+                            lifecycle_cfg=LifecycleConfig(**ASYNC_LIFECYCLE))
+    v0 = eng.init_variables()
+    rec = async_run(eng, v0, "async scheduler")
+    if not {"crash", "rejoin"} <= set(rec["trace"]):
+        raise AssertionError("async scheduler: the lifecycle seed no longer "
+                             "crashes and rejoins a client")
+    # the busy share: one more commit of a 2-client engine, after one
+    # unprofiled commit for its wall
+    small = AsyncFedAvgEngine(trainer, data, cfg, buffer_k=ASYNC_PROFILED,
+                              concurrency=ASYNC_PROFILED)
+    v = small.run(variables=rec.pop("variables"), rounds=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v = small.run(variables=v, rounds=2)
+    torch.cuda.synchronize()
+    steady = time.perf_counter() - t0
+    rec["profile"] = profile_round(
+        lambda: small.run(variables=v, rounds=3), steady,
+        tag=f"async profile, {ASYNC_PROFILED} clients a commit")
+    return rec
+
+
+def async_degenerate_f32() -> dict:
+    """18a: the degenerate config (zero latency and dropout, buffer_k = the
+    cohort, constant λ, mix 1), f32 with TF32 off and cuDNN's
+    deterministic algorithms, 4 clients x 2 batches, 2 commits: bitwise
+    the port's FedAvgEngine over 2 rounds."""
+    trainer, data, cfg = async_recipe(4, 2, samples=2 * BATCH,
+                                      dtype=torch.float32, seed=5)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        sync = FedAvgEngine(trainer, data, cfg)
+        v0 = sync.init_variables()
+        want = sync.run(variables=dict(v0), rounds=2)
+        got = AsyncFedAvgEngine(trainer, data, cfg, buffer_k=4).run(
+            variables=dict(v0), rounds=2)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    bitwise = all(torch.equal(got[k], want[k]) for k in want)
+    print(f"[async degenerate] 4 clients x 2 batches, 2 commits, f32: "
+          f"bitwise FedAvgEngine's 2 rounds: {bitwise} ({card_line()})")
+    if not bitwise:
+        raise AssertionError("the degenerate async config is not "
+                             "FedAvgEngine bitwise")
+    return dict(bitwise=bitwise)
+
+
+def async_stream_vs_drain(gen: torch.Generator) -> dict:
+    """18a: the streaming buffer's arrival folds (one [1, P] accumulate
+    launch each) against the drain twin over the capacity-padded [K, P]
+    matrix, full and deadline-partial, in each staleness mode: the
+    accumulators and the committed models bitwise equal, the launches one
+    a lane.  Then the arrival fold and the screened fold timed at [1, P]
+    f32 beside their bounds."""
+    P = P_PADDED
+    rows = torch.randn(ASYNC_K, P, generator=gen, device="cuda")
+    w = [390.0, 390.0, 195.0, 390.0]
+    s = [0.0, 1.0, 3.0, 2.0]
+    template = {"row": torch.randn(P, generator=gen, device="cuda")}
+    commit = make_stream_commit_fn(template)
+    cases, launches = [], 0
+    reset_launch_counts()
+    for mode in STALENESS_MODES:
+        for n_real in (ASYNC_K, 2):
+            buf = AsyncBuffer(ASYNC_K, P, streaming=True,
+                              staleness_mode=mode, device="cuda")
+            for i in range(n_real):
+                buf.add(rows[i], w[i], s[i])
+            acc, acc_w, *_ = buf.take_stream()
+            pad = torch.zeros_like(rows)
+            pad[:n_real] = rows[:n_real]
+            pw = np.zeros(ASYNC_K, np.float32)
+            ps = np.zeros(ASYNC_K, np.float32)
+            pw[:n_real], ps[:n_real] = w[:n_real], s[:n_real]
+            dacc, dacc_w = make_drain_fold_fn(mode)(pad, pw, ps)
+            a = commit(template, acc, acc_w, 0.7)[0]["row"]
+            b = commit(template, dacc, dacc_w, 0.7)[0]["row"]
+            ok = (torch.equal(acc, dacc) and torch.equal(acc_w, dacc_w)
+                  and torch.equal(a, b))
+            cases.append(dict(mode=mode, n_real=n_real, bitwise=ok))
+            launches += n_real + ASYNC_K
+            if not ok:
+                raise AssertionError(f"streaming != drained commit "
+                                     f"({mode}, {n_real} of {ASYNC_K})")
+    torch.cuda.synchronize()
+    if launch_counts()["wsum"] != launches:
+        raise AssertionError(f"stream/drain: {launch_counts()['wsum']} fold "
+                             f"launches, expected {launches} (one a lane)")
+    print(f"[async stream/drain] the streaming commit equals the drained "
+          f"commit bitwise at [{ASYNC_K}, {P}] f32, full and partial, in "
+          f"{', '.join(STALENESS_MODES)}; {launches} fold launches, one a "
+          f"lane ({card_line()})")
+    # the arrival fold and the screened fold's two kernels at [1, P] f32,
+    # each against its plain version with phase 3's tolerances, timed
+    g = template["row"]
+    V = (g + 0.01 * torch.randn(P, generator=gen, device="cuda"))[None]
+    wt = torch.tensor([390.0], device="cuda")
+    acc0 = torch.randn(P, generator=gen, device="cuda")
+    acc, accp = acc0.clone(), acc0.clone()
+    fold(acc, V, wt)
+    fold_plain(accp, V, wt)
+    fold_err = float((acc - accp).abs().max())
+    if not bool(((acc - accp).abs()
+                 <= 1e-6 * (acc0.abs() + (wt * V[0]).abs())).all()):
+        raise AssertionError(f"arrival fold [1, {P}]: max abs err "
+                             f"{fold_err:.3e} beyond 1e-6 x scale")
+    sq = sqnorm(V, g)
+    sq_err = check_close("sqnorm [1, P] f32", sq, sqnorm_plain(V, g), 1e-5,
+                         0.0)
+    cf = (wt * clip_scale(sq, 0.5 * float(sq.sqrt()))).contiguous()
+    acc, accp = acc0.clone(), acc0.clone()
+    clip_agg(acc, V, g, cf, wt, accumulate=True)
+    clip_agg_plain(accp, V, g, cf, wt, accumulate=True)
+    clip_err = float((acc - accp).abs().max())
+    if not bool(((acc - accp).abs()
+                 <= 1e-6 * terms_scale(V, g, cf, float(wt), acc0)).all()):
+        raise AssertionError(f"clip_agg [1, {P}]: max abs err {clip_err:.3e}"
+                             " beyond 1e-6 x sum|terms|")
+    arrive = make_fold_fn("polynomial")
+    zero = torch.zeros((), device="cuda")
+    fold_rec = dict(
+        shape=[1, P], dtype="float32", max_abs_err=fold_err,
+        ms=cuda_ms(lambda: wsum(acc, V, wt, finalize=False)),
+        host_ms=host_ms(lambda: arrive(acc, zero, V[0], 390.0, 1.0)),
+        plain_ms=cuda_ms(lambda: fold_plain(acc, V, wt)),
+        library_ms=cuda_ms(lambda: acc.addcmul_(V[0], wt)),
+        bound=bound_ms(3 * P * 4 + 4, 2 * P))
+    D = V - g
+    adm = UpdateAdmission(DefenseConfig(norm_bound=1e6, screen=True,
+                                        buckets=ASYNC_K), P, "cuda")
+    adm.bind_fold("polynomial", 0.5, 4.0)
+    adm.note_global(0, g)
+    screened = dict(
+        sqnorm_ms=cuda_ms(lambda: sqnorm(V, g)), sqnorm_max_abs_err=sq_err,
+        sqnorm_plain_ms=cuda_ms(lambda: sqnorm_plain(V, g)),
+        sqnorm_library_ms=cuda_ms(lambda: torch.cdist(V, g[None])),
+        sqnorm_bound=bound_ms(2 * P * 4 + 4, 3 * P),
+        clip_agg_ms=cuda_ms(lambda: clip_agg(acc, V, g, cf, wt, True)),
+        clip_agg_max_abs_err=clip_err,
+        clip_agg_plain_ms=cuda_ms(
+            lambda: clip_agg_plain(acc, V, g, cf, wt, True)),
+        clip_agg_library_ms=cuda_ms(lambda: torch.addmv(acc, D.t(), cf)),
+        clip_agg_bound=bound_ms(4 * P * 4, 3 * P + 2 * P),
+        host_ms=host_ms(lambda: adm.screened_fold(acc, zero, V[0], 390.0,
+                                                  1.0, version=0)))
+    del D
+    screened["kernel_overhead"] = ((screened["sqnorm_ms"]
+                                    + screened["clip_agg_ms"])
+                                   / fold_rec["ms"])
+    screened["host_overhead"] = screened["host_ms"] / fold_rec["host_ms"]
+    print(f"[async fold] arrival fold [1, {P}] f32 into the f32 accumulator: "
+          f"max abs err {fold_err:.3e}; {fold_rec['ms'] * 1e3:.2f} us on the "
+          f"card, {fold_rec['host_ms'] * 1e3:.1f} us a call on the host (λ "
+          f"and the weight's upload included), plain "
+          f"{fold_rec['plain_ms'] * 1e3:.2f} us, library (acc.addcmul_) "
+          f"{fold_rec['library_ms'] * 1e3:.2f} us, bound "
+          f"{fold_rec['bound'][0] * 1e3:.2f} us ({fold_rec['bound'][1]}) "
+          f"({card_line()})")
+    print(f"[async fold] screened fold [1, {P}] f32: sqnorm (max abs err "
+          f"{sq_err:.3e}) {screened['sqnorm_ms'] * 1e3:.2f} us, plain "
+          f"{screened['sqnorm_plain_ms'] * 1e3:.2f}, library (torch.cdist) "
+          f"{screened['sqnorm_library_ms'] * 1e3:.2f}, bound "
+          f"{screened['sqnorm_bound'][0] * 1e3:.2f}; clip_agg accumulate "
+          f"(max abs err {clip_err:.3e}) {screened['clip_agg_ms'] * 1e3:.2f} "
+          f"us, plain {screened['clip_agg_plain_ms'] * 1e3:.2f}, library "
+          f"(torch.addmv) {screened['clip_agg_library_ms'] * 1e3:.2f}, bound "
+          f"{screened['clip_agg_bound'][0] * 1e3:.2f}: "
+          f"{screened['kernel_overhead']:.2f}x the arrival fold's device "
+          f"time; {screened['host_ms'] * 1e3:.1f} us a call on the host, "
+          f"{screened['host_overhead']:.2f}x ({card_line()})")
+    return dict(cases=cases, launches=launches, fold=fold_rec,
+                screened=screened)
+
+
+def async_card_cpu() -> dict:
+    """18a: one f32 commit (2 clients x 2 batches, K = 2, polynomial λ,
+    lognormal latencies) on the card and on the CPU from the same init:
+    the same trace, the update within phase 4's limits."""
+    trainer, data, cfg = async_recipe(2, 1, samples=2 * BATCH,
+                                      dtype=torch.float32, seed=1)
+    out = {}
+    for device in ("cuda", "cpu"):
+        eng = AsyncFedAvgEngine(
+            trainer, data, cfg, buffer_k=2, staleness="polynomial",
+            lifecycle_cfg=LifecycleConfig(latency="lognormal", seed=3),
+            device=device)
+        v0 = eng.init_variables()
+        out[device] = (v0, eng.run(variables=dict(v0), rounds=1), eng.trace)
+    (g0, g1, gt), (c0, c1, ct) = out["cuda"], out["cpu"]
+    whole, worst = update_distance("async f32 commit", g0, g1, c0, c1)
+    print(f"[async card/cpu] one f32 commit, 2 clients x 2 batches: update "
+          f"distance {whole:.3e} of its norm (limit 1e-3), worst leaves "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst)
+          + f" (limit 1e-2); traces equal {gt == ct} ({card_line()})")
+    if whole > 1e-3 or worst[0][1] > 1e-2 or gt != ct:
+        raise AssertionError("async f32 commit: the card differs from the "
+                             "CPU beyond phase 4's limits, or the traces")
+    return dict(distance=whole, worst=worst)
+
+
+def async_defended_path() -> dict:
+    """18b: the scheduler of 18a attacked (boost x10 from a quarter of the
+    clients) and defended: the clip bound three times one honest client's
+    update norm, the z screen armed after 4 updates, 4 buckets; 4 commits
+    with exact launches (one squared distance an arrival, one clipped fold
+    an admitted one), quarantines by reason; then NaN and ±inf rows into a
+    screened buffer on the card change no accumulator bit and launch only
+    their squared distance."""
+    trainer, data, cfg = async_recipe(MAIN_CLIENTS, ASYNC_COMMITS)
+    v0 = trainer.init(torch.Generator().manual_seed(cfg.seed), "cuda")
+    flat = trainer.flatten(v0)
+    shard = {k: torch.as_tensor(t[0]).cuda()
+             for k, t in data.client_shards.items()}
+    row, _, _ = trainer.local_train(flat, shard, 1, generator=client_generator(
+        cfg.seed, 0, 0, "cuda"))
+    honest = float((row - flat).norm())
+    defense = DefenseConfig(norm_bound=3.0 * honest, screen=True,
+                            screen_warmup=4, buckets=ASYNC_K)
+    eng = AsyncFedAvgEngine(
+        trainer, data, cfg, buffer_k=ASYNC_K, concurrency=MAIN_CLIENTS,
+        staleness="polynomial", lifecycle_cfg=LifecycleConfig(
+            **ASYNC_LIFECYCLE),
+        attack=AttackConfig(mode="boost", frac=0.25, boost=10.0),
+        defense=defense)
+    rec = async_run(eng, v0, "async defended")
+    rec.pop("variables")
+    rec.update(honest_norm=honest, norm_bound=defense.norm_bound,
+               quarantined=rec["report"]["quarantined"],
+               attribution=eng.quarantine_attribution())
+    print(f"[async defended] one honest update's norm {honest:.4f}, clip "
+          f"bound {defense.norm_bound:.4f}; quarantined by reason "
+          f"{rec['quarantined']}, by who {rec['attribution']}; "
+          f"byzantine clients {rec['report']['byzantine_clients']}, attacks "
+          f"{rec['report']['attacks_injected']} ({card_line()})")
+    # a non-finite row never reaches a kernel but its squared distance
+    adm = UpdateAdmission(defense, trainer.spec.padded, "cuda")
+    adm.bind_fold("polynomial", 0.5, 4.0)
+    adm.note_global(0, flat)
+    buf = AsyncBuffer(ASYNC_K, trainer.spec.padded, streaming=True,
+                      staleness_mode="polynomial", device="cuda")
+    if not buf.add_screened(row, 390.0, 0.0, adm)[0]:
+        raise AssertionError("async defended: an honest row was quarantined")
+    torch.cuda.synchronize()
+    acc, wsum0 = buf.acc.clone(), buf.wsum.clone()
+    for bad in (float("nan"), float("inf"), float("-inf")):
+        poisoned = row.clone()
+        poisoned[12345] = bad
+        reset_launch_counts()
+        ok, why, _ = buf.add_screened(poisoned, 390.0, 0.0, adm, sender=1)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if (ok or why != "nonfinite" or not torch.equal(buf.acc, acc)
+                or not torch.equal(buf.wsum, wsum0)
+                or counts != {"gn_forward": 0, "gn_backward": 0, "wsum": 0,
+                              "sqnorm": 1, "clip_agg": 0}):
+            raise AssertionError(f"async defended: a {bad} row was {why}, "
+                                 f"launched {counts}, or moved the "
+                                 "accumulator")
+    print(f"[async defended] NaN, +inf and -inf rows: quarantined "
+          f"'nonfinite', the accumulator bitwise unchanged, one sqnorm "
+          f"launch each and no fold ({card_line()})")
+    return rec
+
+
+def async_messaging_path() -> dict:
+    """18c: run_async_messaging over INPROC on the main path's recipe
+    (4 client threads, bf16 compute and local masters), streaming, K = 4,
+    3 commits: GroupNorm launches exact for the trainings the clients ran,
+    one arrival fold an admitted update; then one secure round at full
+    width whose masked field sum, folded on the card, is bitwise the
+    plain fixed-point sum of the clients' weighted rows."""
+    trainer, data, cfg = async_recipe(ASYNC_MSG_WORKERS, ASYNC_MSG_COMMITS)
+    v0 = trainer.init(torch.Generator().manual_seed(cfg.seed), "cuda")
+    trainings = []
+    train = AsyncClientManager._train
+
+    def counted(self, variables, client_idx):
+        trainings.append(client_idx)
+        return train(self, variables, client_idx)
+
+    AsyncClientManager._train = counted
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        v, srv = run_async_messaging(
+            trainer, data, cfg, buffer_k=ASYNC_K,
+            total_commits=ASYNC_MSG_COMMITS, worker_num=ASYNC_MSG_WORKERS,
+            streaming=True, variables=dict(v0), local_dtype=torch.bfloat16,
+            timeout_s=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        AsyncClientManager._train = train
+    steps = BATCHES * len(trainings)
+    expected = {"gn_forward": 20 * steps, "gn_backward": 20 * steps,
+                "wsum": srv.updates_committed, "sqnorm": 0, "clip_agg": 0}
+    if counts != expected or srv.version != ASYNC_MSG_COMMITS:
+        raise AssertionError(f"async messaging: {srv.version} commits, "
+                             f"launches {counts} != expected {expected}")
+    if not all(torch.isfinite(t).all() for t in v.values()):
+        raise AssertionError("async messaging: a non-finite global model")
+    commit_s = [b - a for a, b in zip([t0] + srv.commit_walls[:-1],
+                                      srv.commit_walls)]
+    print(f"[async messaging] INPROC, {ASYNC_MSG_WORKERS} client threads, "
+          f"streaming K={ASYNC_K}: {srv.version} commits in {wall:.2f} s "
+          f"(s/commit {[round(x, 3) for x in commit_s]}), "
+          f"{len(trainings)} trainings, {srv.updates_committed} updates "
+          f"folded, staleness {srv.staleness_seen}; launches {counts} == "
+          f"expected ({card_line()})")
+    return dict(wall_s=wall, commit_s=commit_s, launches=counts,
+                trainings=len(trainings),
+                updates=srv.updates_committed,
+                staleness=srv.staleness_seen, secure=async_secure_round(
+                    trainer, data, cfg, v0))
+
+
+def async_secure_round(trainer, data, cfg, v0: dict) -> dict:
+    """18c: one secure round (K = the 4 clients) at full width: the
+    clients' masked rows fold on the card in int64; the field sum at the
+    barrier must equal the plain fixed-point sum of their weighted rows
+    word for word."""
+    plain, masked = {}, []
+    client_row, commit = SecureAggregator.client_row, SecureAggregator.commit
+
+    def recorded_row(self, cid, round_idx, flat, weight):
+        plain[cid] = (np.array(flat, np.float64), float(weight))
+        return client_row(self, cid, round_idx, flat, weight)
+
+    def recorded_commit(self, round_idx, survivors, reset=True):
+        masked.append(self.field_sum(round_idx, survivors)[0])
+        masked.append(self._acc.device.type)
+        return commit(self, round_idx, survivors, reset)
+
+    SecureAggregator.client_row = recorded_row
+    SecureAggregator.commit = recorded_commit
+    try:
+        t0 = time.perf_counter()
+        v, srv = run_async_messaging(
+            trainer, data, cfg, buffer_k=ASYNC_MSG_WORKERS, total_commits=1,
+            worker_num=ASYNC_MSG_WORKERS, variables=dict(v0),
+            local_dtype=torch.bfloat16, secure=SecAggConfig(seed=3),
+            timeout_s=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        SecureAggregator.client_row = client_row
+        SecureAggregator.commit = commit
+    sec = srv._secure
+    want = np.zeros(sec.words, np.int64)
+    for flat, w in plain.values():
+        q = np.empty(sec.words, np.int64)
+        q[:sec.dim] = mpc.quantize(flat * w, sec.cfg.scale, sec.cfg.prime)
+        q[sec.dim] = mpc.quantize(np.array([w]), sec.cfg.scale,
+                                  sec.cfg.prime)[0]
+        want = (want + q) % sec.cfg.prime
+    words, device = masked
+    bitwise = bool(np.array_equal(words, want))
+    print(f"[async secure] one round, {len(plain)} clients, {sec.words} field "
+          f"words each, folded on {device}: {wall:.2f} s; masked field sum "
+          f"== plain fixed-point sum: {bitwise}; committed "
+          f"{srv.updates_committed} ({card_line()})")
+    if (not bitwise or device != "cuda" or srv.version != 1
+            or not all(torch.isfinite(t).all() for t in v.values())):
+        raise AssertionError("async secure round: the masked field sum is not "
+                             "the plain sum, or the round did not commit")
+    return dict(wall_s=wall, words=sec.words, bitwise=bitwise)
+
+
+def phase_slice4a(gen: torch.Generator) -> dict:
+    """Phase 18: the async scheduler (its path, the degenerate pin, the
+    streaming-vs-drain pin, one commit card against CPU), the defended
+    scheduler, and the async messaging FSM with one secure round; each
+    part's seconds.  TF32 off for the f32 checks, restored after."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    rec, seconds = {}, {}
+    try:
+        for key, part in (("scheduler", async_scheduler_path),
+                          ("stream_vs_drain",
+                           lambda: async_stream_vs_drain(gen)),
+                          ("degenerate", lambda: (f32_off(),
+                                                  async_degenerate_f32())[1]),
+                          ("card_cpu", async_card_cpu),
+                          ("defended", async_defended_path),
+                          ("messaging", async_messaging_path)):
+            t0 = time.perf_counter()
+            rec[key] = part()
+            seconds[key] = time.perf_counter() - t0
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    rec["seconds"] = seconds
+    print(f"[slice 4a] phase 18 took {sum(seconds.values()):.1f} s: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+          + f" ({card_line()})")
+    return rec
+
+
 def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
                 counts: dict, robust_counts: dict, resnet56: dict,
                 paths: dict, gn_slice7a: list, gn_slice7a_ii: list,
-                messaging_fold_rec: dict) -> dict:
+                messaging_fold_rec: dict, async_folds: dict) -> dict:
     """One entry per ported kernel.  GroupNorm's numbers are per training
     step: its 20 launches, five at each stage shape, summed, with bf16
     gamma/beta (ms_f32_gamma: with f32 gamma; layer_ms_per_step: the
@@ -3673,7 +4189,10 @@ def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
     count (each zeroed just before its path ran), and the GroupNorm
     entries carry phase 14's and phase 15's shapes (f32 device time and
     bound a call), and the fold's entry its finalize form at the messaging
-    server's [8, P] bf16 rows."""
+    server's [8, P] bf16 rows.  The async server's arrival fold ([1, P]
+    f32, accumulate) rides the fold's entry, its screened fold (the
+    squared distance and the clipped fold at [1, P] f32) the two robust
+    kernels' entries (phase 18)."""
     entries = []
     for name, rec in (("gn_forward", gn_fwd), ("gn_backward", gn_bwd)):
         sh = rec["shapes"]
@@ -3701,7 +4220,9 @@ def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
         name="wsum", route="cuda", source="fedml_tpu_torch/csrc/aggregate.cu",
         replaces=TPU_KERNELS["wsum"][0], function=TPU_KERNELS["wsum"][1],
         status="ported",
-        launches=counts["wsum"], max_abs_err=fold_rec["max_abs_err"],
+        launches=counts["wsum"],
+        max_abs_err=max(fold_rec["max_abs_err"],
+                        async_folds["fold"]["max_abs_err"]),
         ms=fold_rec["ms"], host_ms=fold_rec["host_ms"],
         plain_ms=fold_rec["plain_ms"],
         bound_ms=fold_rec["bound"][0], bound_by=fold_rec["bound"][1],
@@ -3710,6 +4231,8 @@ def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
         finalize=fold_rec["finalize"],
         messaging_path={k: (v[0] if k == "bound" else v)
                         for k, v in messaging_fold_rec.items()},
+        async_arrival={k: (v[0] if k == "bound" else v)
+                       for k, v in async_folds["fold"].items()},
         resnet56_path={k: (v[0] if k == "bound" else v)
                        for k, v in resnet56["fold"].items()}))
     for name in ("sqnorm", "clip_agg"):
@@ -3718,13 +4241,20 @@ def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
             name=name, route="cuda", source="fedml_tpu_torch/csrc/robust.cu",
             replaces=TPU_KERNELS[name][0], function=TPU_KERNELS[name][1],
             status="ported", launches=robust_counts[name],
-            max_abs_err=max(main["max_abs_err"], other["max_abs_err"]),
+            max_abs_err=max(main["max_abs_err"], other["max_abs_err"],
+                            async_folds["screened"][f"{name}_max_abs_err"]),
             ms=main["ms"], host_ms=main["host_ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound"][0], bound_by=main["bound"][1],
             library_ms=main["library_ms"], library=main["library"],
             unit=f"one call at the mesh chunk: [{MAIN_CHUNK}, P] bf16"
                  + (", accumulate form" if name == "clip_agg" else ""),
-            fedavg_robust={k: v for k, v in other.items()}))
+            fedavg_robust={k: v for k, v in other.items()},
+            async_screened={
+                "shape": [1, P_PADDED], "dtype": "float32",
+                **{key: async_folds["screened"][f"{name}_{key}"]
+                   for key in ("max_abs_err", "ms", "plain_ms",
+                               "library_ms")},
+                "bound_ms": async_folds["screened"][f"{name}_bound"][0]}))
     for e in entries:
         e["launches_by_path"] = {p: c[e["name"]] for p, c in paths.items()}
         if e["name"].startswith("gn_"):
@@ -3770,12 +4300,13 @@ def main() -> int:
     slice7a_ii = clock("15 slice 7a-ii", phase_slice7a_ii, gen)
     slice5b_i = clock("16 slice 5b-i", phase_slice5b_i)
     slice5b_ii = clock("17 slice 5b-ii", phase_slice5b_ii)
+    slice4a = clock("18 slice 4a", phase_slice4a, gen)
     print(json.dumps({"zoo": zoo, "resnet56_path": {
         k: v for k, v in resnet56.items() if k != "fold"},
         "word_lstm": word_lstm, "c1": c1, "data_path": data_path,
         "slice7a": slice7a, "slice7a_ii": slice7a_ii,
         "slice5b_i": slice5b_i, "slice5b_ii": slice5b_ii,
-        "seconds": seconds}, default=str))
+        "slice4a": slice4a, "seconds": seconds}, default=str))
     print("[timing] seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {sum(seconds.values()):.1f} ({card})")
@@ -3788,12 +4319,16 @@ def main() -> int:
                 slice5b_i["messaging_path"]["runs"].items()},
              "messaging tcp under chaos": slice5b_ii["chaos"]["chaos"][
                  "launches"],
-             "mqtt": slice5b_ii["mqtt"]["mqtt"]["launches"]}
+             "mqtt": slice5b_ii["mqtt"]["mqtt"]["launches"],
+             "async scheduler": slice4a["scheduler"]["launches"],
+             "async defended": slice4a["defended"]["launches"],
+             "async messaging": slice4a["messaging"]["launches"]}
     print(json.dumps(kernel_line(gn_fwd, gn_bwd, fold_rec, robust_rec, counts,
                                  robust_counts, resnet56, paths,
                                  slice7a["gn_shapes"],
                                  slice7a_ii["gn_shapes"],
-                                 slice5b_i["messaging_path"]["fold"])))
+                                 slice5b_i["messaging_path"]["fold"],
+                                 slice4a["stream_vs_drain"])))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
