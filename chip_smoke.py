@@ -143,12 +143,33 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    threads, 3 commits, launches exact) and one secure round at full
    width whose masked field sum, folded on the card, is the plain
    fixed-point sum word for word;
-19. one JSON line of the zoo's, C.1's, the data path's and slices 7a-i's,
-   7a-ii's, 5b-i's, 5b-ii's and 4a's numbers, one listing every TPU
+19. slice 4b and the one-card part of slice 6: the main path
+   block-streamed (MeshFedAvgEngine(stream_block=2), one round with the
+   upload prefetch and one without, both bitwise the streaming round
+   under cuDNN's deterministic algorithms, wsum and GroupNorm launches
+   exact, at most two blocks of the cohort resident, peak device memory
+   and the transfer overlap printed) and a norm_clip block round
+   (launches exact; in f32 card against CPU within phase 4's limits); the
+   two-phase order statistics (median bitwise the resident round, krum
+   selecting the resident round's client, the pinned host matrix's
+   bytes); checkpoint and resume at phase 16's f32 shape (FedAvgEngine 2
+   + 1 resumed rounds bitwise 3 straight ones, the async scheduler's
+   saved state restored bitwise, the async server's crash-resume over
+   INPROC); the serve spine at bench.py's serve settings cut to 8 commits
+   (one fold launch an arrival, registry bytes/client within the gate,
+   the trace bitwise a CPU run's); the ingest torture over TCP at
+   ResNet-18-GN's flat width, plain and defended (launches exact), and
+   one secure messaging round at full width (the field sum bitwise the
+   plain fixed-point sum); the connection torture at 256 connections
+   (FD delta 0);
+20. one JSON line of the zoo's, C.1's, the data path's and slices 7a-i's,
+   7a-ii's, 5b-i's, 5b-ii's, 4a's and 4b's numbers, one listing every TPU
    kernel of the JAX package with its port's numbers and its launches on
    every path, then the last line {"ok": true, "device": {...}}.
 
 It needs one card; it imports nothing of JAX or of fedml_tpu.
+``python3 chip_smoke.py --phase 19`` builds the kernels and runs phase 19
+alone (a quicker check of that slice; it prints no kernel line).
 """
 from __future__ import annotations
 
@@ -187,11 +208,13 @@ from fedml_tpu_torch.algorithms.turboaggregate import TurboAggregateEngine
 from fedml_tpu_torch.algorithms.vertical_fl import VFLEngine
 from fedml_tpu_torch.async_ import (STALENESS_MODES, AsyncBuffer,
                                     AsyncClientManager, AsyncFedAvgEngine,
-                                    AttackConfig, DefenseConfig,
-                                    LifecycleConfig, UpdateAdmission,
-                                    make_drain_fold_fn, make_fold_fn,
-                                    make_stream_commit_fn,
-                                    run_async_messaging)
+                                    AsyncServerManager, AttackConfig,
+                                    DefenseConfig, LifecycleConfig,
+                                    UpdateAdmission, make_drain_fold_fn,
+                                    make_fold_fn, make_stream_commit_fn,
+                                    run_async_messaging,
+                                    run_connection_torture,
+                                    run_ingest_torture)
 from fedml_tpu_torch.comm.chaos import ChaosConfig, ChaosPolicy
 from fedml_tpu_torch.comm.fedavg_messaging import (FedAvgAggregator,
                                                    FedAvgClientManager,
@@ -245,7 +268,9 @@ from fedml_tpu_torch.parallel.engine import (MeshFedAvgEngine,
                                              MeshFedProxEngine,
                                              MeshRobustEngine,
                                              chunked_weighted_train)
+from fedml_tpu_torch.scale import ArrivalConfig, run_serve_sim
 from fedml_tpu_torch.secure import SecAggConfig, SecureAggregator
+from fedml_tpu_torch.utils.checkpoint import FedCheckpointManager
 from fedml_tpu_torch.utils.config import FedConfig
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
@@ -4174,6 +4199,662 @@ def phase_slice4a(gen: torch.Generator) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 19: slice 4b and the one-card part of slice 6
+# ---------------------------------------------------------------------------
+
+STREAM_BLOCK = 2               # 19a-19b: clients a block (a chunk multiple)
+CKPT_CLIENTS, CKPT_BATCHES = 4, 4       # 19c: phase 16's f32 shape
+SERVE = dict(population=1_000_000, commits=8, warmup_commits=4, buffer_k=32,
+             row_dim=4096, sampler_mode="stratified", dropout_prob=0.02,
+             banned_frac=0.01, seed=0)   # bench.py's serve arm, cut to 8
+SERVE_BYTES_PER_CLIENT_GATE = 100.0
+INGEST = dict(n_clients=8, p=N_PARAMS, buffer_k=4, commits=3,
+              warmup_commits=1, ingest_pool=4, decode_into=True,
+              streaming=True, timeout_s=300)
+SECURE_CLIENTS = 4
+CONN = dict(n_connections=256, p=1024, buffer_k=32, commits=3,
+            warmup_commits=1, timeout_s=120)
+
+
+def deterministic(fn):
+    """fn() under cuDNN's deterministic algorithms (restored after)."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def main_recipe():
+    """Phase 5's data, config and trainer (8 clients x 13 batches of 32,
+    ResNet-18-GN at full width, bf16 compute)."""
+    data = synthetic_data(MAIN_CLIENTS, SAMPLES, seed=0)
+    cfg = FedConfig(model="resnet18_gn", dataset="cifar10",
+                    client_num_in_total=MAIN_CLIENTS,
+                    client_num_per_round=MAIN_CLIENTS, epochs=1,
+                    batch_size=BATCH, lr=0.1, frequency_of_the_test=10_000)
+    trainer = ClientTrainer(create_model("resnet18_gn", 10), lr=cfg.lr,
+                            train_dtype=torch.bfloat16)
+    return trainer, data, cfg
+
+
+def one_round(eng, v0: dict, expected: dict, tag: str) -> dict:
+    """eng.run for one round (one evaluation after it) from v0, its
+    launches counted from zero and held to `expected`, the peak device
+    memory of the round."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    v = eng.run(variables=dict(v0), rounds=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if counts != expected:
+        raise AssertionError(f"{tag}: launches {counts} != expected "
+                             f"{expected}")
+    if not all(torch.isfinite(t).all() for t in v.values()):
+        raise AssertionError(f"{tag}: a non-finite global model")
+    return dict(variables=v, launches=counts, wall_s=wall,
+                peak_bytes=torch.cuda.max_memory_allocated() - base)
+
+
+def main_path_expected(rounds: int = 1, wsum: int = 0, sqnorm: int = 0,
+                       clip_agg: int = 0) -> dict:
+    """Phase 5's GroupNorm counts for `rounds` rounds and one evaluation."""
+    steps = rounds * MAIN_CLIENTS * BATCHES
+    return {"gn_forward": 20 * (steps + 2), "gn_backward": 20 * steps,
+            "wsum": wsum, "sqnorm": sqnorm, "clip_agg": clip_agg}
+
+
+def same_model(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in b)
+
+
+def blockstream_main_path() -> dict:
+    """19a: MeshFedAvgEngine(stream_block=2, chunk=2, local_dtype=bf16) on
+    phase 5's clients, one round with the upload prefetch and one without,
+    against the streaming round of the same cohort (cuDNN deterministic):
+    all three bitwise, launches exact (wsum 4), at most two blocks
+    resident; then one norm_clip block round (launches exact) and the same
+    round in f32 on 4 one-batch clients card against CPU (phase 4's
+    limits)."""
+    trainer, data, cfg = main_recipe()
+    kw = dict(chunk=MAIN_CHUNK, local_dtype=torch.bfloat16)
+    stream = MeshFedAvgEngine(trainer, data, cfg, **kw)
+    v0 = stream.init_variables()
+    folds = MAIN_CLIENTS // MAIN_CHUNK
+    runs = {}
+    for tag, eng in (
+            ("streaming", stream),
+            ("block, prefetch", MeshFedAvgEngine(
+                trainer, data, cfg, stream_block=STREAM_BLOCK, **kw)),
+            ("block, no prefetch", MeshFedAvgEngine(
+                trainer, data, cfg, stream_block=STREAM_BLOCK,
+                prefetch=False, **kw))):
+        runs[tag] = deterministic(lambda: one_round(
+            eng, v0, main_path_expected(wsum=folds), f"19a {tag}"))
+        runs[tag]["engine"] = eng
+    want = runs["streaming"]["variables"]
+    bitwise = {t: same_model(r["variables"], want) for t, r in runs.items()}
+    pre = runs["block, prefetch"]["engine"]
+    block_bytes = sum(np.asarray(v[:STREAM_BLOCK]).nbytes
+                      for v in data.client_shards.values())
+    stats = pre.transfer_stats.rounds[-1]
+    print(f"[19a] {MAIN_CLIENTS} clients in blocks of {STREAM_BLOCK}, chunk "
+          f"{MAIN_CHUNK}, bf16 masters: block rounds bitwise the streaming "
+          f"round {bitwise}; s/round " + ", ".join(
+              f"{t} {r['wall_s']:.3f}" for t, r in runs.items())
+          + "; peak device memory " + ", ".join(
+              f"{t} {r['peak_bytes'] / 2**20:.1f} MiB"
+              for t, r in runs.items())
+          + f"; cohort bytes resident at most {pre.peak_resident_block_bytes}"
+          f" ({pre.peak_resident_block_bytes / block_bytes:.2f} blocks of "
+          f"{block_bytes}); upload {stats['upload_wall_s']:.4f} s, wait "
+          f"{stats['wait_wall_s']:.4f} s, overlap fraction "
+          f"{stats['overlap_fraction']:.3f}; launches "
+          f"{runs['block, prefetch']['launches']} == expected "
+          f"({card_line()})")
+    if not all(bitwise.values()):
+        raise AssertionError(f"19a: the block rounds are not the streaming "
+                             f"round bitwise: {bitwise}")
+    for eng in (pre, runs["block, no prefetch"]["engine"]):
+        if eng.peak_resident_block_bytes > 2 * block_bytes \
+                or eng.resident_block_bytes != 0:
+            raise AssertionError(
+                f"19a: {eng.peak_resident_block_bytes} cohort bytes "
+                f"resident, more than two blocks of {block_bytes}")
+    clip = MeshRobustEngine(trainer, data, cfg, defense="norm_clip",
+                            stream_block=STREAM_BLOCK, **kw)
+    rec_clip = one_round(clip, v0, main_path_expected(
+        sqnorm=folds, clip_agg=folds), "19a norm_clip block round")
+    print(f"[19a] norm_clip block round (bound {cfg.norm_bound}): "
+          f"{rec_clip['wall_s']:.3f} s, launches {rec_clip['launches']} == "
+          f"expected ({card_line()})")
+    small = small_clip_card_cpu()
+    streaming = streaming_prefetch(trainer, data, cfg, v0)
+    return dict(bitwise=bitwise, streaming_prefetch=streaming,
+                s_per_round={t: r["wall_s"] for t, r in runs.items()},
+                peak_bytes={t: r["peak_bytes"] for t, r in runs.items()},
+                resident_bytes=pre.peak_resident_block_bytes,
+                block_bytes=block_bytes, transfer=stats,
+                launches=runs["block, prefetch"]["launches"],
+                clip_launches=rec_clip["launches"],
+                clip_s=rec_clip["wall_s"], clip_card_cpu=small)
+
+
+def streaming_prefetch(trainer, data, cfg, v0: dict) -> dict:
+    """19a: MeshFedAvgEngine(streaming=True) on phase 5's clients for 2
+    rounds, round 2's cohort uploaded on the prefetch thread while round 1
+    trains, against the same 2 rounds with prefetch=False (cuDNN
+    deterministic): bitwise, launches exact."""
+    kw = dict(chunk=MAIN_CHUNK, local_dtype=torch.bfloat16, streaming=True)
+    runs = {}
+    for tag, prefetch in (("prefetch", True), ("no prefetch", False)):
+        eng = MeshFedAvgEngine(trainer, data, cfg, prefetch=prefetch, **kw)
+
+        def two_rounds():
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            v = eng.run(variables=dict(v0), rounds=2)
+            torch.cuda.synchronize()
+            return v, time.perf_counter() - t0, launch_counts()
+        v, wall, counts = deterministic(two_rounds)
+        expected = main_path_expected(rounds=2,
+                                      wsum=2 * MAIN_CLIENTS // MAIN_CHUNK)
+        expected["gn_forward"] += 40          # the last round's evaluation
+        if counts != expected:
+            raise AssertionError(f"19a streaming {tag}: launches {counts} "
+                                 f"!= expected {expected}")
+        runs[tag] = dict(variables=v, wall_s=wall, launches=counts,
+                         transfer=eng.transfer_stats.report(),
+                         prefetched=eng._prefetched)
+    bitwise = same_model(runs["prefetch"]["variables"],
+                         runs["no prefetch"]["variables"])
+    print(f"[19a] streaming=True, 2 rounds: prefetch on and off bitwise "
+          f"{bitwise}; s for 2 rounds " + ", ".join(
+              f"{t} {r['wall_s']:.3f}" for t, r in runs.items())
+          + "; transfer " + ", ".join(
+              f"{t} upload {r['transfer']['upload_wall_s']:.4f} s wait "
+              f"{r['transfer']['wait_wall_s']:.4f} s overlap "
+              f"{r['transfer']['overlap_fraction']:.3f}"
+              for t, r in runs.items())
+          + f"; launches {runs['prefetch']['launches']} == expected "
+          f"({card_line()})")
+    if not bitwise or any(r["prefetched"] is not None
+                          for r in runs.values()):
+        raise AssertionError("19a: the streaming rounds with and without "
+                             "the prefetch differ, or a cohort was left "
+                             "prefetched")
+    return {t: dict(wall_s=r["wall_s"], transfer=r["transfer"],
+                    launches=r["launches"]) for t, r in runs.items()}
+
+
+def small_clip_card_cpu() -> dict:
+    """19a: the norm_clip block round in f32 (TF32 off) on 4 clients of one
+    batch, card against CPU: the update within 1e-3 of its norm, 1e-2 a
+    leaf (phase 4's limits)."""
+    f32_off()
+    data = synthetic_data(4, BATCH, seed=6)
+    cfg = FedConfig(model="resnet18_gn", dataset="cifar10",
+                    client_num_in_total=4, client_num_per_round=4, epochs=1,
+                    batch_size=BATCH, lr=0.1, frequency_of_the_test=10_000,
+                    norm_bound=0.5)
+    trainer = ClientTrainer(create_model("resnet18_gn", 10), lr=0.1)
+    out = {}
+    for device in ("cuda", "cpu"):
+        eng = MeshRobustEngine(trainer, data, cfg, defense="norm_clip",
+                               stream_block=STREAM_BLOCK, chunk=MAIN_CHUNK,
+                               device=device)
+        v0 = eng.init_variables()
+        out[device] = (v0, eng.run(variables=dict(v0), rounds=1))
+    torch.cuda.synchronize()
+    (g0, g1), (c0, c1) = out["cuda"], out["cpu"]
+    whole, worst = update_distance("19a norm_clip", g0, g1, c0, c1)
+    print(f"[19a] f32 norm_clip block round, 4 clients x 1 batch: card vs CPU "
+          f"update distance {whole:.3e} (limit 1e-3), worst leaves "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst) + " (limit 1e-2)")
+    if whole > 1e-3 or worst[0][1] > 1e-2:
+        raise AssertionError("19a: the f32 norm_clip block round differs "
+                             "from the CPU's beyond phase 4's limits")
+    return dict(distance=whole, worst=worst)
+
+
+def two_phase_orderstat() -> dict:
+    """19b: MeshRobustEngine(defense=median, krum; stream_block=2) one
+    round each on 19a's clients against the resident round (cuDNN
+    deterministic): median bitwise; krum the resident's client (bitwise
+    its model), its scores from the Gram matrix printed beside the
+    resident formula's on the same rows (TF32 off; both cancel, so only
+    the selection is held)."""
+    trainer, data, cfg = main_recipe()
+    kw = dict(chunk=MAIN_CHUNK, local_dtype=torch.bfloat16)
+    rec = {}
+    select = robust_ops.krum_select_flat
+    resident_scores = []
+
+    def recording_select(flats, n_byzantine):
+        resident_scores.append(robust_ops.krum_scores_flat(
+            flats, n_byzantine).cpu().numpy())
+        return select(flats, n_byzantine)
+
+    for defense in ("median", "krum"):
+        res = MeshRobustEngine(trainer, data, cfg, defense=defense,
+                               n_byzantine=1, **kw)
+        v0 = res.init_variables()
+        blk = MeshRobustEngine(trainer, data, cfg, defense=defense,
+                               n_byzantine=1, stream_block=STREAM_BLOCK,
+                               **kw)
+        robust_ops.krum_select_flat = recording_select
+        try:
+            r_res = deterministic(lambda: one_round(
+                res, v0, main_path_expected(), f"19b resident {defense}"))
+        finally:
+            robust_ops.krum_select_flat = select
+        r_blk = deterministic(lambda: one_round(
+            blk, v0, main_path_expected(), f"19b two-phase {defense}"))
+        bitwise = same_model(r_blk["variables"], r_res["variables"])
+        out = dict(bitwise=bitwise, resident_s=r_res["wall_s"],
+                   two_phase_s=r_blk["wall_s"],
+                   host_matrix_bytes=blk.orderstat_host_bytes,
+                   peak_bytes=(r_res["peak_bytes"], r_blk["peak_bytes"]),
+                   launches=r_blk["launches"])
+        if defense == "krum":
+            got, want = blk.last_krum_scores, resident_scores[-1]
+            rel = float(np.max(np.abs(got - want) / np.abs(want)))
+            out.update(scores=[float(s) for s in got], scores_rel=rel,
+                       selected=int(np.argmin(got)),
+                       resident_selected=int(np.argmin(want)))
+            print(f"[19b] krum scores from the Gram matrix vs the resident "
+                  f"formula on the same rows: max relative {rel:.3e}; "
+                  f"selected {out['selected']} (resident "
+                  f"{out['resident_selected']})")
+            if out["selected"] != out["resident_selected"]:
+                raise AssertionError("19b: krum's two-phase round selects "
+                                     "another client than the resident's")
+        print(f"[19b] {defense}: two-phase round bitwise the resident round "
+              f"{bitwise}; s/round resident {r_res['wall_s']:.3f}, two-phase "
+              f"{r_blk['wall_s']:.3f}; pinned host [K, P] matrix "
+              f"{blk.orderstat_host_bytes} bytes; peak device memory "
+              f"resident {r_res['peak_bytes'] / 2**20:.1f} MiB, two-phase "
+              f"{r_blk['peak_bytes'] / 2**20:.1f} MiB; launches "
+              f"{r_blk['launches']} == expected ({card_line()})")
+        if not bitwise:
+            raise AssertionError(f"19b: the two-phase {defense} round is not "
+                                 "the resident round bitwise")
+        rec[defense] = out
+    return rec
+
+
+def f32_recipe(n_clients: int, batches: int, seed: int):
+    """Phase 16's f32 recipe: ResNet-18-GN at full width, f32."""
+    data = synthetic_data(n_clients, batches * BATCH, seed=seed)
+    cfg = FedConfig(model="resnet18_gn", dataset="cifar10",
+                    client_num_in_total=n_clients,
+                    client_num_per_round=n_clients, epochs=1,
+                    batch_size=BATCH, lr=0.1, comm_round=3,
+                    frequency_of_the_test=10_000)
+    return ClientTrainer(create_model("resnet18_gn", 10), lr=cfg.lr), data, cfg
+
+
+def checkpoint_resume() -> dict:
+    """19c: at phase 16's f32 shape (4 clients x 4 batches), cuDNN
+    deterministic: FedAvgEngine.run for 2 rounds, then a fresh engine
+    resumed for the third, bitwise the straight 3 rounds; the async
+    scheduler saving after 2 commits (its restored async_state() bitwise
+    the saved one, the resumed run committing to the budget); the async
+    server's crash-resume over INPROC."""
+    trainer, data, cfg = f32_recipe(CKPT_CLIENTS, CKPT_BATCHES, seed=4)
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def fedavg():
+            straight = FedAvgEngine(trainer, data, cfg)
+            v0 = straight.init_variables()
+            want = straight.run(variables=dict(v0), rounds=3)
+            ck = FedCheckpointManager(f"{tmp}/fedavg")
+            FedAvgEngine(trainer, data, cfg).run(
+                variables=dict(v0), rounds=2, ckpt=ck, ckpt_every=1)
+            t0 = time.perf_counter()
+            got = FedAvgEngine(trainer, data, cfg).run(
+                variables=dict(v0), rounds=3, ckpt=ck, ckpt_every=1,
+                resume=True)
+            torch.cuda.synchronize()
+            return same_model(got, want), time.perf_counter() - t0
+        bitwise, resume_s = deterministic(fedavg)
+        print(f"[19c] FedAvgEngine.run 2 rounds + a resumed third bitwise "
+              f"the straight 3 rounds: {bitwise} (resumed round "
+              f"{resume_s:.2f} s; {CKPT_CLIENTS} clients x {CKPT_BATCHES} "
+              f"batches, f32) ({card_line()})")
+        if not bitwise:
+            raise AssertionError("19c: the resumed run is not the straight "
+                                 "run bitwise")
+        rec["fedavg"] = dict(bitwise=bitwise, resumed_round_s=resume_s)
+
+        acfg = dataclasses.replace(cfg, comm_round=4)
+        kw = dict(buffer_k=2, concurrency=CKPT_CLIENTS,
+                  staleness="polynomial",
+                  lifecycle_cfg=LifecycleConfig(**ASYNC_LIFECYCLE))
+        ck = FedCheckpointManager(f"{tmp}/async")
+        first = AsyncFedAvgEngine(trainer, data, acfg, **kw)
+        v0 = first.init_variables()
+        first.run(variables=dict(v0), rounds=2, ckpt=ck, ckpt_every=2)
+        saved = first.async_state()
+        fresh = AsyncFedAvgEngine(trainer, data, acfg, **kw)
+        _r, _v, _s, extra = ck.restore(v0, (),
+                                       extra_template=fresh.async_state())
+        fresh.load_async_state(extra)
+        again = fresh.async_state()
+        same = all(np.array_equal(again[part][k], saved[part][k])
+                   for part in ("buffer", "registry") for k in saved[part])
+        resumed = AsyncFedAvgEngine(trainer, data, acfg, **kw)
+        out = resumed.run(variables=dict(v0), rounds=4, ckpt=ck,
+                          resume=True)
+        torch.cuda.synchronize()
+        print(f"[19c] async scheduler: saved after 2 commits, restored "
+              f"async_state bitwise the saved one: {same}; resumed run "
+              f"committed to version {resumed.version} of 4")
+        if not same or resumed.version != 4 or not all(
+                torch.isfinite(t).all() for t in out.values()):
+            raise AssertionError("19c: the async scheduler's resume failed")
+        rec["scheduler"] = dict(state_bitwise=same, version=resumed.version)
+        rec["lifecycle"] = lifecycle_crash_resume(trainer, data,
+                                                  f"{tmp}/server")
+    return rec
+
+
+def lifecycle_crash_resume(trainer, data, ckpt_dir: str) -> dict:
+    """19c: the async server over INPROC with 2 reliable client threads,
+    K 2, 4 commits, checkpointing every commit: crashed after its second
+    commit, rebuilt with resume=True from the checkpoint (its model
+    bitwise the saved one), the clients re-handshaked to the budget."""
+    init = trainer.init(torch.Generator().manual_seed(0), "cuda")
+    init = {k: init[k] for k in trainer.spec.names}
+    router = InProcRouter()
+    kw = dict(router=router)
+    server1 = AsyncServerManager(init, 4, 2, 0, 3, "INPROC", deadline_s=30.0,
+                                 reliable=True, checkpoint_dir=ckpt_dir,
+                                 checkpoint_every=1, **kw)
+    clients = [AsyncClientManager(trainer, data, 1, r, 3, "INPROC",
+                                  reliable=True, **kw) for r in (1, 2)]
+    server2 = None
+    t0 = time.perf_counter()
+    try:
+        for c in clients:
+            c.run_async()
+        server1.run_async()
+        server1.send_start()
+        deadline = time.time() + 300
+        while server1.version < 2 and time.time() < deadline:
+            time.sleep(0.01)
+        server1.crash()
+        crashed_at = server1.version
+        saved = FedCheckpointManager(ckpt_dir).latest_round()
+        server2 = AsyncServerManager(init, 4, 2, 0, 3, "INPROC",
+                                     deadline_s=30.0, reliable=True,
+                                     checkpoint_dir=ckpt_dir,
+                                     checkpoint_every=1, resume=True, **kw)
+        _, want, _ = FedCheckpointManager(ckpt_dir).restore(
+            init, (), round_idx=saved)
+        restored = same_model(server2.variables, want)
+        counters = (server2.registry.total_participation()
+                    == server2.updates_committed)
+        server2.run_async()
+        server2.send_start()
+        done = server2.done.wait(timeout=300)
+        torch.cuda.synchronize()
+    finally:
+        for c in clients:
+            c.finish()
+        if server2 is not None:
+            server2.finish()
+        server1.finish()
+    wall = time.perf_counter() - t0
+    print(f"[19c] async server crash-resume over INPROC: crashed at version "
+          f"{crashed_at}, resumed from checkpoint {saved} (model bitwise the "
+          f"saved one: {restored}; registry counters agree: {counters}), "
+          f"finished at version {server2.version} of 4 in {wall:.2f} s")
+    if not (done and restored and counters and server2.version == 4
+            and saved >= 2):
+        raise AssertionError("19c: the async server's crash-resume failed")
+    return dict(crashed_at=crashed_at, saved=saved, wall_s=wall,
+                version=server2.version)
+
+
+def serve_spine() -> dict:
+    """19d: run_serve_sim at bench.py's serve settings (1,000,000 clients,
+    K 32, row_dim 4096, stratified, diurnal arrivals at 2,000/s, dropout
+    0.02, 1% banned, seed 0), cut to 8 commits (4 warm-up): one fold
+    launch an admitted arrival, registry bytes/client within the bench's
+    gate, the trace bitwise a CPU run's, the committed row within 1e-6."""
+    arrival = ArrivalConfig(mode="diurnal", rate=2000.0, period_s=600.0,
+                            amplitude=0.8, flash_at_s=5.0,
+                            flash_duration_s=10.0, flash_boost=5.0, seed=0)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    card = run_serve_sim(**SERVE, arrival=arrival, keep_variables=True)
+    counts = launch_counts()
+    cpu = run_serve_sim(**SERVE, arrival=arrival, device="cpu",
+                        keep_variables=True)
+    fields = ("trace_digest", "committed_updates", "distinct_contributors",
+              "max_client_participation", "virtual_time_s", "crashed",
+              "banned", "registry_bytes", "registry_shards_allocated",
+              "sampler_peak_scratch_bytes")
+    trace_same = all(card[f] == cpu[f] for f in fields)
+    a, b = card.pop("variables")["w"].cpu(), cpu.pop("variables")["w"]
+    rel = float((a.double() - b.double()).norm() / b.double().norm())
+    expected = {"gn_forward": 0, "gn_backward": 0,
+                "wsum": card["committed_updates"], "sqnorm": 0,
+                "clip_agg": 0}
+    print(f"[19d] serve spine, {SERVE['population']} clients, "
+          f"{card['commits']} commits of K={SERVE['buffer_k']} "
+          f"(row_dim {SERVE['row_dim']}): {card['committed_updates_per_sec']:.1f}"
+          f" committed updates/s after {SERVE['warmup_commits']} warm-up "
+          f"commits, RSS {card['rss_bytes'] / 2**20:.1f} MiB, registry "
+          f"{card['registry_bytes_per_client']:.1f} bytes/client (gate "
+          f"{SERVE_BYTES_PER_CLIENT_GATE}), {card['crashed']} crashed, "
+          f"{card['banned']} banned; trace bitwise the CPU run's: "
+          f"{trace_same}; committed row {rel:.3e} from the CPU's (bitwise "
+          f"{bool(torch.equal(a, b))}); launches {counts} ({card_line()})")
+    if (counts != expected or not trace_same or rel > 1e-6
+            or card["registry_bytes_per_client"]
+            > SERVE_BYTES_PER_CLIENT_GATE):
+        raise AssertionError(f"19d: launches {counts} != {expected}, or the "
+                             "trace, row or registry gate failed")
+    return dict(report=card, launches=counts, row_rel=rel,
+                trace_bitwise=trace_same)
+
+
+def counting(cls, name: str, tally: dict):
+    """Wrap cls.name to count its calls (and, for add_screened, the
+    admitted ones) into `tally`; returns the restore callable."""
+    orig = getattr(cls, name)
+
+    def wrapped(self, *a, **k):
+        out = orig(self, *a, **k)
+        tally[name] = tally.get(name, 0) + 1
+        if name == "add_screened" and out[0]:
+            tally["admitted"] = tally.get("admitted", 0) + 1
+        return out
+
+    setattr(cls, name, wrapped)
+    return lambda: setattr(cls, name, orig)
+
+
+def ingest_full_width() -> dict:
+    """19e: run_ingest_torture over TCP at ResNet-18-GN's flat width, 8
+    clients, K 4, 1 warm-up + 3 commits, pool 4, decode-into and
+    streaming: one fold launch an update folded; the defended arm: one
+    squared distance an arrival and one clipped fold an admitted one; then
+    one secure messaging round over INPROC (4 f32 clients at full width):
+    the masked field sum folded on the card bitwise the plain fixed-point
+    sum, the model within K * 2^-16 of the plain messaging round."""
+    rec = {}
+    for arm, defense in (("streaming", None),
+                         ("defended", DefenseConfig(norm_bound=1e6))):
+        tally: dict = {}
+        restore = [counting(AsyncBuffer, "add", tally),
+                   counting(AsyncBuffer, "add_screened", tally)]
+        try:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            r = run_ingest_torture(backend="TCP",
+                                   base_port=free_base_port(1),
+                                   defense=defense, **INGEST)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        finally:
+            for undo in restore:
+                undo()
+        if defense is None:
+            expected = {"gn_forward": 0, "gn_backward": 0,
+                        "wsum": tally.get("add", 0), "sqnorm": 0,
+                        "clip_agg": 0}
+        else:
+            expected = {"gn_forward": 0, "gn_backward": 0, "wsum": 0,
+                        "sqnorm": tally.get("add_screened", 0),
+                        "clip_agg": tally.get("admitted", 0)}
+        print(f"[19e] ingest torture over TCP, {arm}: {INGEST['n_clients']} "
+              f"clients, p {r['p']}, K {INGEST['buffer_k']}, pool "
+              f"{INGEST['ingest_pool']}: {r['committed_updates_per_sec']:.2f} "
+              f"committed updates/s, decode p50 {r['decode_p50_s']:.4f} s p95 "
+              f"{r['decode_p95_s']:.4f} s, {r['updates_committed']} updates "
+              f"committed, {tally} buffer inserts; launches {counts} == "
+              f"expected ({card_line()})")
+        min_updates = INGEST["commits"] * INGEST["buffer_k"]
+        if (counts != expected or r["updates_committed"] != min_updates
+                or not r["finite"] or r["recv_thread_deaths"]):
+            raise AssertionError(f"19e {arm}: launches {counts} != "
+                                 f"{expected}, or the run failed")
+        r.pop("slo", None)
+        rec[arm] = dict(report=r, launches=counts, inserts=tally)
+    rec["secure"] = secure_messaging_round()
+    return rec
+
+
+def secure_messaging_round() -> dict:
+    """19e: run_messaging_fedavg(secure=...) one round over INPROC, 4 f32
+    clients x 4 batches at full width, cuDNN deterministic, against the
+    plain messaging round from the same init."""
+    trainer, data, cfg = f32_recipe(SECURE_CLIENTS, CKPT_BATCHES, seed=7)
+    cfg = dataclasses.replace(cfg, comm_round=1)
+    v0 = trainer.init(torch.Generator().manual_seed(cfg.seed), "cuda")
+    plain_rows, masked = {}, []
+    client_row, commit = SecureAggregator.client_row, SecureAggregator.commit
+
+    def recorded_row(self, cid, round_idx, flat, weight):
+        plain_rows[cid] = (np.array(flat, np.float64), float(weight))
+        return client_row(self, cid, round_idx, flat, weight)
+
+    def recorded_commit(self, round_idx, survivors, reset=True):
+        masked.append(self.field_sum(round_idx, survivors)[0])
+        masked.append(self._acc.device.type)
+        return commit(self, round_idx, survivors, reset)
+
+    def both():
+        SecureAggregator.client_row = recorded_row
+        SecureAggregator.commit = recorded_commit
+        try:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            sec = run_messaging_fedavg(trainer, data, cfg, variables=dict(v0),
+                                       secure=SecAggConfig(seed=3),
+                                       timeout=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+        finally:
+            SecureAggregator.client_row = client_row
+            SecureAggregator.commit = commit
+        plain = run_messaging_fedavg(trainer, data, cfg, variables=dict(v0),
+                                     timeout=600)
+        torch.cuda.synchronize()
+        return sec, plain, wall, counts
+
+    sec, plain, wall, counts = deterministic(both)
+    scfg = SecAggConfig(seed=3)
+    want = None
+    for flat, w in plain_rows.values():
+        q = np.empty(flat.size + 1, np.int64)
+        q[:-1] = mpc.quantize(flat * w, scfg.scale, scfg.prime)
+        q[-1] = mpc.quantize(np.array([w]), scfg.scale, scfg.prime)[0]
+        want = q if want is None else (want + q) % scfg.prime
+    words, device = masked
+    bitwise = bool(np.array_equal(words, want))
+    dist = max(float((sec[k] - plain[k]).abs().max()) for k in plain)
+    bound = SECURE_CLIENTS * 2.0 ** -16
+    steps = SECURE_CLIENTS * CKPT_BATCHES
+    expected = {"gn_forward": 20 * steps, "gn_backward": 20 * steps,
+                "wsum": 0, "sqnorm": 0, "clip_agg": 0}
+    print(f"[19e] secure messaging round over INPROC, {SECURE_CLIENTS} f32 "
+          f"clients at full width: {wall:.2f} s; {words.size} field words a "
+          f"client folded on {device}; field sum bitwise the plain "
+          f"fixed-point sum: {bitwise}; model {dist:.3e} from the plain "
+          f"round (bound K*2^-16 = {bound:.3e}); launches {counts} "
+          f"({card_line()})")
+    if (not bitwise or device != "cuda" or dist > bound
+            or counts != expected):
+        raise AssertionError("19e: the secure messaging round failed its "
+                             f"checks (launches {counts} vs {expected})")
+    return dict(wall_s=wall, words=int(words.size), bitwise=bitwise,
+                distance=dist, launches=counts)
+
+
+def connections() -> dict:
+    """19f: run_connection_torture with 256 live connections on the
+    reactor, p 1024, K 32, 1 warm-up + 3 commits: FD delta 0."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    r = run_connection_torture(base_port=free_base_port(1), **CONN)
+    counts = launch_counts()
+    print(f"[19f] connection torture, {CONN['n_connections']} connections: "
+          f"peak open {r['open_connections_peak']}, "
+          f"{r['committed_updates_per_sec']:.1f} committed updates/s, "
+          f"admission p50 {r['admission_p50_s']:.5f} s p95 "
+          f"{r['admission_p95_s']:.5f} s, FD delta {r['fd_leaked']}, "
+          f"receive-thread deaths {r['recv_thread_deaths']}; launches "
+          f"{counts} ({card_line()})")
+    if r["fd_leaked"] != 0 or not r["finite"] or r["recv_thread_deaths"]:
+        raise AssertionError("19f: the connection torture leaked FDs or "
+                             "failed")
+    r.pop("slo", None)
+    r.pop("swarm", None)
+    return dict(report=r, launches=counts)
+
+
+def phase_slice4b() -> dict:
+    """Phase 19: the block-streamed main path, the two-phase order
+    statistics, checkpoint and resume, the serve spine, ingest at full
+    width with the secure messaging round, and the connection torture;
+    each part's seconds.  TF32 off throughout, restored after."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    rec, seconds = {}, {}
+    f32_off()
+    try:
+        for key, part in (("19a block stream", blockstream_main_path),
+                          ("19b two-phase", two_phase_orderstat),
+                          ("19c checkpoint", checkpoint_resume),
+                          ("19d serve", serve_spine),
+                          ("19e ingest", ingest_full_width),
+                          ("19f connections", connections)):
+            t0 = time.perf_counter()
+            rec[key] = part()
+            seconds[key] = time.perf_counter() - t0
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    rec["seconds"] = seconds
+    print(f"[slice 4b] phase 19 took {sum(seconds.values()):.1f} s: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+          + f" ({card_line()})")
+    return rec
+
+
 def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
                 counts: dict, robust_counts: dict, resnet56: dict,
                 paths: dict, gn_slice7a: list, gn_slice7a_ii: list,
@@ -4267,6 +4948,21 @@ def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
     return {"kernels": entries, "still_to_port": STILL_TO_PORT}
 
 
+def phase19_paths(rec: dict) -> dict:
+    """Phase 19's paths and their launch counts (each zeroed just before
+    its path ran)."""
+    return {
+        "blockstream main path": rec["19a block stream"]["launches"],
+        "blockstream norm_clip": rec["19a block stream"]["clip_launches"],
+        "two-phase median": rec["19b two-phase"]["median"]["launches"],
+        "two-phase krum": rec["19b two-phase"]["krum"]["launches"],
+        "serve spine": rec["19d serve"]["launches"],
+        "ingest tcp": rec["19e ingest"]["streaming"]["launches"],
+        "ingest defended": rec["19e ingest"]["defended"]["launches"],
+        "secure messaging": rec["19e ingest"]["secure"]["launches"],
+        "connection torture": rec["19f connections"]["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4274,6 +4970,9 @@ def main() -> int:
     card = card_line()
     print(card)
     phase_build()
+    if sys.argv[1:] == ["--phase", "19"]:
+        print(json.dumps({"slice4b": phase_slice4b()}, default=str))
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     seconds = {}
 
@@ -4301,12 +5000,14 @@ def main() -> int:
     slice5b_i = clock("16 slice 5b-i", phase_slice5b_i)
     slice5b_ii = clock("17 slice 5b-ii", phase_slice5b_ii)
     slice4a = clock("18 slice 4a", phase_slice4a, gen)
+    slice4b = clock("19 slice 4b", phase_slice4b)
     print(json.dumps({"zoo": zoo, "resnet56_path": {
         k: v for k, v in resnet56.items() if k != "fold"},
         "word_lstm": word_lstm, "c1": c1, "data_path": data_path,
         "slice7a": slice7a, "slice7a_ii": slice7a_ii,
         "slice5b_i": slice5b_i, "slice5b_ii": slice5b_ii,
-        "slice4a": slice4a, "seconds": seconds}, default=str))
+        "slice4a": slice4a, "slice4b": slice4b, "seconds": seconds},
+        default=str))
     print("[timing] seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {sum(seconds.values()):.1f} ({card})")
@@ -4322,7 +5023,8 @@ def main() -> int:
              "mqtt": slice5b_ii["mqtt"]["mqtt"]["launches"],
              "async scheduler": slice4a["scheduler"]["launches"],
              "async defended": slice4a["defended"]["launches"],
-             "async messaging": slice4a["messaging"]["launches"]}
+             "async messaging": slice4a["messaging"]["launches"],
+             **phase19_paths(slice4b)}
     print(json.dumps(kernel_line(gn_fwd, gn_bwd, fold_rec, robust_rec, counts,
                                  robust_counts, resnet56, paths,
                                  slice7a["gn_shapes"],

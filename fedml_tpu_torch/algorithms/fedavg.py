@@ -119,20 +119,48 @@ class FedAvgEngine:
         cohort, _ = self.data.cohort(self.sampler.sample(round_idx), self.device)
         return cohort, round_idx
 
+    def _resume_state(self) -> Optional[dict]:
+        """Engine state a checkpoint carries beyond (variables,
+        server_state) for a bitwise resume: the weak-DP noise generator of
+        the robust engines (every other draw is keyed on (seed, round))."""
+        gen = getattr(self, "noise_generator", None)
+        return None if gen is None else {"noise_generator": gen.get_state()}
+
+    def _load_resume_state(self, state: Optional[dict]) -> None:
+        if state and "noise_generator" in state:
+            self.noise_generator.set_state(state["noise_generator"])
+
     def run(self, variables: Optional[dict] = None,
-            rounds: Optional[int] = None) -> dict:
-        """The reference's train() loop (fedavg_api.py:40-81)."""
+            rounds: Optional[int] = None, ckpt=None, ckpt_every: int = 0,
+            resume: bool = False) -> dict:
+        """The reference's train() loop (fedml_tpu/algorithms/fedavg.py
+        ::run, fedavg_api.py:40-81), plus the round-level checkpoint and
+        resume the reference lacks: `ckpt` is a
+        utils.checkpoint.FedCheckpointManager saved every `ckpt_every`
+        rounds; with `resume` the run continues from its latest round,
+        bitwise as the uninterrupted run (the sampler reseeds per round,
+        each client's generator is keyed on (seed, round, lane))."""
         cfg = self.cfg
         variables = variables if variables is not None else self.init_variables()
         server_state = self.server_init(variables)
         rounds = rounds if rounds is not None else cfg.comm_round
+        self._rounds_limit = rounds      # bounds the streaming prefetch
+        start = 0
+        if ckpt is not None and resume and ckpt.latest_round() is not None:
+            extra = self._resume_state()
+            out = ckpt.restore(variables, server_state,
+                               extra_template=extra)
+            start, variables, server_state = out[:3]
+            self._load_resume_state(out[3] if extra is not None else None)
+            start += 1
+            log.info("resumed from round %d", start - 1)
         # observability (fedml_tpu_torch/obs; no-ops until configured):
         # a span per round and per evaluation, an optional deadline
         # watchdog (a flight dump when a round overruns
         # cfg.round_deadline_s), and a dump before an error propagates
         engine_name = type(self).__name__
         try:
-            for round_idx in range(rounds):
+            for round_idx in range(start, rounds):
                 t0 = time.time()
                 with obs.deadline(f"round{round_idx}", cfg.round_deadline_s), \
                         obs.span("round", round=round_idx, engine=engine_name):
@@ -149,6 +177,11 @@ class FedAvgEngine:
                     log.info("round %d: %s", round_idx, stats)
                     if obs.enabled():       # live and peak device memory
                         obs.sample_device_memory()
+                if ckpt is not None and ckpt_every and \
+                        (round_idx + 1) % ckpt_every == 0:
+                    with obs.span("checkpoint", round=round_idx):
+                        ckpt.save(round_idx, variables, server_state,
+                                  extra_state=self._resume_state())
         except Exception as e:
             obs.dump_flight(f"engine_error:{engine_name}: {e!r}")
             raise

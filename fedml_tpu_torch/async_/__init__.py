@@ -1,5 +1,5 @@
 """Async federation: buffered staleness-aware aggregation (port of
-fedml_tpu/async_/, all but the ingest torture harness).
+fedml_tpu/async_/).
 
   staleness.py   staleness weight families, the flat-row buffer in drain
                  and streaming (aggregation-on-arrival) modes, the seeded
@@ -33,6 +33,8 @@ from fedml_tpu_torch.async_.staleness import (AsyncBuffer,
                                               make_fold_fn,
                                               make_stream_commit_fn,
                                               staleness_weight)
+from fedml_tpu_torch.async_.torture import (run_connection_torture,
+                                            run_ingest_torture)
 
 __all__ = [
     "ATTACK_MODES", "AdversarySim", "AsyncBuffer", "AsyncClientManager",
@@ -42,5 +44,5 @@ __all__ = [
     "STALENESS_MODES", "UpdateAdmission", "apply_data_attack",
     "make_bucket_commit_fn", "make_commit_fn", "make_drain_fold_fn",
     "make_fold_fn", "make_stream_commit_fn", "run_async_messaging",
-    "staleness_weight",
+    "run_connection_torture", "run_ingest_torture", "staleness_weight",
 ]

@@ -28,8 +28,10 @@ first by the admission pipeline (kernels B.4 and B.5) when a defense is
 configured; secure uplinks go through the int64 field fold.  Each
 client trains on its own copy of the model: ``functional_call`` swaps a
 module's tensors for the call, so clients in threads must not share one.
-Checkpointing a server to disk (``checkpoint_dir``, ``resume``) is slice
-6 of the port; the in-memory state (``_ckpt_state``) is here.
+``checkpoint_dir`` saves the server's round state (``_ckpt_state``)
+through utils/checkpoint.py every ``checkpoint_every`` commits, and
+``resume=True`` restores the latest save at construction: the
+crash-resume path.
 """
 from __future__ import annotations
 
@@ -61,14 +63,12 @@ from fedml_tpu_torch.scale.registry import BANNED as _REG_BANNED
 from fedml_tpu_torch.scale.registry import ClientRegistry
 from fedml_tpu_torch.secure.secagg import (SecAggBelowThreshold, SecAggConfig,
                                            SecureAggregator)
+from fedml_tpu_torch.utils.checkpoint import FedCheckpointManager
 from fedml_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
 
 LATENCY_MODES = ("none", "lognormal", "pareto")
-
-_CKPT_LATER = ("saving and resuming an async server (checkpoint_dir=, "
-               "resume=, utils/checkpoint.py) is slice 6 of the port")
 
 
 @dataclasses.dataclass
@@ -197,7 +197,14 @@ class AsyncServerManager(ServerManager):
     * `defense` installs the admission pipeline and the bucketed robust
       commit; `secure` (a SecAggConfig or a shared SecureAggregator) the
       masked field path, a cohort barrier: streaming, constant
-      staleness, buffer_k = the cohort, no defense, no sparse uplinks."""
+      staleness, buffer_k = the cohort, no defense, no sparse uplinks.
+    * `checkpoint_dir` saves the round state (variables, buffer, counters,
+      reliability ledger, registry, the admission's reference) after
+      every `checkpoint_every`-th commit and the last; `resume=True`
+      restores the latest save at construction.  Kill the server
+      mid-round, rebuild it with `resume=True` on the same port, and
+      `send_start()` re-handshakes every client.  Secure round state is
+      not saved: masks are round-keyed."""
 
     def __init__(self, init_variables: dict, total_commits: int,
                  buffer_k: int, rank: int = 0, size: int = 1,
@@ -208,11 +215,10 @@ class AsyncServerManager(ServerManager):
                  decode_into: bool = True, sparse_uplink: bool = False,
                  redispatch: bool = True,
                  reliable: bool = False, min_quorum: int = 1,
-                 checkpoint_dir: Optional[str] = None, resume: bool = False,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 1, resume: bool = False,
                  defense: Optional[DefenseConfig] = None,
                  secure=None, device=None, **kw):
-        if checkpoint_dir is not None or resume:
-            raise NotImplementedError(_CKPT_LATER)
         if secure is not None:
             # a secure round is a cohort barrier: pairwise masks cancel
             # only within ONE round's full pair set
@@ -346,6 +352,15 @@ class AsyncServerManager(ServerManager):
         self._m_admission = obs.histogram(
             "comm_admission_seconds",
             buckets=obs.metrics.DECODE_SECONDS_BUCKETS)
+        # crash-resume: a checkpoint of the whole round state after every
+        # checkpoint_every-th commit; the restore happens before the
+        # ingest pool exists, so no frame can race the rebuild
+        self._ckpt = None
+        self.checkpoint_every = max(1, int(checkpoint_every))
+        if checkpoint_dir:
+            self._ckpt = FedCheckpointManager(checkpoint_dir, max_to_keep=3)
+            if resume and self._ckpt.latest_round() is not None:
+                self._restore_checkpoint()
         self._pool = None
         if self.ingest_pool > 0 and not self.com_manager.supports_frame_sink:
             # MQTT speaks broker JSON and a no-encode inproc router hands
@@ -386,9 +401,22 @@ class AsyncServerManager(ServerManager):
         return self._host
 
     def _flat_row(self, tree: dict) -> torch.Tensor:
-        """An uplink's variables -> the buffer's row layout (host)."""
-        return flatten_vars_row({k: tree[k] for k in self.variables},
-                                device="cpu")
+        """An uplink's variables -> the buffer's row layout (host), bitwise
+        flatten_vars_row's, in one numpy concatenation: every torch op
+        releases the interpreter lock, and under a flood of in-process
+        senders each re-acquire waits out their switch intervals, so a
+        handler of a dozen per-leaf ops starves (the INPROC legacy
+        torture stalled so)."""
+        parts = []
+        for k in self.variables:
+            v = tree[k]
+            if isinstance(v, torch.Tensor) and v.dtype != torch.float32:
+                v = v.float()
+            parts.append(np.asarray(v, np.float32).reshape(-1))
+        row = np.zeros(self.buffer.p, np.float32)
+        n = sum(a.size for a in parts)
+        np.concatenate(parts, out=row[:n])
+        return torch.from_numpy(row)
 
     # -- crash-resume state --------------------------------------------------
     def _ckpt_state(self) -> dict:
@@ -412,6 +440,41 @@ class AsyncServerManager(ServerManager):
         if self._admission is not None:
             out["defense"] = self._admission.state()
         return out
+
+    def _restore_checkpoint(self) -> None:
+        """Load the latest checkpoint into this (not yet serving) server:
+        the variables, buffer, counters, reliability ledger and registry
+        (its in-flight markers reset: send_start() re-dispatches everyone),
+        and a defended server's running reference, so the screen resumes
+        armed rather than in a fresh warm-up window."""
+        step, variables, _s, extra = self._ckpt.restore(
+            self.variables, (), extra_template=self._ckpt_state())
+        self.version = int(step)
+        self.variables = {k: variables[k] for k in self.variables}
+        self._host = None
+        self.buffer.load_state(extra["buffer"])
+        self.updates_committed = int(extra["updates_committed"])
+        self.partial_commits = int(extra["partial_commits"])
+        self.degraded_commits = int(extra["degraded_commits"])
+        rel = self.com_manager._rel_ep
+        if rel is not None and "reliable" in extra:
+            rel.import_seq_state(extra["reliable"])
+        if "registry" in extra:
+            self.registry.load_state(extra["registry"])
+            self.registry.reset_transient()
+        if self._admission is not None:
+            if "defense" in extra:
+                self._admission.load_state(extra["defense"])
+            self._g_dev = flatten_vars_row(self.variables)
+            self._admission.note_global(self.version, self._g_dev)
+        log.info("async server resumed from checkpoint: version %d, %d "
+                 "updates committed, buffer %d/%d", self.version,
+                 self.updates_committed, self.buffer.count, self.buffer_k)
+
+    def _save_checkpoint_locked(self) -> None:
+        with obs.span("async.checkpoint", version=self.version):
+            self._ckpt.save(self.version, self.variables, (),
+                            extra_state=self._ckpt_state())
 
     def crash(self) -> None:
         """Chaos/test hook: die abruptly — no STOP broadcast, no final
@@ -816,6 +879,10 @@ class AsyncServerManager(ServerManager):
                 # quorum-degraded: committed with fewer than a full buffer
                 self.degraded_commits += 1
                 self._m_degraded.inc()
+        if self._ckpt is not None and (
+                self.version % self.checkpoint_every == 0
+                or self.version >= self.total_commits):
+            self._save_checkpoint_locked()
         if self.version >= self.total_commits:
             self.done.set()
             return True

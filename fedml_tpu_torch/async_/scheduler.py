@@ -51,10 +51,6 @@ from fedml_tpu_torch.scale.registry import ClientRegistry
 
 log = logging.getLogger(__name__)
 
-_CKPT_LATER = ("checkpointing an async run (ckpt=, resume=, "
-               "utils/checkpoint.py) is slice 6 of the port; async_state() "
-               "and load_async_state() carry the server state in memory")
-
 
 class AsyncSchedulerDeadlock(RuntimeError):
     """No event can ever arrive and the buffer can never fill: every client
@@ -167,10 +163,23 @@ class AsyncFedAvgEngine(FedAvgEngine):
         self._ensure_buffer()
         self._buffer.load_state(state["buffer"])
         self.version = int(state["version"])
-        if "registry" not in state:
-            raise ValueError("async state carries no 'registry' — not an "
-                             "async server state")
-        self.registry.load_state(state["registry"])
+        if "registry" in state:
+            self.registry.load_state(
+                {k: np.asarray(v) for k, v in state["registry"].items()})
+        elif "client_contribs" in state:
+            # an older state: migrate the two flat per-client arrays into
+            # registry counters (last_seen cannot be rebuilt; it stays -1)
+            contribs = np.asarray(state["client_contribs"], np.int64)
+            stale = np.asarray(state["client_last_staleness"], np.float32)
+            for cid in np.flatnonzero(contribs):
+                s, loc = divmod(int(cid), self.registry.shard_size)
+                sh = self.registry._alloc(s)
+                sh["participation"][loc] = contribs[cid]
+                sh["last_staleness"][loc] = stale[cid]
+        else:
+            raise ValueError(
+                "async state carries neither 'registry' nor the legacy "
+                "per-client arrays — not an async server state")
         if self._admission is not None and "defense" in state:
             self._admission.load_state(state["defense"])
 
@@ -199,17 +208,25 @@ class AsyncFedAvgEngine(FedAvgEngine):
 
     # -- the event-driven loop ------------------------------------------------
     def run(self, variables: Optional[dict] = None,
-            rounds: Optional[int] = None, ckpt=None,
+            rounds: Optional[int] = None, ckpt=None, ckpt_every: int = 0,
             resume: bool = False) -> dict:
         """Drive `rounds` commits of the async federation, with the base
-        run()'s eval cadence and metrics_history."""
-        if ckpt is not None or resume:
-            raise NotImplementedError(_CKPT_LATER)
+        run()'s eval cadence and metrics_history.  `ckpt` (a
+        utils.checkpoint.FedCheckpointManager) saves the variables and
+        async_state() every `ckpt_every` commits; `resume` restores both
+        from its latest save and runs on to the budget."""
         cfg = self.cfg
         variables = self._template(variables if variables is not None
                                    else self.init_variables())
         self._ensure_buffer()
         total = rounds if rounds is not None else cfg.comm_round
+        if ckpt is not None and resume and ckpt.latest_round() is not None:
+            _step, variables, _ss, extra = ckpt.restore(
+                variables, (), extra_template=self.async_state())
+            variables = self._template(variables)
+            self.load_async_state(extra)
+            log.info("async resume: version %d, buffer %d/%d", self.version,
+                     self._buffer.count, self.buffer_k)
         if self._commit_fn is None:
             if self.defense is not None:
                 d = self.defense
@@ -359,6 +376,9 @@ class AsyncFedAvgEngine(FedAvgEngine):
                              wall_time=time.perf_counter() - t_wall0)
                 self.metrics_history.append(stats)
                 log.info("commit %d: %s", c, stats)
+            if ckpt is not None and ckpt_every and \
+                    self.version % ckpt_every == 0:
+                ckpt.save(c, variables, (), extra_state=self.async_state())
             if self.version < total:     # no wave past the final commit
                 dispatch_wave()
 

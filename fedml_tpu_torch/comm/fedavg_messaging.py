@@ -27,8 +27,18 @@ the generator ``client_generator(seed, round, rank - 1, device)``: a
 messaging round trains each client exactly as the port's FedAvgEngine
 round does.
 
-The secure mode (``secure=``: masked uplinks, secagg) is slice 4 of the
-port and raises here.
+The secure mode (``secure=``, a SecAggConfig shared through one
+SecureAggregator): each client quantizes its sample-weighted update and
+masks it pairwise (secure/secagg.py); the sample weight rides as the
+trailing masked word, so NUM_SAMPLES ships a constant 1.0.  The masked
+row is the unpadded model in the JAX package's leaf order and layouts
+(`secure_row`: flax paths sorted level by level, conv kernels HWIO), so a
+masked uplink is byte for byte the JAX client's for the same trained
+variables.  The server folds each upload into the int64 field sum on its
+device at arrival and, at the all-received barrier, unmasks over the
+survivors (SecAggBelowThreshold by name when too few survived: the round
+stays open).  A quantizer refusal drops the uplink and counts in
+``secagg_rejected_uplinks_total``.
 """
 from __future__ import annotations
 
@@ -37,23 +47,67 @@ import logging
 import threading
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from fedml_tpu_torch import obs
 from fedml_tpu_torch.comm.managers import ClientManager, ServerManager
 from fedml_tpu_torch.comm.message import Message
+from fedml_tpu_torch.convert import flax_to_torch, torch_to_flax
 from fedml_tpu_torch.core.sampling import ClientSampler
 from fedml_tpu_torch.core.trainer import client_generator
 from fedml_tpu_torch.ops.aggregate import (spec_of, unflatten_to_tree,
                                            weighted_mean_flat)
 from fedml_tpu_torch.parallel.engine import cast_local
+from fedml_tpu_torch.secure.secagg import (SecAggBelowThreshold,
+                                           SecureAggregator)
 from fedml_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
 Pytree = Any
 
-_SECURE_LATER = ("secure aggregation over the message layer (secure=, "
-                 "secure/secagg.py) is slice 4 of the port")
+
+def _flax_leaves(variables: dict) -> list:
+    """[(path, f32 numpy leaf)] of a port variables dict in the JAX
+    package's leaf order (flax paths, keys sorted level by level) and
+    layouts (conv kernels HWIO)."""
+    out = []
+
+    def walk(node, path):
+        for k in sorted(node):
+            if isinstance(node[k], dict):
+                walk(node[k], path + (k,))
+            else:
+                out.append((path + (k,), node[k]))
+
+    walk(torch_to_flax(variables), ())
+    return out
+
+
+def secure_row(variables: dict) -> np.ndarray:
+    """The secure uplink's flat row: every leaf of `variables` as f32, in
+    the JAX package's leaf order and layouts, unpadded, as float64 (what
+    SecureAggregator.client_row quantizes)."""
+    return np.concatenate([np.asarray(a, np.float32).reshape(-1)
+                           for _, a in _flax_leaves(variables)]
+                          ).astype(np.float64)
+
+
+def from_secure_row(row: torch.Tensor, template: dict) -> dict:
+    """Inverse of secure_row: an f32 row in the JAX leaf order -> a dict
+    of `template`'s names, dtypes and device."""
+    row = row.detach().cpu().numpy()
+    tree: dict = {}
+    off = 0
+    for path, leaf in _flax_leaves(template):
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = row[off:off + leaf.size].reshape(leaf.shape)
+        off += leaf.size
+    flat = flax_to_torch(tree)
+    return {k: flat[k].to(device=v.device, dtype=v.dtype)
+            for k, v in template.items()}
 
 
 class MyMessage:
@@ -83,13 +137,16 @@ class FedAvgAggregator:
     one [worker_num, P] matrix on the device, in the uploads' promoted
     dtype (as the JAX aggregator's ``np.stack`` promotes: an f32 and a
     bf16 upload fold in f32); the aggregate is one launch of the
-    weighted-mean kernel over the rows that arrived."""
+    weighted-mean kernel over the rows that arrived.
+
+    `secure` (a SecureAggregator) swaps the plaintext slots for the secure
+    data plane: uploads arrive as masked field rows and fold on arrival,
+    and aggregate() runs the unmask barrier over the slots that uploaded.
+    Slot i is rank i + 1, the ids of the keyring."""
 
     def __init__(self, init_variables: Pytree, worker_num: int,
                  client_num_in_total: int, client_num_per_round: int,
                  secure=None, device=None):
-        if secure is not None:
-            raise NotImplementedError(_SECURE_LATER)
         self.device = resolve_device(device)
         self.variables = {k: torch.as_tensor(v).to(self.device)
                           for k, v in init_variables.items()}
@@ -101,6 +158,11 @@ class FedAvgAggregator:
         self._rows: Optional[torch.Tensor] = None
         self._host: Optional[dict] = None
         self._lock = threading.Lock()
+        self.secure = secure
+        self.secure_below_threshold = 0
+        if secure is not None:
+            for r in range(1, worker_num + 1):
+                secure.escrow(r)        # shares escrowed before round 0
 
     def _slot_rows(self, dtype: torch.dtype) -> torch.Tensor:
         """The [worker_num, P_padded] upload matrix (zeroed, so the pad
@@ -120,6 +182,12 @@ class FedAvgAggregator:
     def add_local_trained_result(self, index: int, variables: Pytree,
                                  sample_num: float) -> bool:
         with self._lock:
+            if self.secure is not None:
+                # a masked row: fold into the field sum, never stored as
+                # plaintext (there is none)
+                self.secure.fold(index + 1, variables)
+                self.flag_client_model_uploaded[index] = True
+                return all(self.flag_client_model_uploaded)
             leaves = {k: torch.as_tensor(v) for k, v in variables.items()}
             rows = self._slot_rows(leaves[self.spec.names[0]].dtype)
             off = 0
@@ -134,10 +202,23 @@ class FedAvgAggregator:
         """Aggregate over every slot that uploaded this round.  With the
         all-received barrier that is all of them; under a straggler
         timeout it is the received subset (sample-weighted, so absent
-        clients simply drop out of the mean)."""
+        clients simply drop out of the mean).
+
+        Secure mode: the received subset is the survivor set; round_idx is
+        the masks' counter.  Raises SecAggBelowThreshold by name when too
+        few survived, keeping the round's folds for late uploads."""
         with self._lock:
             got = [i for i in range(self.worker_num)
                    if self.flag_client_model_uploaded[i]]
+            if self.secure is not None:
+                acc, wsum, _inc = self.secure.commit(
+                    int(round_idx), [i + 1 for i in got])
+                mean = (torch.from_numpy(acc).to(self.device)
+                        / torch.tensor(np.float32(wsum), device=self.device))
+                self.variables = from_secure_row(mean, self.variables)
+                self._host = None
+                self.flag_client_model_uploaded = [False] * self.worker_num
+                return self.variables
             rows = self._rows if len(got) == self.worker_num else \
                 self._rows[torch.as_tensor(got, device=self.device)]
             w = torch.tensor([self.sample_num_dict[i] for i in got],
@@ -229,15 +310,17 @@ class FedAvgServerManager(ServerManager):
     def _handle_model_from_client(self, msg: Message) -> None:
         sender = msg.get_sender_id()
         upload_round = msg.get(MyMessage.MSG_ARG_KEY_ROUND)
-        if msg.get(MyMessage.MSG_ARG_KEY_SECAGG) is not None:
-            # masked words to a plain server — quarantine BY NAME, never
-            # fold.  The sender's slot can never fill (skew is config, not
-            # luck), so mark it dead for the barrier and close the round
-            # if everyone else already uploaded
+        secure = self.aggregator.secure is not None
+        if secure != (msg.get(MyMessage.MSG_ARG_KEY_SECAGG) is not None):
+            # a plain uplink to a secure server, or masked words to a plain
+            # one — quarantine BY NAME, never fold.  The sender's slot can
+            # never fill (skew is config, not luck), so mark it dead for
+            # the barrier and close the round if everyone else uploaded
             log.warning(
-                "plain server: MASKED uplink from rank %d quarantined "
+                "%s server: %s uplink from rank %d quarantined "
                 "(--secure_agg config skew between server and client)",
-                sender)
+                "secure" if secure else "plain",
+                "PLAIN" if secure else "MASKED", sender)
             with self._round_lock:
                 self._quarantined.add(sender)
                 if not self._quorum_met():
@@ -303,7 +386,18 @@ class FedAvgServerManager(ServerManager):
         # rounds aggregate-to-aggregate
         with obs.span("fsm.aggregate", round=self.round_idx,
                       node="server"):
-            self.aggregator.aggregate(self.round_idx)
+            try:
+                self.aggregator.aggregate(self.round_idx)
+            except SecAggBelowThreshold as e:
+                # the round fails BY NAME and stays open (the arrived folds
+                # survive), the watchdog re-armed for late uploads:
+                # committing would bake unerasable mask noise in
+                self.aggregator.secure_below_threshold += 1
+                log.warning("secure round %d did not aggregate: %s",
+                            self.round_idx, e)
+                if self.straggler_timeout is not None:
+                    self._arm_watchdog(self.round_idx)
+                return False
         if self.on_round_done is not None:
             self.on_round_done(self.round_idx, self.aggregator.variables)
         self.round_idx += 1
@@ -341,12 +435,15 @@ class FedAvgClientManager(ClientManager):
         The client's model upload is aggregation-critical (it feeds the
         server's weighted average) and deliberately has NO transport
         knob — it always rides exact; wire_compress only zlibs the frame
-        head (lossless)."""
-        if secure is not None:
-            raise NotImplementedError(_SECURE_LATER)
+        head (lossless).
+
+        secure: this client's view of the secure data plane (a shared
+        SecureAggregator: masking only, from the seed-derived keyring)."""
         self.device = resolve_device(device)
         super().__init__(rank, size, backend, **kw)
         self.wire_compress = wire_compress
+        self.secure = secure
+        self.secagg_rejected = 0        # uplinks the quantizer refused
         # a private copy of the model template: the trainer runs the model
         # through functional_call, which swaps the module's tensors for
         # the call, and clients of one process train in threads
@@ -365,6 +462,41 @@ class FedAvgClientManager(ClientManager):
             MyMessage.MSG_TYPE_S2C_INIT_CONFIG, self._handle_sync)
         self.register_message_receive_handler(
             MyMessage.MSG_TYPE_S2C_SYNC_MODEL_TO_CLIENT, self._handle_sync)
+
+    def uplink(self, new_vars: dict, n: float, loss: float, round_idx):
+        """The C2S model message of one trained round (None when the secure
+        quantizer refuses the row: the uplink is dropped and counted)."""
+        out = Message(MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER,
+                      self.rank, 0)
+        if self.secure is not None:
+            # quantize and pairwise-mask the weighted row; a refusal (a
+            # field overflow, the one bound masking cannot blind) drops
+            # the uplink, and the straggler timeout carries the round
+            r = int(round_idx or 0)
+            try:
+                masked = self.secure.client_row(
+                    self.rank, r, secure_row(new_vars), float(n))
+            except ValueError as e:
+                self.secagg_rejected += 1
+                obs.counter("secagg_rejected_uplinks_total").inc()
+                log.warning("secagg client %d: round %d uplink refused at "
+                            "quantization (norm-bound enforcement): %s",
+                            self.rank, r, e)
+                return None
+            out.add_params(MyMessage.MSG_ARG_KEY_MODEL_PARAMS, masked)
+            out.add_params(MyMessage.MSG_ARG_KEY_NUM_SAMPLES, 1.0)
+            out.add_params(MyMessage.MSG_ARG_KEY_SECAGG, {"round": r})
+            out.set_wire_transport(
+                MyMessage.MSG_ARG_KEY_MODEL_PARAMS, "secagg",
+                scale=self.secure.cfg.scale, p=self.secure.cfg.prime)
+        else:
+            out.add_params(MyMessage.MSG_ARG_KEY_MODEL_PARAMS, new_vars)
+            out.add_params(MyMessage.MSG_ARG_KEY_NUM_SAMPLES, n)
+        out.add_params(MyMessage.MSG_ARG_KEY_LOCAL_LOSS, float(loss))
+        if round_idx is not None:       # echo for stale-upload rejection
+            out.add_params(MyMessage.MSG_ARG_KEY_ROUND, int(round_idx))
+        out.wire_compress = self.wire_compress
+        return out
 
     def _handle_sync(self, msg: Message) -> None:
         variables = msg.get(MyMessage.MSG_ARG_KEY_MODEL_PARAMS)
@@ -385,16 +517,10 @@ class FedAvgClientManager(ClientManager):
                 global_params=flat if self.trainer.prox_mu > 0 else None,
                 generator=generator)
             n = float(n)                  # waits for the client's steps
-        out = Message(MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER,
-                      self.rank, 0)
-        out.add_params(MyMessage.MSG_ARG_KEY_MODEL_PARAMS,
-                       self.trainer.unflatten(row))
-        out.add_params(MyMessage.MSG_ARG_KEY_NUM_SAMPLES, n)
-        out.add_params(MyMessage.MSG_ARG_KEY_LOCAL_LOSS, float(loss))
-        if round_idx is not None:       # echo for stale-upload rejection
-            out.add_params(MyMessage.MSG_ARG_KEY_ROUND, int(round_idx))
-        out.wire_compress = self.wire_compress
-        self.send_message(out)
+        out = self.uplink(self.trainer.unflatten(row), n, float(loss),
+                          round_idx)
+        if out is not None:
+            self.send_message(out)
         self.rounds_seen += 1
         if (self.total_rounds is not None
                 and self.rounds_seen >= self.total_rounds):
@@ -415,7 +541,9 @@ def run_messaging_fedavg(trainer, data, cfg, backend: str = "INPROC",
     variables: the initial global model (default: ``trainer.init`` from
     cfg.seed, as FedAvgEngine.init_variables).  local_dtype: the clients'
     local master dtype.  backend_kw: straggler_timeout, model_transport,
-    wire_compress, router (INPROC), on_round_done, and the backend's own
+    wire_compress, router (INPROC), on_round_done, secure (a
+    SecAggConfig: one SecureAggregator shared by the server, which folds
+    and unmasks, and the clients, which only mask), and the backend's own
     (ip_config, base_port, reactor, ...)."""
     from fedml_tpu_torch.comm.inproc import InProcRouter
 
@@ -426,8 +554,7 @@ def run_messaging_fedavg(trainer, data, cfg, backend: str = "INPROC",
     model_transport = backend_kw.pop("model_transport", None)
     wire_compress = backend_kw.pop("wire_compress", False)
     on_round_done = backend_kw.pop("on_round_done", None)
-    if backend_kw.pop("secure", None) is not None:
-        raise NotImplementedError(_SECURE_LATER)
+    secure_cfg = backend_kw.pop("secure", None)
     router = backend_kw.pop("router", None)
     if backend.upper() == "INPROC" and router is None:
         router = InProcRouter()
@@ -438,8 +565,15 @@ def run_messaging_fedavg(trainer, data, cfg, backend: str = "INPROC",
     if variables is None:
         variables = trainer.init(torch.Generator().manual_seed(cfg.seed),
                                  device)
+    secagg = None
+    if secure_cfg is not None:
+        # the row is the unpadded model (the JAX package's word count)
+        secagg = SecureAggregator(
+            secure_cfg, range(1, size),
+            sum(torch.as_tensor(v).numel() for v in variables.values()),
+            device)
     agg = FedAvgAggregator(variables, worker_num, cfg.client_num_in_total,
-                           worker_num, device=device)
+                           worker_num, secure=secagg, device=device)
     server = FedAvgServerManager(agg, cfg.comm_round, 0, size, backend,
                                  on_round_done=on_round_done,
                                  straggler_timeout=straggler_timeout,
@@ -450,7 +584,7 @@ def run_messaging_fedavg(trainer, data, cfg, backend: str = "INPROC",
         for r in range(1, size):
             clients.append(FedAvgClientManager(
                 trainer, data, cfg.epochs, r, size, backend,
-                wire_compress=wire_compress, device=device,
+                wire_compress=wire_compress, secure=secagg, device=device,
                 local_dtype=local_dtype, seed=cfg.seed, **kw))
     except BaseException:
         for m in clients + [server]:

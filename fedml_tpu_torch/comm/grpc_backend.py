@@ -52,6 +52,14 @@ _OPTS = [("grpc.max_send_message_length", _MAX_MSG),
          ("grpc.enable_http_proxy", 0)]
 
 
+def open_stub(host: str, port: int):
+    """(channel, unary stub, grpc.RpcError) for the server at host:port:
+    the raw client the ingest torture's gRPC uplink spammers drive."""
+    import grpc
+    ch = grpc.insecure_channel(f"{host}:{port}", options=_OPTS)
+    return ch, ch.unary_unary(_METHOD), grpc.RpcError
+
+
 def load_ip_config(path_or_dict: Union[str, dict]) -> dict[int, str]:
     """CSV `receiver_id,ip` → {rank: ip} (gRPC/ip_config_utils.py parity)."""
     if isinstance(path_or_dict, dict):

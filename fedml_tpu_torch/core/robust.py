@@ -119,10 +119,17 @@ def median_axis0(x: torch.Tensor) -> torch.Tensor:
 
 def trimmed_mean_axis0(x: torch.Tensor, trim_k: int) -> torch.Tensor:
     """Mean over axis 0 after dropping the k largest and k smallest values
-    (k capped so one survives); NaN sorts last and is trimmed first."""
+    (k capped so one survives); NaN sorts last and is trimmed first.
+    The kept rows are summed one after another, so a column's result does
+    not depend on how many columns the call holds (the block-streamed
+    round's parameter slices are bitwise the whole matrix's)."""
     n = x.shape[0]
     k = min(trim_k, (n - 1) // 2)
-    return torch.sort(x, dim=0).values[k:n - k].mean(dim=0)
+    s = torch.sort(x, dim=0).values
+    acc = s[k].to(torch.promote_types(s.dtype, torch.float32))
+    for i in range(k + 1, n - k):
+        acc += s[i]
+    return (acc / (n - 2 * k)).to(x.dtype)
 
 
 def coordinate_median(stacked_params: dict) -> dict:

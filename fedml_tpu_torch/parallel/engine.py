@@ -34,13 +34,18 @@ O(chunk).  A loader-quantized stack (`load_data(store_uint8=True)`) is
 dequantized with or without the knob.  y and mask never change dtype,
 and integer inputs (token ids) are never cast or quantized.
 
-Multi-card meshes, block streaming and upload prefetch are later slices
-of the port (ROADMAP.md).
+The run loop can upload round k+1's cohort while round k trains
+(`streaming`, `prefetch`), and `stream_block` streams a cohort through
+the round in blocks (MeshRobustEngine's order statistics in two phases
+through a pinned host matrix); see MeshFedAvgEngine and
+parallel/prefetch.py.  Multi-card meshes are a later slice of the port
+(ROADMAP.md).
 """
 from __future__ import annotations
 
 import copy
 import logging
+import threading
 from typing import Callable, Optional
 
 import numpy as np
@@ -58,7 +63,10 @@ from fedml_tpu_torch.core.trainer import ClientTrainer, client_generator
 from fedml_tpu_torch.data.federated import FederatedData
 from fedml_tpu_torch.data.quant import quantize_uint8, spec_from_minmax
 from fedml_tpu_torch.ops.aggregate import client_sqnorms, clip_fold, fold
+from fedml_tpu_torch.parallel.prefetch import (AsyncValue, InlineFetcher,
+                                               Prefetcher, upload)
 from fedml_tpu_torch.utils.config import FedConfig
+from fedml_tpu_torch.utils.profiling import TransferOverlapStats
 
 log = logging.getLogger(__name__)
 
@@ -111,21 +119,33 @@ def fold_collections(trainer: ClientTrainer, num: torch.Tensor,
         fold(num[r:], lanes[:, r:], w)
 
 
+def zero_sums(flat: torch.Tensor) -> tuple:
+    """The chunk loop's zero carry: (num [P] f32, den, lsum) on `flat`'s
+    device."""
+    den = torch.zeros((), dtype=torch.float32, device=flat.device)
+    return (torch.zeros(flat.shape[0], dtype=torch.float32,
+                        device=flat.device), den, torch.zeros_like(den))
+
+
 def chunked_weighted_train(trainer: ClientTrainer, flat: torch.Tensor,
                            cohort: dict, weights: torch.Tensor, epochs: int,
                            chunk_cap: int = 8,
                            fold_fn: Optional[Callable] = fedavg_fold,
                            emit_flat_params: bool = False, seed: int = 0,
                            round_idx: int = 0,
-                           restore_x: Optional[Callable] = None):
+                           restore_x: Optional[Callable] = None,
+                           carry: Optional[tuple] = None, lane0: int = 0):
     """Train the cohort chunk by chunk from the round's flat vector `flat`
     (in the local dtype), folding each chunk's trained [chunk, P] lanes
     into the flat f32 carry with ``fold_fn(num, lanes, w, chunk_shards)``.
-    Lane i trains with ``client_generator(seed, round_idx, i)`` for
-    dropout and augmentation.  `restore_x` maps each chunk's shards before
+    Lane i trains with ``client_generator(seed, round_idx, lane0 + i)``
+    for dropout and augmentation.  `restore_x` maps each chunk's shards before
     its clients train (the engine's dequantize of a uint8 stack, engine.py
     :236-237), so what it makes is O(chunk).  Returns (num [P] f32,
-    den = sum w, lsum = sum w*loss).
+    den = sum w, lsum = sum w*loss), continuing from `carry` (a (num, den,
+    lsum) triple, folded into in place) when given: a block-streamed round
+    carries one accumulator across its blocks, lane0 being the block's
+    first lane in the cohort.
 
     With `emit_flat_params` it also returns the [K, P] f32 matrix of
     trained rows, chunk-pad lanes dropped (engine.py:1339), for the
@@ -134,9 +154,9 @@ def chunked_weighted_train(trainer: ClientTrainer, flat: torch.Tensor,
     k = weights.shape[0]
     global_params = flat if trainer.prox_mu > 0 else None
     cohort, weights = pad_and_chunk(cohort, weights.float(), chunk_cap)
-    num = torch.zeros(flat.shape[0], dtype=torch.float32, device=flat.device)
-    den = torch.zeros((), dtype=torch.float32, device=flat.device)
-    lsum = torch.zeros_like(den)
+    if carry is None:
+        carry = zero_sums(flat)
+    num, den, lsum = carry
     rows = []
     for c in range(weights.shape[0]):
         chunk_shards = {key: t[c] for key, t in cohort.items()}
@@ -148,7 +168,7 @@ def chunked_weighted_train(trainer: ClientTrainer, flat: torch.Tensor,
                 flat, {key: t[j] for key, t in chunk_shards.items()}, epochs,
                 global_params=global_params,
                 generator=client_generator(seed, round_idx,
-                                           c * weights.shape[1] + j,
+                                           lane0 + c * weights.shape[1] + j,
                                            flat.device))
             lanes.append(v)
             losses.append(loss)
@@ -171,17 +191,50 @@ class MeshFedAvgEngine(FedAvgEngine):
     (`stack_dtype`: torch.uint8 or torch.bfloat16; see the module
     docstring).  Aggregation is unchanged by either dtype: each client's
     weights enter the fold in f32 and the global model stays f32 across
-    rounds.  Its rounds count under the JAX family of the round on an
-    uploaded cohort (``round_fn_streaming``)."""
+    rounds.
 
-    program_family = "fedavg_streaming"
+    Every round gathers its cohort on the host and uploads it
+    (``stream_cohort``).  `streaming=True` makes the run loop upload round
+    k+1's cohort on a background thread while round k trains
+    (`prefetch`, parallel/prefetch.py; two cohorts on the device at most).
+    `stream_block` streams the cohort within the round, `stream_block`
+    clients at a time (double-buffered when `prefetch`), the linear sums
+    carried in one accumulator across blocks: device data memory is
+    O(2 * stream_block), whatever the cohort.  `prefetch=False` is the
+    strictly synchronous escape hatch, bitwise the same rounds.
+    `transfer_stats` (utils/profiling.py) is always on.
+
+    Its rounds count under the JAX program families: ``<stem>_streaming``
+    for the round on an uploaded cohort (the port has no resident round),
+    ``<stem>_blockstream`` for the block-streamed one."""
+
+    _family_stem = "fedavg"
 
     def __init__(self, trainer: ClientTrainer, data: FederatedData,
                  cfg: FedConfig, chunk: int | None = None, local_dtype=None,
-                 stack_dtype=None, device=None):
+                 stack_dtype=None, streaming: bool = False,
+                 prefetch: bool = True, stream_block: Optional[int] = None,
+                 device=None):
+        if stream_block is not None:
+            if stream_block < 1:
+                raise ValueError(f"stream_block must be >= 1, got "
+                                 f"{stream_block}")
+            streaming = True
+        self.streaming = streaming
+        self.prefetch = prefetch
+        self.stream_block = stream_block
+        self.program_family = self._program_family_name(stream_block)
         super().__init__(trainer, data, cfg, device=device)
         self.round_fn_streaming = obs_programs.instrument(
             self.program_family, self.round_fn_streaming)
+        if stream_block is not None:
+            self.round_fn = obs_programs.instrument(
+                self.program_family, self._blockstream_round_fn())
+        self.transfer_stats = TransferOverlapStats()
+        self._prefetched = None          # (round, AsyncValue) when streaming
+        self._live_lock = threading.Lock()
+        self.resident_block_bytes = 0    # uploaded blocks not yet retired
+        self.peak_resident_block_bytes = 0
         if chunk is not None and chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         if stack_dtype not in (None, torch.uint8) and not (
@@ -203,6 +256,13 @@ class MeshFedAvgEngine(FedAvgEngine):
         if stack_dtype == torch.uint8 or (
                 x is not None and np.asarray(x).dtype == np.uint8):
             self._prepare_uint8_stack(data)
+
+    def _program_family_name(self, stream_block) -> str:
+        suffix = "blockstream" if stream_block is not None else "streaming"
+        return f"{self._family_stem}_{suffix}"
+
+    def _blockstream_round_fn(self):
+        return self._round_blockstream
 
     # -- cohort upload --------------------------------------------------------
     def _prepare_uint8_stack(self, data: FederatedData) -> None:
@@ -272,19 +332,38 @@ class MeshFedAvgEngine(FedAvgEngine):
         scale, offset = self._dequant_consts
         return {**chunk_shards, "x": x.float() * scale + offset}
 
+    def _host_gather_upload(self, ids) -> dict:
+        """The one host-gather upload (shared by stream_cohort and the block
+        uploads): slice the host arrays (the uint8 view when quantized),
+        apply stack_dtype, copy to the device (pinned and asynchronous on
+        the card); every byte counts in transfer_stats."""
+        host = self._cast_stack_x({k: np.take(np.asarray(v), ids, axis=0)
+                                   for k, v in self._host_shards().items()})
+        self.transfer_stats.add_h2d_bytes(
+            sum(v.numel() * v.element_size() for v in host.values()))
+        return {k: upload(v, self.device) for k, v in host.items()}
+
+    def _upload_weights(self, w: np.ndarray) -> torch.Tensor:
+        w = np.ascontiguousarray(w, np.float32)
+        self.transfer_stats.add_h2d_bytes(w.nbytes)
+        return upload(torch.from_numpy(w), self.device)
+
     def stream_cohort(self, round_idx: int):
         """Host-side gather of the round's sampled clients from
         `_host_shards()`, stack_dtype applied, uploaded to the engine's
         device: ({x, y, mask} [K, B, bs, ...], weights [K] f32)."""
-        ids = self.sampler.sample(round_idx)
-        with obs.span("h2d.upload_cohort", clients=len(ids)):
-            cohort = self._cast_stack_x({
-                k: np.take(np.asarray(v), ids, axis=0)
-                for k, v in self._host_shards().items()})
+        return self._stream_gather(self.sampler.sample(round_idx))
+
+    def _stream_gather(self, ids):
+        """The upload half of stream_cohort, split from the sampling: this
+        part runs on the prefetch thread, while the sampler (it reseeds the
+        process-global numpy RNG) stays on the caller's thread."""
+        with obs.span("h2d.upload_cohort", clients=len(ids)), \
+                self.transfer_stats.uploading():
+            cohort = self._host_gather_upload(ids)
             w = np.take(np.asarray(self.data.client_num_samples, np.float32),
                         ids)
-            return ({k: v.to(self.device) for k, v in cohort.items()},
-                    torch.from_numpy(w).to(self.device))
+            return cohort, self._upload_weights(w)
 
     def _local_train_stack(self) -> dict:
         return self._cast_stack_x(self._host_shards())
@@ -292,7 +371,35 @@ class MeshFedAvgEngine(FedAvgEngine):
     _local_eval_transform = _restore_chunk_x
 
     def _round_args(self, round_idx: int) -> tuple:
-        return (*self.stream_cohort(round_idx), round_idx)
+        if self.stream_block is not None:
+            return (round_idx,)        # the round uploads its own blocks
+        if not self.streaming:
+            return (*self.stream_cohort(round_idx), round_idx)
+        # round r+1's gather and upload run on a background thread while
+        # round r trains; sampling stays on this thread, so the knob never
+        # changes cohorts; two cohorts on the device at most.  Without the
+        # prefetch the gather runs here, unhidden
+        pre, self._prefetched = self._prefetched, None
+        if pre is not None and pre[0] != round_idx:
+            # a stale prefetch (rounds replayed out of order): join it
+            # before gathering anew, so no third cohort is resident
+            try:
+                pre[1].result()
+            except Exception:
+                log.warning("discarding failed stale prefetch for round %d",
+                            pre[0], exc_info=True)
+            pre = None
+        if pre is not None:
+            args = pre[1].result()
+        else:
+            with self.transfer_stats.waiting():     # unhidden gather
+                args = self.stream_cohort(round_idx)
+        limit = getattr(self, "_rounds_limit", None)
+        if self.prefetch and (limit is None or round_idx + 1 < limit):
+            self._prefetched = (round_idx + 1, AsyncValue(
+                self._stream_gather, self.sampler.sample(round_idx + 1),
+                stats=self.transfer_stats, device=self.device))
+        return (*args, round_idx)
 
     # -- the round ------------------------------------------------------------
     def _local_flat(self, variables: dict) -> torch.Tensor:
@@ -308,11 +415,29 @@ class MeshFedAvgEngine(FedAvgEngine):
             chunk_cap=self.chunk, seed=self.cfg.seed, round_idx=round_idx,
             restore_x=self._restore_chunk_x, **kw)
 
+    def _fold_fn(self, g: torch.Tensor) -> Callable:
+        """The chunk fold of this engine's linear sums (g: the round's model
+        in the local dtype)."""
+        return fedavg_fold
+
+    def _zero_sums(self, g: torch.Tensor) -> tuple:
+        """The zero carry of this engine's linear sums."""
+        return zero_sums(g)
+
+    def _accumulate(self, g: torch.Tensor, sums: tuple, cohort: dict,
+                    weights: torch.Tensor, round_idx: int, lane0: int = 0):
+        """Train `cohort` (lanes lane0.. of the round) from g and fold it
+        into the carried sums; returns the new sums."""
+        return self._chunked(g, cohort, weights, round_idx,
+                             fold_fn=self._fold_fn(g), carry=sums,
+                             lane0=lane0)
+
     def _shard_sums(self, variables: dict, cohort: dict, weights: torch.Tensor,
                     round_idx: int = 0):
         """(sum w*v as a flat f32 vector, sum w, sum w*loss) over the cohort."""
-        return self._chunked(self._local_flat(variables), cohort, weights,
-                             round_idx)
+        g = self._local_flat(variables)
+        return self._accumulate(g, self._zero_sums(g), cohort, weights,
+                                round_idx)
 
     def _finalize_from_sums(self, variables: dict, sums):
         """(aggregated model, mean loss): divide in f32, cast each leaf back
@@ -341,12 +466,97 @@ class MeshFedAvgEngine(FedAvgEngine):
 
     round_fn = round_fn_streaming
 
+    # -- the block-streamed round (stream_block) ------------------------------
+    def _note_resident(self, nbytes: int) -> None:
+        """Book a block's device bytes in (positive) or out (negative)."""
+        with self._live_lock:
+            self.resident_block_bytes += nbytes
+            self.peak_resident_block_bytes = max(
+                self.peak_resident_block_bytes, self.resident_block_bytes)
+
+    def _upload_block(self, ids_blk: np.ndarray, w_blk: np.ndarray):
+        """Gather and upload one client block (the double buffer's unit);
+        runs on the prefetch thread when the pipeline is on."""
+        with obs.span("h2d.upload_block", clients=len(ids_blk)), \
+                self.transfer_stats.uploading():
+            block = self._host_gather_upload(ids_blk)
+            weights = self._upload_weights(w_blk)
+        self._note_resident(sum(v.numel() * v.element_size()
+                                for v in block.values()))
+        return block, weights
+
+    def _retire_block(self, block: dict) -> None:
+        self._note_resident(-sum(v.numel() * v.element_size()
+                                 for v in block.values()))
+
+    def _pad_to_block(self, ids: np.ndarray, wmask: np.ndarray):
+        """Pad the cohort to a stream_block multiple with zero-weight lanes
+        repeating the first client (real data, so a pad lane trains to a
+        finite row and adds +-0), and return the block spans."""
+        B = self.stream_block
+        pad = (-len(ids)) % B
+        if pad:
+            ids = np.concatenate([ids, np.repeat(ids[:1], pad)])
+            wmask = np.concatenate([wmask, np.zeros(pad, np.float32)])
+        return ids, wmask, [(s, s + B) for s in range(0, len(ids), B)]
+
+    def _block_fetcher(self, ids: np.ndarray, w_all: np.ndarray, spans):
+        """Block iterator of the streamed rounds: the background double
+        buffer, or the synchronous inline path under prefetch=False; both
+        deliver blocks in span order through get()."""
+        def produce(span):
+            s, e = span
+            return self._upload_block(ids[s:e], w_all[s:e])
+
+        with self._live_lock:       # an aborted stream's blocks are gone
+            self.resident_block_bytes = 0
+        cls = Prefetcher if self.prefetch else InlineFetcher
+        return cls(produce, spans, stats=self.transfer_stats,
+                   device=self.device)
+
+    def _round_blockstream(self, variables: dict, server_state,
+                           round_idx: int = 0):
+        """Block-streamed round: `stream_block`-client blocks cross to the
+        device while the chunk loop folds them into one accumulator; one
+        finalize divides and applies the server update.  Lane i of the
+        cohort trains with the same generator as in the streaming round,
+        and with the block a multiple of the chunk the same lanes fold in
+        the same order, so the round is the streaming round's bitwise
+        (pad lanes add +-0).  A retired block's references are dropped
+        before the next get(): at most two blocks are resident."""
+        ids = self.sampler.sample(round_idx)
+        ids, wmask, spans = self._pad_to_block(
+            ids, np.ones(len(ids), np.float32))
+        w_all = np.take(np.asarray(self.data.client_num_samples, np.float32),
+                        ids) * wmask
+        self.transfer_stats.round_start()
+        try:
+            with obs.span("round.blockstream", round=int(round_idx),
+                          clients=len(ids), blocks=len(spans)):
+                g = self._local_flat(variables)
+                sums = self._zero_sums(g)
+                with self._block_fetcher(ids, w_all, spans) as fetch:
+                    for i, (s, _e) in enumerate(spans):
+                        block, w = fetch.get()
+                        with obs.span("round.block_step", block=i):
+                            sums = self._accumulate(g, sums, block, w,
+                                                    round_idx, lane0=s)
+                        self._retire_block(block)
+                        del block, w
+                with obs.span("round.block_finalize"):
+                    avg, loss = self._finalize_from_sums(variables, sums)
+                    new_variables, server_state = self.server_update(
+                        avg, variables, server_state)
+                return new_variables, server_state, {"train_loss": loss}
+        finally:
+            self.transfer_stats.round_end()
+
 
 class MeshFedProxEngine(MeshFedAvgEngine):
     """FedProx on the chunked engine: the proximal term lives in the
     trainer's loss; the aggregation is FedAvg's."""
 
-    program_family = "fedprox_streaming"
+    _family_stem = "fedprox"
 
     def __init__(self, trainer: ClientTrainer, data: FederatedData,
                  cfg: FedConfig, **kw):
@@ -362,7 +572,7 @@ class MeshFedOptEngine(MeshFedAvgEngine):
     `cfg.server_optimizer` (FedOptAggregator.py:94-123); its state persists
     across rounds in server_state."""
 
-    program_family = "fedopt_streaming"
+    _family_stem = "fedopt"
 
     def __init__(self, trainer: ClientTrainer, data: FederatedData,
                  cfg: FedConfig, **kw):
@@ -387,15 +597,12 @@ class MeshFedNovaEngine(MeshFedAvgEngine):
     kernel's accumulate form with base 0 and cf = -w / max(tau, 1); g is
     the round's model in the local dtype, as the JAX engine's chunk body
     reads it.  The collections take the plain weighted mean
-    (engine.py:1158-1160)."""
+    (engine.py:1158-1160).  Its sums are (d, sum w, sum w*tau, sum
+    w*loss)."""
 
-    program_family = "fednova_streaming"
+    _family_stem = "fednova"
 
-    def _shard_sums(self, variables: dict, cohort: dict, weights: torch.Tensor,
-                    round_idx: int = 0):
-        """(sum w*(g - v)/tau over the parameters then sum w*v over the
-        collections, sum w, sum w*tau, sum w*loss)."""
-        g = self._local_flat(variables)
+    def _fold_fn(self, g: torch.Tensor) -> Callable:
         epochs, r = self.cfg.epochs, self.trainer.train_len
 
         def nova_fold(num, lanes, w, chunk_shards):
@@ -404,9 +611,20 @@ class MeshFedNovaEngine(MeshFedAvgEngine):
                       (-w / torch.clamp(tau, min=1.0)).contiguous(), 0.0)
             fold_collections(self.trainer, num, lanes, w)
 
+        return nova_fold
+
+    def _zero_sums(self, g: torch.Tensor) -> tuple:
+        dsum, den, lsum = zero_sums(g)
+        return dsum, den, torch.zeros_like(den), lsum
+
+    def _accumulate(self, g: torch.Tensor, sums: tuple, cohort: dict,
+                    weights: torch.Tensor, round_idx: int, lane0: int = 0):
+        dsum, den, tsum, lsum = sums
         dsum, den, lsum = self._chunked(g, cohort, weights, round_idx,
-                                        fold_fn=nova_fold)
-        tsum = (weights.float() * fednova_tau(cohort, epochs)).sum()
+                                        fold_fn=self._fold_fn(g),
+                                        carry=(dsum, den, lsum), lane0=lane0)
+        tsum = tsum + (weights.float()
+                       * fednova_tau(cohort, self.cfg.epochs)).sum()
         return dsum, den, tsum, lsum
 
     def _finalize_from_sums(self, variables: dict, sums):
@@ -421,7 +639,7 @@ class MeshFedNovaEngine(MeshFedAvgEngine):
 
 
 class MeshRobustEngine(MeshFedAvgEngine):
-    """Byzantine-robust FedAvg on the chunked engine (engine.py:1197-1375).
+    """Byzantine-robust FedAvg on the chunked engine (engine.py:1197-1580).
 
     defense="norm_clip" (the reference's clip + weak DP) clips each client
     inside the chunk fold: sqnorm(lanes, g) -> s = clip_scale -> the
@@ -429,36 +647,54 @@ class MeshRobustEngine(MeshFedAvgEngine):
     (v_k - g), which is the JAX engine's client_transform followed by its
     fold, with g the round's model in the local dtype.  Zero-weight pad
     lanes add nothing.  With cfg.stddev > 0 the server adds weak-DP noise
-    from a generator the engine owns, seeded from cfg.seed.
+    from a generator the engine owns, seeded from cfg.seed.  Being linear,
+    it block-streams like FedAvg.
 
     defense in {"krum", "multi_krum", "median", "trimmed_mean"} needs order
     statistics over the whole cohort's parameter vectors, which a weighted
     sum cannot express: the chunk loop keeps every client's trained row as
-    the [K, P] f32 matrix and the defense runs there.
-
-    `stream_block` (the two-phase beyond-HBM order-statistic path) is a
-    later slice of the port.  Every defense counts under the JAX family
-    "robust_orderstat" (norm_clip shares it there too)."""
-
-    program_family = "robust_orderstat"
+    the [K, P] f32 matrix and the defense runs there.  With `stream_block`
+    the round runs in two phases instead (the matrix never on the card):
+    phase 1 streams client blocks through training and lands each block's
+    parameter rows in a pinned host [K, P] f32 matrix; phase 2 streams it
+    back parameter-major, [K, Pb] slices of `param_block_bytes`: median
+    and trimmed mean sort each column (column-local, so bitwise the
+    resident defense), krum accumulates the Gram matrix G = sum_b X_b X_b^T
+    (TF32 off) and scores from it.  The cohort must be a block multiple:
+    order statistics cannot ignore a padded lane.  Counts under the JAX
+    families "robust_orderstat" and, block-streamed, "robust_blockstream"
+    (norm_clip shares them)."""
 
     def __init__(self, trainer: ClientTrainer, data: FederatedData,
                  cfg: FedConfig, defense: str = "norm_clip",
                  n_byzantine: int = 0, multi_krum_m: Optional[int] = None,
-                 stream_block: Optional[int] = None, **kw):
+                 param_block_bytes: int = 128 << 20, **kw):
         check_defense(defense)
-        if stream_block is not None:
-            raise NotImplementedError(
-                "MeshRobustEngine(stream_block=...), the block-streamed "
-                "order-statistic path, is not ported yet (slice 6 of the port)")
         self.defense = defense
         self.n_byzantine = n_byzantine
         self.multi_krum_m = robust_ops.default_multi_krum_m(
             min(cfg.client_num_per_round, data.client_num), n_byzantine,
             multi_krum_m)
+        self.param_block_bytes = int(param_block_bytes)
+        stream_block = kw.get("stream_block")
+        if defense != "norm_clip" and stream_block is not None:
+            K = min(cfg.client_num_per_round, data.client_num)
+            if K % stream_block:
+                raise ValueError(
+                    f"defense {defense!r} with stream_block needs the "
+                    f"cohort ({K}) to be a block multiple ({stream_block}): "
+                    "order statistics cannot ignore padded lanes")
+        self.orderstat_host_bytes = 0   # the last two-phase round's matrix
         super().__init__(trainer, data, cfg, **kw)
         self.noise_generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed)
+
+    def _program_family_name(self, stream_block) -> str:
+        return ("robust_blockstream" if stream_block is not None
+                else "robust_orderstat")
+
+    def _blockstream_round_fn(self):
+        return self._round_blockstream_orderstat
 
     def server_update(self, avg_variables: dict, global_variables: dict,
                       server_state):
@@ -467,9 +703,7 @@ class MeshRobustEngine(MeshFedAvgEngine):
                 avg_variables, self.noise_generator, self.cfg.stddev)
         return avg_variables, server_state
 
-    def _shard_sums(self, variables: dict, cohort: dict, weights: torch.Tensor,
-                    round_idx: int = 0):
-        g = self._local_flat(variables)
+    def _fold_fn(self, g: torch.Tensor) -> Callable:
         bound, row = self.cfg.norm_bound, self.trainer.spec.padded
         r = self.trainer.train_len
 
@@ -484,19 +718,32 @@ class MeshRobustEngine(MeshFedAvgEngine):
                       w.sum())
             fold_collections(self.trainer, num, lanes, w)
 
-        return self._chunked(g, cohort, weights, round_idx,
-                             fold_fn=clipped_fold)
+        return clipped_fold
+
+    def _collections_fold(self) -> Optional[Callable]:
+        """The order-statistic rounds fold only the collections."""
+        trainer = self.trainer
+        if not trainer.n_stats:
+            return None
+        return lambda num, lanes, w, _: fold_collections(trainer, num,
+                                                         lanes, w)
+
+    def _orderstat_finalize(self, variables: dict, new_flat: torch.Tensor,
+                            sums: tuple):
+        num, den, lsum = sums
+        r = self.trainer.train_len
+        new = self.trainer.unflatten(torch.cat([new_flat, num[r:] / den]))
+        return ({k: v.to(variables[k].dtype) for k, v in new.items()},
+                lsum / den)
 
     def _shard_body(self, variables: dict, cohort: dict, weights: torch.Tensor,
                     round_idx: int = 0):
         if self.defense == "norm_clip":
             return super()._shard_body(variables, cohort, weights, round_idx)
-        trainer, r = self.trainer, self.trainer.train_len
+        r = self.trainer.train_len
         num, den, lsum, flats = self._chunked(
             self._local_flat(variables), cohort, weights, round_idx,
-            fold_fn=((lambda num, lanes, w, _: fold_collections(
-                trainer, num, lanes, w)) if trainer.n_stats else None),
-            emit_flat_params=True)
+            fold_fn=self._collections_fold(), emit_flat_params=True)
         flats = flats[:, :r]
         if self.defense == "krum":
             new_flat = flats[robust_ops.krum_select_flat(flats,
@@ -510,6 +757,107 @@ class MeshRobustEngine(MeshFedAvgEngine):
         else:
             new_flat = robust_ops.trimmed_mean_axis0(
                 flats, max(self.n_byzantine, 1))
-        new = self.trainer.unflatten(torch.cat([new_flat, num[r:] / den]))
-        return ({k: v.to(variables[k].dtype) for k, v in new.items()},
-                lsum / den)
+        return self._orderstat_finalize(variables, new_flat, (num, den, lsum))
+
+    # -- the two-phase block-streamed order statistics ------------------------
+    def _krum_scores_from_gram(self, G: np.ndarray) -> np.ndarray:
+        """krum_scores_flat from the Gram matrix (host numpy: G is [K, K])."""
+        sq = np.diag(G)
+        d2 = np.maximum(sq[:, None] + sq[None, :] - 2.0 * G, 0.0)
+        n = G.shape[0]
+        k = max(n - self.n_byzantine - 2, 1)
+        np.fill_diagonal(d2, np.inf)
+        return np.sort(d2, axis=1)[:, :k].sum(axis=1)
+
+    def _round_blockstream_orderstat(self, variables: dict, server_state,
+                                     round_idx: int = 0):
+        """Two-phase block-streamed robust round (class docstring): median
+        and trimmed mean bitwise the resident defense; krum selects as the
+        resident round does, up to the Gram's summation order in ties."""
+        if self.defense == "norm_clip":      # linear: the base path streams
+            return self._round_blockstream(variables, server_state,
+                                           round_idx)
+        ids = self.sampler.sample(round_idx)
+        if len(ids) % self.stream_block:
+            raise ValueError("order statistics cannot ignore padded lanes: "
+                             f"cohort {len(ids)}, block {self.stream_block}")
+        w_all = np.take(np.asarray(self.data.client_num_samples, np.float32),
+                        ids)
+        self.transfer_stats.round_start()
+        try:
+            with obs.span("round.blockstream_orderstat",
+                          round=int(round_idx), clients=len(ids),
+                          defense=self.defense):
+                new_flat, sums = self._blockstream_orderstat_body(
+                    variables, ids, w_all, round_idx)
+                new, loss = self._orderstat_finalize(variables, new_flat,
+                                                     sums)
+                new, server_state = self.server_update(new, variables,
+                                                       server_state)
+                return new, server_state, {"train_loss": loss}
+        finally:
+            self.transfer_stats.round_end()
+
+    def _blockstream_orderstat_body(self, variables: dict, ids: np.ndarray,
+                                    w_all: np.ndarray, round_idx: int):
+        B, K = self.stream_block, len(ids)
+        r = self.trainer.train_len
+        g = self._local_flat(variables)
+        sums = zero_sums(g)
+        # phase 1: client-major blocks; each block's parameter rows land in
+        # the pinned host matrix, and the device copy is dropped at once
+        X = torch.empty((K, r), dtype=torch.float32,
+                        pin_memory=self.device.type == "cuda")
+        self.orderstat_host_bytes = X.numel() * X.element_size()
+        spans = [(s, s + B) for s in range(0, K, B)]
+        with self._block_fetcher(ids, w_all, spans) as fetch:
+            for s, e in spans:
+                block, w = fetch.get()
+                *sums, flats = self._chunked(
+                    g, block, w, round_idx, fold_fn=self._collections_fold(),
+                    emit_flat_params=True, carry=sums, lane0=s)
+                X[s:e].copy_(flats[:, :r])
+                self._retire_block(block)
+                del block, w, flats
+        # phase 2: parameter-major [K, Pb] slices back through the device
+        pb = max(1, self.param_block_bytes // (K * 4))
+        n_slices = -(-r // pb)
+
+        def slice_up(i):
+            # inline on the round loop: transfer and consumer wait at once
+            with self.transfer_stats.uploading(), \
+                    self.transfer_stats.waiting():
+                xb = X[:, i * pb:(i + 1) * pb].contiguous()
+                self.transfer_stats.add_h2d_bytes(
+                    xb.numel() * xb.element_size())
+                return upload(xb, self.device)
+
+        if self.defense in ("krum", "multi_krum"):
+            G = torch.zeros((K, K), dtype=torch.float32, device=self.device)
+            tf32 = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            try:
+                for i in range(n_slices):
+                    xb = slice_up(i)
+                    G += xb @ xb.T
+                    del xb
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+            scores = self._krum_scores_from_gram(G.cpu().numpy())
+            self.last_krum_scores = scores
+            if self.defense == "krum":
+                new_flat = X[int(np.argmin(scores))]
+            else:
+                idx = np.argsort(scores, kind="stable")[:self.multi_krum_m]
+                new_flat = X[torch.as_tensor(idx)].to(self.device).mean(dim=0)
+        else:
+            out = torch.empty(r, dtype=torch.float32, device=self.device)
+            for i in range(n_slices):
+                xb = slice_up(i)
+                out[i * pb:(i + 1) * pb] = (
+                    robust_ops.median_axis0(xb) if self.defense == "median"
+                    else robust_ops.trimmed_mean_axis0(
+                        xb, max(self.n_byzantine, 1)))
+                del xb
+            new_flat = out
+        return new_flat.to(self.device), tuple(sums)

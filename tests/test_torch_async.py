@@ -42,6 +42,7 @@ from fedml_tpu.models import create_model as jax_create_model
 from fedml_tpu.scale import registry as jreg
 from fedml_tpu.utils.config import FedConfig as JaxFedConfig
 from fedml_tpu_torch import obs
+from fedml_tpu_torch.algorithms.centralized import CentralizedTrainer
 from fedml_tpu_torch.algorithms.fedavg import FedAvgEngine
 from fedml_tpu_torch.async_ import (AsyncBuffer, AsyncFedAvgEngine,
                                     AsyncServerManager, AttackConfig,
@@ -56,7 +57,9 @@ from fedml_tpu_torch.core.trainer import ClientTrainer
 from fedml_tpu_torch.data import federated as tfed
 from fedml_tpu_torch.models import create_model
 from fedml_tpu_torch.scale import registry as treg
+from fedml_tpu_torch.scale import run_serve_sim
 from fedml_tpu_torch.secure import SecAggConfig, SecureAggregator
+from fedml_tpu_torch.utils.checkpoint import FedCheckpointManager
 from fedml_tpu_torch.utils.config import FedConfig
 
 torch.set_num_threads(2)
@@ -243,9 +246,10 @@ def test_degenerate_config_is_fedavg_bitwise():
     assert rep["buffer_occupancy_mean"] == 4.0
 
 
-def test_shardstore_cohorts_and_async_state_round_trip():
+def test_shardstore_cohorts_and_async_state_round_trip(tmp_path):
     """A duck-typed shard store (.cohort(ids)) gives the run the data's
-    own cohorts; async_state() round-trips into a fresh engine."""
+    own cohorts; async_state() round-trips into a fresh engine, in memory
+    and through a checkpoint on disk."""
     case = dict(LR_CASES["defended"], commits=2)
     _, teng, init, _ = _engines("lr", case)
     data = teng.data
@@ -274,8 +278,17 @@ def test_shardstore_cohorts_and_async_state_round_trip():
         for k in state[part]:
             np.testing.assert_array_equal(again[part][k], state[part][k])
     assert int(again["version"]) == 2
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        teng.run(ckpt=object())
+    ck = FedCheckpointManager(str(tmp_path / "async"))
+    ck.save(1, a, (), extra_state=state)
+    _, disk, _, _ = _engines("lr", case)
+    _r, v, _s, extra = ck.restore(a, (), extra_template=disk.async_state())
+    disk.load_async_state(extra)
+    restored = disk.async_state()
+    for part in ("buffer", "registry", "defense"):
+        for k in state[part]:
+            np.testing.assert_array_equal(restored[part][k], state[part][k])
+    for k in a:
+        assert torch.equal(v[k], a[k]), k
 
 
 def test_scheduler_deadlock_dumps_once_and_raises(tmp_path):
@@ -440,16 +453,25 @@ def test_async_messaging_secure_rounds_commit():
 
 
 def test_entry_points_refuse_what_waits_for_slice_6_and_default_to_cuda(
-        monkeypatch):
-    """Saving to disk names slice 6; the entry points and the building
-    blocks that hold state default to the card and raise without one."""
+        monkeypatch, tmp_path):
+    """What still waits for the multi-process slice names slice 6 (the
+    host-sharded serve simulation, the data-parallel centralized trainer);
+    saving to disk now works (an empty checkpoint directory resumes
+    nothing); the entry points and the building blocks that hold state
+    default to the card and raise without one."""
     with pytest.raises(NotImplementedError, match="slice 6"):
-        AsyncServerManager({"w": torch.zeros(2)}, 1, 1, size=1,
-                           router=InProcRouter(), checkpoint_dir="x",
-                           device="cpu")
+        run_serve_sim(100, commits=3, buffer_k=4, partition=(0, 2),
+                      device="cpu")
     with pytest.raises(NotImplementedError, match="slice 6"):
-        AsyncServerManager({"w": torch.zeros(2)}, 1, 1, size=1,
-                           router=InProcRouter(), resume=True, device="cpu")
+        CentralizedTrainer(ClientTrainer(create_model("lr", 10)),
+                           _data(tfed, 2), _cfg(FedConfig, 2),
+                           mesh=object(), device="cpu")
+    srv = AsyncServerManager({"w": torch.zeros(2)}, 1, 1, size=1,
+                             router=InProcRouter(), resume=True,
+                             checkpoint_dir=str(tmp_path / "ck"),
+                             device="cpu")
+    assert srv.version == 0 and srv._ckpt.latest_round() is None
+    srv.finish()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         AsyncFedAvgEngine(ClientTrainer(create_model("lr", 10)),
@@ -469,7 +491,10 @@ def test_import_scan_covers_the_new_modules():
     files = [REPO / "fedml_tpu_torch" / p for p in (
         "async_/__init__.py", "async_/staleness.py", "async_/defense.py",
         "async_/adversary.py", "async_/lifecycle.py", "async_/scheduler.py",
-        "secure/__init__.py", "secure/secagg.py", "scale/registry.py")]
+        "async_/torture.py", "secure/__init__.py", "secure/secagg.py",
+        "scale/__init__.py", "scale/registry.py", "scale/sampler.py",
+        "scale/shardstore.py", "scale/serve.py", "parallel/prefetch.py",
+        "utils/checkpoint.py", "utils/profiling.py")]
     assert set(files) <= set((REPO / "fedml_tpu_torch").rglob("*.py"))
     assert [(f.name, m) for f in files for m in _imported_modules(f)
             if m.split(".")[0] in FORBIDDEN] == []

@@ -53,6 +53,7 @@ from fedml_tpu_torch.data import federated as tfed
 from fedml_tpu_torch.models import create_model
 from fedml_tpu_torch.models.layers import Dense
 from fedml_tpu_torch.ops.aggregate import weighted_mean_flat
+from fedml_tpu_torch.secure import SecAggConfig, SecureAggregator
 from fedml_tpu_torch.utils.config import FedConfig
 from tests.test_torch_transports import with_free_ports
 
@@ -473,23 +474,37 @@ def test_mixed_upload_dtypes_fold_as_jax(order):
 # ---------------------------------------------------------------------------
 
 def test_secure_and_mqtt_refuse_by_name():
+    """Secure aggregation is ported: a secure server refuses a PLAIN
+    uplink by name (config skew, quarantined, never folded) and a plain
+    server a masked one; the secure round itself runs.  MQTT with no
+    broker at the port refuses the connect."""
     trainer, data, cfg = _lr_setup(n=2)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        run_messaging_fedavg(trainer, data, cfg, device="cpu",
-                             secure=object())
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        FedAvgAggregator({"w": np.zeros(2)}, 2, 2, 2, secure=object(),
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        FedAvgClientManager(trainer, data, 1, 1, 2, secure=object(),
-                            device="cpu", router=InProcRouter())
+    out = run_messaging_fedavg(trainer, data, _cfg(n=2, rounds=1),
+                               device="cpu", secure=SecAggConfig(seed=3),
+                               timeout=WAIT)
+    assert all(torch.isfinite(v).all() for v in out.values())
+    init = trainer.init(torch.Generator().manual_seed(0), "cpu")
+    for secure in (True, False):
+        sec = (SecureAggregator(SecAggConfig(seed=3), [1, 2],
+                                trainer.spec.n, device="cpu")
+               if secure else None)
+        agg = FedAvgAggregator(init, 2, 2, 2, secure=sec, device="cpu")
+        server = FedAvgServerManager(agg, 1, 0, 3, router=InProcRouter())
+        msg = Message(fm.MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER, 1, 0)
+        msg.add_params(fm.MyMessage.MSG_ARG_KEY_MODEL_PARAMS, init)
+        msg.add_params(fm.MyMessage.MSG_ARG_KEY_NUM_SAMPLES, 8.0)
+        msg.add_params(fm.MyMessage.MSG_ARG_KEY_ROUND, 0)
+        if not secure:
+            msg.add_params(fm.MyMessage.MSG_ARG_KEY_SECAGG, {"round": 0})
+        server._handle_model_from_client(msg)
+        assert server._quarantined == {1}
+        assert agg.received_count() == 0
+        server.finish()
     # MQTT is built now: with no broker at the port, the connect refuses
     from tests.test_torch_transports import free_base_port
     with pytest.raises(ConnectionRefusedError):
         run_messaging_fedavg(trainer, data, cfg, backend="MQTT",
                              device="cpu", port=free_base_port(1))
-    assert "secagg" not in " ".join(
-        n for n in dir(fm) if not n.startswith("_")).lower()
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -648,9 +648,18 @@ def test_mesh_robust_refuses_what_it_does_not_port():
     with pytest.raises(ValueError, match="unknown defense"):
         MeshRobustEngine(port_trainer(), make_data(tfed), make_cfg(FedConfig),
                          defense="bulyan", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        MeshRobustEngine(port_trainer(), make_data(tfed), make_cfg(FedConfig),
-                         defense="median", stream_block=2, device="cpu")
+    # the two-phase block-streamed order statistics are ported: they
+    # refuse only a cohort that is not a block multiple (a padded lane
+    # has no place in a median)
+    eng = MeshRobustEngine(port_trainer(), make_data(tfed),
+                           make_cfg(FedConfig), defense="median",
+                           stream_block=len(SIZES), device="cpu")
+    assert eng.round_fn.inner == eng._round_blockstream_orderstat
+    assert eng.program_family == "robust_blockstream"
+    with pytest.raises(ValueError, match="padded lanes"):
+        MeshRobustEngine(port_trainer(), make_data(tfed),
+                         make_cfg(FedConfig), defense="median",
+                         stream_block=len(SIZES) + 1, device="cpu")
 
 
 def test_evaluate_backdoor_matches_jax():
