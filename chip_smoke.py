@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's FedAvg, robust-aggregation, model-zoo,
-data-layer, one-card-algorithm, FedNAS, message-driven FedAvg and async
-paths on one CUDA card (message-driven FedAvg also under injected faults
-and over MQTT, with program timing and the observatory), and hold every
+data-layer, one-card-algorithm, FedNAS, message-driven FedAvg, async and
+two-level multi-process paths on one CUDA card (message-driven FedAvg
+also under injected faults and over MQTT, with program timing and the
+observatory), and hold every
 hand-written kernel against its plain PyTorch version.
 
 Run from the root of a checkout:  python3 chip_smoke.py
@@ -162,20 +163,34 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    one secure messaging round at full width (the field sum bitwise the
    plain fixed-point sum); the connection torture at 256 connections
    (FD delta 0);
-20. one JSON line of the zoo's, C.1's, the data path's and slices 7a-i's,
-   7a-ii's, 5b-i's, 5b-ii's, 4a's and 4b's numbers, one listing every TPU
-   kernel of the JAX package with its port's numbers and its launches on
-   every path, then the last line {"ok": true, "device": {...}}.
+20. slice 6a, the two-level multi-process runtime, in real processes
+   sharing this one card through the port's launcher (the script starts
+   itself as each rank, ``chip_smoke.py --rank20 CONFIG``): the main path
+   through MultihostRunner (2 blocks of 4 clients, 2 rounds an arm) at 1
+   rank and at 2 ranks, streaming and resident, the f32 exchange serial
+   and overlapped, then norm_clip with weak-DP noise; every FedAvg arm
+   commits one digest, norm_clip another, launches exact per rank, each
+   arm's s/round, exchange wall, carry bytes and overlap fraction; one f32
+   two-level round card against CPU within phase 4's limits; the LR
+   mh_worker with int8_ef and topk_ef, 2 ranks bitwise 1, and a rank
+   killed after round 0, which rank 0's DeadRankError and the launcher
+   must both name;
+21. one JSON line of the zoo's, C.1's, the data path's and slices 7a-i's,
+   7a-ii's, 5b-i's, 5b-ii's, 4a's, 4b's and 6a's numbers, one listing every
+   TPU kernel of the JAX package with its port's numbers and its launches
+   on every path, then the last line {"ok": true, "device": {...}}.
 
 It needs one card; it imports nothing of JAX or of fedml_tpu.
-``python3 chip_smoke.py --phase 19`` builds the kernels and runs phase 19
-alone (a quicker check of that slice; it prints no kernel line).
+``python3 chip_smoke.py --phase 19`` (or ``--phase 20``) builds the
+kernels and runs that phase alone (a quicker check of that slice; it
+prints no kernel line).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import math
+import os
 import pickle
 import re
 import socket
@@ -183,6 +198,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 from pathlib import Path
@@ -268,6 +284,11 @@ from fedml_tpu_torch.parallel.engine import (MeshFedAvgEngine,
                                              MeshFedProxEngine,
                                              MeshRobustEngine,
                                              chunked_weighted_train)
+from fedml_tpu_torch.parallel.multihost import (HostChannel,
+                                                MultihostContext,
+                                                MultihostRunner,
+                                                spawn_cluster,
+                                                variables_digest)
 from fedml_tpu_torch.scale import ArrivalConfig, run_serve_sim
 from fedml_tpu_torch.secure import SecAggConfig, SecureAggregator
 from fedml_tpu_torch.utils.checkpoint import FedCheckpointManager
@@ -4854,6 +4875,310 @@ def phase_slice4b() -> dict:
           + f" ({card_line()})")
     return rec
 
+# ---------------------------------------------------------------------------
+# phase 20: slice 6a, the two-level multi-process runtime
+# ---------------------------------------------------------------------------
+
+MH_BLOCKS = 2                  # 20a-20b: blocks of 4 clients
+MH_ROUNDS = 2                  # rounds an arm; rank 0 evaluates after each
+MH_ARMS = (("streaming", False), ("streaming", True), ("resident", False),
+           ("resident", True))  # (residency, overlapped exchange)
+MH_TIMEOUT_S = 420.0
+MH_LR = dict(clients=16, spc=24, dim=16, classes=10, k_per_round=8,
+             n_blocks=2, rounds=3, warmup=1, seed=0,
+             modes=["streaming", "resident"], channel_timeout_s=120.0)
+
+
+def rank20_main(cfg_path: str) -> int:
+    """One rank of phase 20's cluster, started by the launcher as
+    ``chip_smoke.py --rank20 CONFIG``: the main path's recipe through
+    MultihostRunner for each arm of the config over one HostChannel
+    (cuDNN deterministic), launches counted from zero just before each
+    arm's run; prints one JSON line."""
+    with open(cfg_path) as f:
+        spec = json.load(f)
+    ctx = MultihostContext.from_env()
+    trainer, data, cfg = main_recipe()
+    torch.backends.cudnn.deterministic = True
+    channel = HostChannel(ctx, timeout_s=MH_TIMEOUT_S)
+    out = {"rank": ctx.rank, "world": ctx.world, "arms": {}}
+    v0 = None
+    try:
+        for arm in spec["arms"]:
+            kw = dict(chunk=MAIN_CHUNK, local_dtype=torch.bfloat16,
+                      streaming=arm["residency"] == "streaming")
+            if arm["engine"] == "norm_clip":
+                eng = MeshRobustEngine(trainer, data, dataclasses.replace(
+                    cfg, stddev=1e-3), defense="norm_clip", **kw)
+            else:
+                eng = MeshFedAvgEngine(trainer, data, cfg, **kw)
+            if v0 is None:
+                v0 = eng.init_variables()
+            runner = MultihostRunner(eng, ctx, n_blocks=MH_BLOCKS,
+                                     channel=channel, timeout_s=MH_TIMEOUT_S,
+                                     overlap_exchange=arm["overlap"])
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            v = runner.run(variables=dict(v0), rounds=MH_ROUNDS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            rep = runner.report(warmup_rounds=1)
+            out["arms"][arm["tag"]] = dict(
+                digest=variables_digest(v), launches=counts, wall_s=wall,
+                round_walls=runner.round_walls,
+                exchange_walls=runner.exchange_walls,
+                overlap_fraction=rep["overlap_fraction"],
+                carry_received=runner.carry_bytes,
+                carry_raw=runner.carry_raw,
+                finite=all(bool(torch.isfinite(t).all()) for t in v.values()))
+        # the channel alone: an allgather of one block's f32 carry after a
+        # barrier, without training (the serial exchange wall less this is
+        # the ranks' skew at the barrier)
+        payload = np.zeros(N_PARAMS + 2, np.float32).tobytes()
+        out["channel_allgather_s"] = []
+        for _ in range(3):
+            channel.barrier()
+            t0 = time.perf_counter()
+            channel.allgather(payload)
+            out["channel_allgather_s"].append(time.perf_counter() - t0)
+        print(json.dumps(out), flush=True)
+    finally:
+        channel.close()
+    return 0
+
+
+def spawn_json(cmd: list, procs: int) -> list:
+    """spawn_cluster of `cmd` at `procs` ranks from the repo root; each
+    rank's last stdout line, parsed."""
+    root = str(Path(__file__).resolve().parent)
+    env = {"PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    outs = spawn_cluster(cmd, procs, env=env, timeout_s=MH_TIMEOUT_S)
+    return [json.loads(o.strip().splitlines()[-1]) for o in outs]
+
+
+def twolevel_expected(blocks: int, evals: int, norm_clip: bool) -> dict:
+    """One rank's launches over MH_ROUNDS rounds of `blocks` blocks of 4
+    clients (13 steps a client, 20 GroupNorm layers), `evals`
+    evaluations: the fold kernel twice a block (chunk 2), or norm_clip's
+    two kernels twice a block."""
+    steps = MH_ROUNDS * blocks * (MAIN_CLIENTS // MH_BLOCKS) * BATCHES
+    folds = MH_ROUNDS * blocks * (MAIN_CLIENTS // MH_BLOCKS) // MAIN_CHUNK
+    return {"gn_forward": 20 * (steps + 2 * evals), "gn_backward": 20 * steps,
+            "wsum": 0 if norm_clip else folds,
+            "sqnorm": folds if norm_clip else 0,
+            "clip_agg": folds if norm_clip else 0}
+
+
+def twolevel_main_path() -> dict:
+    """20a-20b: the main path's recipe (8 clients of 13 batches, bf16
+    masters, chunk 2) through MultihostRunner with 2 blocks of 4, in real
+    processes on this one card through the port's launcher: 1 rank (both
+    blocks) and 2 ranks (a block each, sharing the card), streaming and
+    resident, the f32 exchange serial and overlapped, then norm_clip
+    (weak-DP noise on, so every rank must draw it identically).  Every
+    FedAvg arm at both worlds commits one digest, norm_clip another;
+    launches exact per rank."""
+    arms = [dict(tag=f"{res} {'overlapped' if ov else 'serial'}",
+                 engine="fedavg", residency=res, overlap=ov)
+            for res, ov in MH_ARMS]
+    arms.append(dict(tag="norm_clip", engine="norm_clip",
+                     residency="streaming", overlap=False))
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mh_"))
+    cfg_path = tmp / "arms.json"
+    cfg_path.write_text(json.dumps({"arms": arms}))
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--rank20",
+           str(cfg_path)]
+    docs, seconds = {}, {}
+    for procs in (1, 2):
+        t0 = time.perf_counter()
+        docs[procs] = spawn_json(cmd, procs)
+        seconds[procs] = time.perf_counter() - t0
+    digests = {}
+    for procs, ranks in docs.items():
+        for doc in ranks:
+            r = doc["rank"]
+            for arm in arms:
+                rec = doc["arms"][arm["tag"]]
+                clip = arm["engine"] == "norm_clip"
+                want = twolevel_expected(MH_BLOCKS // procs,
+                                         MH_ROUNDS if r == 0 else 0, clip)
+                if rec["launches"] != want or not rec["finite"]:
+                    raise AssertionError(
+                        f"20 {arm['tag']}, {procs} rank(s), rank {r}: "
+                        f"launches {rec['launches']} != {want} or a "
+                        f"non-finite model")
+                digests.setdefault(arm["engine"], set()).add(rec["digest"])
+                ewall = rec["exchange_walls"][-1]
+                print(f"[20a] {arm['tag']}, {procs} rank(s), rank {r}: "
+                      f"s/round {rec['round_walls']}, exchange wall "
+                      f"{ewall:.4f} s, carry raw {rec['carry_raw'][-1]} B, "
+                      f"received {rec['carry_received'][-1]} B, overlap "
+                      f"fraction {rec['overlap_fraction']:.3f}; launches "
+                      f"{rec['launches']} == expected; digest "
+                      f"{rec['digest']}")
+    for doc in docs[2]:
+        print(f"[20a] the channel alone, 2 ranks, rank {doc['rank']}: an "
+              f"allgather of {4 * (N_PARAMS + 2)} B a rank took "
+              + ", ".join(f"{t:.4f}" for t in doc["channel_allgather_s"])
+              + " s")
+    bad = {k: v for k, v in digests.items() if len(v) != 1}
+    print(f"[20a] two-level main path on one card: {len(arms) - 1} FedAvg "
+          f"arms and norm_clip at 1 and 2 ranks, one digest each: "
+          f"{ {k: len(v) == 1 for k, v in digests.items()} }; cluster walls "
+          + ", ".join(f"{p} rank(s) {s:.1f} s" for p, s in seconds.items())
+          + f" ({card_line()})")
+    if bad:
+        raise AssertionError(f"20a: the arms did not commit one model: {bad}")
+    return dict(docs=docs, cluster_s=seconds,
+                channel_s={d["rank"]: d["channel_allgather_s"]
+                           for d in docs[2]},
+                launches={f"{p} rank(s), rank {d['rank']}":
+                          d["arms"]["streaming serial"]["launches"]
+                          for p, ds in docs.items() for d in ds},
+                clip_launches={f"{p} rank(s), rank {d['rank']}":
+                               d["arms"]["norm_clip"]["launches"]
+                               for p, ds in docs.items() for d in ds})
+
+
+def twolevel_card_cpu() -> dict:
+    """20c: one 1-rank two-level f32 round (2 blocks of 1 client x 2
+    batches, full width, TF32 off) on the card and on the CPU from the
+    same weights: the update within phase 4's limits, launches exact."""
+    f32_off()
+    data = synthetic_data(2, 2 * BATCH, seed=1)
+    cfg = FedConfig(model="resnet18_gn", dataset="cifar10",
+                    client_num_in_total=2, client_num_per_round=2, epochs=1,
+                    batch_size=BATCH, lr=0.1, frequency_of_the_test=10_000)
+    trainer = ClientTrainer(create_model("resnet18_gn", 10), lr=0.1)
+    out = {}
+    for device in ("cuda", "cpu"):
+        eng = MeshFedAvgEngine(trainer, data, cfg, chunk=MAIN_CHUNK,
+                               streaming=True, device=device)
+        v0 = eng.init_variables()
+        runner = MultihostRunner(eng, MultihostContext.single(), n_blocks=2)
+        reset_launch_counts()
+        v1 = runner.run(variables=dict(v0), rounds=1)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        out[device] = (v0, v1)
+    want = {"gn_forward": 20 * (4 + 2), "gn_backward": 20 * 4, "wsum": 2,
+            "sqnorm": 0, "clip_agg": 0}
+    (g0, g1), (c0, c1) = out["cuda"], out["cpu"]
+    whole, worst = update_distance("20c", g0, g1, c0, c1)
+    print(f"[20c] f32 two-level round, 1 rank, 2 blocks of 1 client x 2 "
+          f"batches: card vs CPU update distance {whole:.3e} (limit 1e-3), "
+          f"worst leaves " + ", ".join(f"{k} {v:.3e}" for k, v in worst)
+          + f" (limit 1e-2); launches {counts}")
+    if counts != want:
+        raise AssertionError(f"20c: launches {counts} != {want}")
+    if whole > 1e-3 or worst[0][1] > 1e-2:
+        raise AssertionError("20c: the card's two-level round differs from "
+                             "the CPU's beyond phase 4's limits")
+    return dict(distance=whole, worst=worst, launches=counts)
+
+
+def twolevel_lr_worker() -> dict:
+    """20d: the port's mh_worker (LR, 16 clients, 8 a round in 2 blocks,
+    3 rounds, streaming then resident) on the card: int8_ef and topk_ef
+    at 2 ranks bitwise 1 rank; then rank 1 dies at the end of round 0 and
+    the failure is checked: rank 0's DeadRankError names rank 1 and the
+    launcher blames rank 1."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lr_"))
+    cmd = [sys.executable, "-m", "fedml_tpu_torch.parallel.mh_worker"]
+    root = str(Path(__file__).resolve().parent)
+    (tmp / "die.json").write_text(
+        json.dumps({**MH_LR, "die_rank": 1, "die_at_round": 0}))
+    for codec in ("int8_ef", "topk_ef"):
+        (tmp / f"{codec}.json").write_text(
+            json.dumps({**MH_LR, "carry_codec": codec}))
+    runs, errs = {}, []
+
+    def run(key, fn):
+        try:
+            runs[key] = fn()
+        except Exception as e:       # re-raised below, after the joins
+            errs.append(e)
+
+    # the LR clusters are tiny: all five run at once
+    jobs = {(codec, procs): (lambda codec=codec, procs=procs: spawn_json(
+        cmd + [str(tmp / f"{codec}.json")], procs))
+        for codec in ("int8_ef", "topk_ef") for procs in (1, 2)}
+    jobs["die"] = lambda: subprocess.run(
+        [sys.executable, "-m", "fedml_tpu_torch.parallel.launch", "--procs",
+         "2", "--timeout", str(MH_TIMEOUT_S), "--"] + cmd
+        + [str(tmp / "die.json")], capture_output=True, text=True, cwd=root,
+        timeout=MH_TIMEOUT_S + 60, env={**os.environ, "PYTHONPATH": root
+                                        + os.pathsep
+                                        + os.environ.get("PYTHONPATH", "")})
+    threads = [threading.Thread(target=run, args=kv) for kv in jobs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    die, err = runs["die"], runs["die"].stderr
+    rec = {}
+    for codec in ("int8_ef", "topk_ef"):
+        one, two = runs[codec, 1][0], runs[codec, 2]
+        same = all(d["digests"] == one["digests"] for d in two)
+        rec[codec] = dict(one=one["digests"], same=same,
+                          ratio=two[0]["carry_compression_ratio"],
+                          bytes=two[0]["carry_allreduce_bytes_per_round"])
+        print(f"[20d] LR mh_worker, {codec}: 2 ranks bitwise 1: {same}; "
+              f"compression {two[0]['carry_compression_ratio']:.2f}x, "
+              f"{two[0]['carry_allreduce_bytes_per_round']:.0f} B received "
+              f"a round by rank 0")
+        if not same or one["carry_allreduce_bytes_per_round"] != 0 \
+                or two[0]["carry_allreduce_bytes_per_round"] <= 0:
+            raise AssertionError(f"20d {codec}: 2 ranks {two} against 1 "
+                                 f"rank {one}")
+    named = bool(re.search(r"\[rank 0\].*DeadRankError.*rank\(s\) \[1\]", err))
+    blamed = "rank 1/2 failed first" in err
+    print(f"[20d] die_rank=1 at round 0: launcher rc {die.returncode}; "
+          f"rank 0's DeadRankError names rank 1: {named}; the launcher "
+          f"blames rank 1: {blamed}")
+    if die.returncode == 0 or not named or not blamed:
+        raise AssertionError(f"20d: the crash was not named: rc "
+                             f"{die.returncode}\n{err[-3000:]}")
+    rec["crash"] = dict(rc=die.returncode, named=named, blamed=blamed)
+    return rec
+
+
+def phase_slice6a() -> dict:
+    """Phase 20: the two-level multi-process runtime on the card; each
+    part's seconds.  TF32 settings restored after."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    rec, seconds = {}, {}
+    try:
+        for key, part in (("20a two-level main path", twolevel_main_path),
+                          ("20c card vs cpu", twolevel_card_cpu),
+                          ("20d lr worker", twolevel_lr_worker)):
+            t0 = time.perf_counter()
+            rec[key] = part()
+            seconds[key] = time.perf_counter() - t0
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    rec["seconds"] = seconds
+    print(f"[slice 6a] phase 20 took {sum(seconds.values()):.1f} s: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+          + f" ({card_line()})")
+    return rec
+
+
+def phase20_paths(rec: dict) -> dict:
+    """Phase 20's paths and their launch counts per rank (each zeroed in
+    the rank just before its arm ran)."""
+    a = rec["20a two-level main path"]
+    return {**{f"two-level {k}": v for k, v in a["launches"].items()},
+            **{f"two-level norm_clip {k}": v
+               for k, v in a["clip_launches"].items()}}
+
 
 def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
                 counts: dict, robust_counts: dict, resnet56: dict,
@@ -4967,11 +5292,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--rank20"]:
+        return rank20_main(sys.argv[2])
     card = card_line()
     print(card)
     phase_build()
     if sys.argv[1:] == ["--phase", "19"]:
         print(json.dumps({"slice4b": phase_slice4b()}, default=str))
+        return 0
+    if sys.argv[1:] == ["--phase", "20"]:
+        print(json.dumps({"slice6a": phase_slice6a()}, default=str))
         return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     seconds = {}
@@ -5001,12 +5331,14 @@ def main() -> int:
     slice5b_ii = clock("17 slice 5b-ii", phase_slice5b_ii)
     slice4a = clock("18 slice 4a", phase_slice4a, gen)
     slice4b = clock("19 slice 4b", phase_slice4b)
+    slice6a = clock("20 slice 6a", phase_slice6a)
     print(json.dumps({"zoo": zoo, "resnet56_path": {
         k: v for k, v in resnet56.items() if k != "fold"},
         "word_lstm": word_lstm, "c1": c1, "data_path": data_path,
         "slice7a": slice7a, "slice7a_ii": slice7a_ii,
         "slice5b_i": slice5b_i, "slice5b_ii": slice5b_ii,
-        "slice4a": slice4a, "slice4b": slice4b, "seconds": seconds},
+        "slice4a": slice4a, "slice4b": slice4b, "slice6a": slice6a,
+        "seconds": seconds},
         default=str))
     print("[timing] seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
@@ -5024,7 +5356,7 @@ def main() -> int:
              "async scheduler": slice4a["scheduler"]["launches"],
              "async defended": slice4a["defended"]["launches"],
              "async messaging": slice4a["messaging"]["launches"],
-             **phase19_paths(slice4b)}
+             **phase19_paths(slice4b), **phase20_paths(slice6a)}
     print(json.dumps(kernel_line(gn_fwd, gn_bwd, fold_rec, robust_rec, counts,
                                  robust_counts, resnet56, paths,
                                  slice7a["gn_shapes"],

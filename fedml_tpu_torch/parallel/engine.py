@@ -38,7 +38,9 @@ The run loop can upload round k+1's cohort while round k trains
 (`streaming`, `prefetch`), and `stream_block` streams a cohort through
 the round in blocks (MeshRobustEngine's order statistics in two phases
 through a pinned host matrix); see MeshFedAvgEngine and
-parallel/prefetch.py.  Multi-card meshes are a later slice of the port
+parallel/prefetch.py.  The `_twolevel_*` programs split a round into
+per-block partials and one commit for the multi-process runner
+(parallel/multihost.py); multi-card meshes are slice 6c of the port
 (ROADMAP.md).
 """
 from __future__ import annotations
@@ -465,6 +467,98 @@ class MeshFedAvgEngine(FedAvgEngine):
         return new_variables, server_state, {"train_loss": train_loss}
 
     round_fn = round_fn_streaming
+
+    # -- two-level (multi-process) programs (engine.py:700-791) ---------------
+    # parallel/multihost.py::MultihostRunner splits a round into per-block
+    # PARTIALS (this engine's linear sums over one block's cohort, through
+    # the chunk loop and its fold kernels) and one replicated COMMIT after
+    # the host fold of every block's flat carry.  The carry is the
+    # unpadded trainer vector of the first sum followed by the engine's
+    # scalar sums (P + 2 for FedAvg, P + 3 for FedNova): JAX's
+    # flatten_carry_f32 length, its leaves in the trainer's order.  The
+    # commit rebuilds the sums and runs _finalize_from_sums and
+    # server_update, so FedNova's tau sums, FedOpt's optimizer and
+    # norm_clip's weak-DP noise ride the two-level path unchanged.
+    def _ensure_twolevel(self) -> None:
+        """Refuse what cannot fold per block, then instrument the
+        programs (once)."""
+        if getattr(self, "_twolevel_ready", False):
+            return
+        if self.stream_block is not None:
+            raise ValueError(
+                "MultihostRunner does not drive block-streamed rounds "
+                "yet: stream WITHIN a host via smaller blocks, or use "
+                "streaming mode (per-block cohorts already bound device "
+                "memory by O(block))")
+        if getattr(self, "defense", "norm_clip") != "norm_clip":
+            raise ValueError(
+                f"two-level aggregation is linear: order-statistic "
+                f"defense {self.defense!r} cannot fold per-host "
+                f"partials (it needs the full [K, P] cohort matrix)")
+        fam = f"{self._family_stem}_twolevel"
+        self._twolevel_partial = obs_programs.instrument(
+            fam, self._twolevel_partial_impl)
+        self._twolevel_partial_resident = obs_programs.instrument(
+            fam, self._twolevel_partial_resident_impl)
+        self._twolevel_commit = obs_programs.instrument(
+            "twolevel_commit", self._twolevel_commit_impl)
+        self._twolevel_ready = True
+
+    def _carry_to_host(self, sums: tuple) -> np.ndarray:
+        """The sums as one flat f32 host vector.  The copy off the card is
+        synchronous, so the host fold never reads a half-copied vector."""
+        n = self.trainer.spec.n
+        num, *scalars = sums
+        carry = torch.cat([num[:n], torch.stack(
+            [s.float().reshape(()) for s in scalars])])
+        return carry.to("cpu").numpy()
+
+    def _twolevel_partial_impl(self, variables: dict, cohort: dict,
+                               weights: torch.Tensor, round_idx: int,
+                               lane0: int) -> np.ndarray:
+        """One block's partial from an uploaded block cohort (streaming
+        residency): its lanes are lanes lane0.. of the round, so the
+        clients' generators do not depend on which rank trains them."""
+        g = self._local_flat(variables)
+        return self._carry_to_host(self._accumulate(
+            g, self._zero_sums(g), cohort, weights, round_idx, lane0=lane0))
+
+    def _twolevel_partial_resident_impl(self, variables: dict, stack: dict,
+                                        stack_w: torch.Tensor, ids,
+                                        round_idx: int,
+                                        lane0: int) -> np.ndarray:
+        """Resident variant: this rank's id-range stack lives on the
+        device and the block cohort is an index-select by LOCAL id; the
+        gathered values are the host gather's, bitwise.  (JAX's wmask,
+        which zeroes the lanes padding a cohort to the mesh, has no
+        counterpart: a rank drives one device.)"""
+        idx = torch.as_tensor(np.asarray(ids), dtype=torch.long,
+                              device=stack_w.device)
+        cohort = {k: v.index_select(0, idx) for k, v in stack.items()}
+        return self._twolevel_partial_impl(
+            variables, cohort, stack_w.index_select(0, idx), round_idx, lane0)
+
+    def _twolevel_commit_impl(self, variables: dict, server_state,
+                              flat_sums: np.ndarray):
+        """Replicated commit from the folded flat carry: rebuild the sums
+        on the device (the pad of the first sum is zero), divide, apply
+        the server update; every rank runs it identically."""
+        spec = self.trainer.spec
+        carry = torch.from_numpy(np.array(flat_sums, np.float32)).to(
+            self.device)
+        n_scalars = len(self._zero_sums(carry[:0])) - 1
+        if carry.numel() != spec.n + n_scalars:
+            raise ValueError(f"two-level carry holds {carry.numel()} "
+                             f"elements, this engine's sums "
+                             f"{spec.n} + {n_scalars}")
+        num = torch.zeros(spec.padded, dtype=torch.float32,
+                          device=self.device)
+        num[:spec.n] = carry[:spec.n]
+        sums = (num, *(carry[spec.n + i] for i in range(n_scalars)))
+        avg, loss = self._finalize_from_sums(variables, sums)
+        new_variables, server_state = self.server_update(avg, variables,
+                                                         server_state)
+        return new_variables, server_state, {"train_loss": loss}
 
     # -- the block-streamed round (stream_block) ------------------------------
     def _note_resident(self, nbytes: int) -> None:

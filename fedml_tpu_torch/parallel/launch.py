@@ -1,0 +1,82 @@
+"""Multi-process launcher (port of tools/launch_multihost.py).
+
+Forks N copies of a worker command wired as one cluster: each rank gets
+FEDML_MH_RANK / FEDML_MH_WORLD / FEDML_MH_COORD (the HostChannel
+coordinator rank 0 binds).  It replaces the reference's
+`mpirun -np N -hostfile ...` bootstrap on one machine; a multi-machine
+run launches one process per machine through its own runner and sets
+the same env.
+
+    python -m fedml_tpu_torch.parallel.launch --procs 2 -- \\
+        python -m fedml_tpu_torch.parallel.mh_worker cfg.json
+
+Failure policy (spawn_cluster): the first rank to exit nonzero kills the
+rest and the launcher exits nonzero naming that rank with its stderr
+tail; a --timeout overrun names the ranks still running.  Child stderr
+streams through line-prefixed (`[rank i]`); child stdout is echoed after
+completion in rank order.  --elastic and --respawn are slice 6b of the
+port; --jax-distributed has no counterpart (the in-program mesh tier is
+slice 6c).
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(
+        description=__doc__.splitlines()[0],
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--procs", type=int, required=True,
+                    help="process count (one per rank)")
+    ap.add_argument("--timeout", type=float, default=600.0,
+                    help="whole-cluster wall deadline in seconds")
+    ap.add_argument("--elastic", action="store_true",
+                    help="the elastic launch policy (slice 6b of the "
+                         "port: refused)")
+    ap.add_argument("--respawn", action="store_true",
+                    help="with --elastic: relaunch a dead rank once "
+                         "(slice 6b of the port: refused)")
+    ap.add_argument("cmd", nargs=argparse.REMAINDER,
+                    help="worker command (prefix with --)")
+    args = ap.parse_args(argv)
+    # bad arguments fail before any rank starts
+    if args.procs < 1:
+        ap.error(f"--procs must be >= 1, got {args.procs}")
+    cmd = list(args.cmd)
+    if cmd and cmd[0] == "--":
+        cmd = cmd[1:]
+    if not cmd:
+        ap.error("missing worker command (append it after --, e.g. "
+                 "`-- python -m fedml_tpu_torch.parallel.mh_worker "
+                 "cfg.json`)")
+    if args.timeout <= 0:
+        ap.error(f"--timeout must be > 0, got {args.timeout}")
+    if args.respawn and not args.elastic:
+        ap.error("--respawn needs --elastic (a fail-fast cluster kills "
+                 "the survivors the rejoiner would rejoin)")
+    if args.elastic:
+        ap.error("--elastic is slice 6b of the port, not ported yet")
+    args.cmd = cmd
+    return args
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    from fedml_tpu_torch.parallel.multihost import (MultihostLaunchError,
+                                                    spawn_cluster)
+    try:
+        outs = spawn_cluster(args.cmd, args.procs, timeout_s=args.timeout,
+                             echo=True)
+    except MultihostLaunchError as e:
+        print(f"launch: {e}", file=sys.stderr)
+        return 1
+    for r, out in enumerate(outs):
+        for line in out.splitlines():
+            print(f"[rank {r}] {line}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

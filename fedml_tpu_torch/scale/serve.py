@@ -52,8 +52,8 @@ from fedml_tpu_torch.utils.device import resolve_device
 
 _MULTIHOST_LATER = ("host-sharded serving (partition with world > 1, "
                     "channel=, elastic=, crash_at_commit=) needs the "
-                    "multi-process host channel of parallel/multihost.py, "
-                    "slice 6 of the port")
+                    "elastic channel and scale/cluster.py, slice 6b of "
+                    "the port")
 
 
 def pack_partial(acc, wsum) -> bytes:

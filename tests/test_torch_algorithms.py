@@ -208,7 +208,7 @@ def test_centralized_epoch_matches_jax():
 
 
 def test_centralized_mesh_is_slice_6():
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="slice 6c"):
         CentralizedTrainer(ClientTrainer(create_model("lr", 10)),
                            _mnist(load_data), _cfg(FedConfig), mesh=object(),
                            device="cpu")

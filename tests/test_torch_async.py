@@ -11,7 +11,7 @@ against the JAX package's, on the CPU.
 * The degenerate config (zero latency and dropout, buffer_k = cohort,
   constant λ, mix 1) equals the port's FedAvgEngine bitwise.
 * The scheduler's deadlock raises with one flight dump; async_state
-  round-trips; checkpoints to disk refuse by name (slice 6).
+  round-trips; checkpoints to disk refuse by name (slices 6b, 6c).
 * The registry and the lifecycle's draws are bitwise JAX's.
 * The server fed the same rows in the same order commits JAX's model
   (drain, streaming, defended); run_async_messaging over INPROC commits
@@ -454,15 +454,16 @@ def test_async_messaging_secure_rounds_commit():
 
 def test_entry_points_refuse_what_waits_for_slice_6_and_default_to_cuda(
         monkeypatch, tmp_path):
-    """What still waits for the multi-process slice names slice 6 (the
-    host-sharded serve simulation, the data-parallel centralized trainer);
+    """What still waits for the multi-process slice names its part: 6b
+    (the host-sharded serve simulation), 6c (the data-parallel
+    centralized trainer);
     saving to disk now works (an empty checkpoint directory resumes
     nothing); the entry points and the building blocks that hold state
     default to the card and raise without one."""
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="slice 6b"):
         run_serve_sim(100, commits=3, buffer_k=4, partition=(0, 2),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="slice 6c"):
         CentralizedTrainer(ClientTrainer(create_model("lr", 10)),
                            _data(tfed, 2), _cfg(FedConfig, 2),
                            mesh=object(), device="cpu")

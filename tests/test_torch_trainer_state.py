@@ -471,7 +471,7 @@ def test_trainer_raises_for_what_later_slices_bring():
     # augmentation came with slice 3b (tests/test_torch_augment.py)
     aug = lambda generator, x: x
     assert ClientTrainer(model, augment=aug).augment is aug
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="slice 6c"):
         ClientTrainer(model, batch_axes=("batch",))
     with pytest.raises(ValueError, match="unknown loss"):
         ClientTrainer(model, loss="hinge")
