@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's FedAvg, robust-aggregation, model-zoo,
-data-layer, one-card-algorithm, FedNAS, message-driven FedAvg, async and
-two-level multi-process paths on one CUDA card (message-driven FedAvg
+data-layer, one-card-algorithm, FedNAS, message-driven FedAvg, async,
+two-level multi-process and elastic paths on one CUDA card (message-driven FedAvg
 also under injected faults and over MQTT, with program timing and the
 observatory), and hold every
 hand-written kernel against its plain PyTorch version.
@@ -106,7 +106,7 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    card's .to(bfloat16), int8 within half an affine step, sparse_topk
    keeping exactly each leaf's k largest entries, encode_parts joining to
    encode; bytes and MB/s); run_messaging_fedavg on the main path's
-   recipe (8 client threads, bf16 masters) for 2 rounds over INPROC, TCP
+   recipe (8 client threads, bf16 masters) for 1 round over INPROC, TCP
    (the Python reactor) and NATIVE_TCP, each with exact GroupNorm and fold
    launches, s/round beside FedAvgEngine on the same clients, wire bytes
    and the shares of the fsm.local_train, comm.decode and fsm.aggregate
@@ -175,19 +175,40 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    mh_worker with int8_ef and topk_ef, 2 ranks bitwise 1, and a rank
    killed after round 0, which rank 0's DeadRankError and the launcher
    must both name;
-21. one JSON line of the zoo's, C.1's, the data path's and slices 7a-i's,
-   7a-ii's, 5b-i's, 5b-ii's, 4a's, 4b's and 6a's numbers, one listing every
-   TPU kernel of the JAX package with its port's numbers and its launches
-   on every path, then the last line {"ok": true, "device": {...}}.
+21. slice 6b, the elastic tier, in real processes sharing this card
+   through ``python -m fedml_tpu_torch.parallel.launch --elastic
+   [--respawn]`` (the script starts itself as each rank, ``chip_smoke.py
+   --rank21 CONFIG``): the main path through ElasticRunner (4 blocks of 2
+   clients, so 3 ranks own 2, 1 and 1), clean at 1 rank and at 3 ranks
+   (streaming and resident), a hang arm (a rank's heartbeats stop; the
+   coordinator evicts it and the survivors re-adopt its block), and kill
+   arms for FedAvg and for norm_clip with its weak-DP noise (rank 1 exits
+   abruptly after round 0, is respawned once and rejoins through the
+   snapshot); every FedAvg run of every reporting incarnation commits the
+   clean 1-rank digest, norm_clip its own, the clean runs read 0 view
+   changes, launches exact for every incarnation from the blocks it
+   computed; s/round, view-change latency, re-adoption seconds, boot and
+   peak device memory per rank; then run_serve_sim at partition=(r, 2) in
+   two processes (equal to two threads of this process) and its elastic
+   variant with a crash, the serve_cluster route of the port's mh_worker
+   at 2 ranks fed live frames from here, and the socket-fed lane at world
+   1 against the synthetic serve simulation, one wsum launch an admitted
+   row;
+22. one JSON line of the zoo's, C.1's, the data path's and slices 7a-i's,
+   7a-ii's, 5b-i's, 5b-ii's, 4a's, 4b's, 6a's and 6b's numbers, one
+   listing every TPU kernel of the JAX package with its port's numbers and
+   its launches on every path, then the last line {"ok": true, "device":
+   {...}}.
 
 It needs one card; it imports nothing of JAX or of fedml_tpu.
-``python3 chip_smoke.py --phase 19`` (or ``--phase 20``) builds the
-kernels and runs that phase alone (a quicker check of that slice; it
-prints no kernel line).
+``python3 chip_smoke.py --phase 19`` (or ``--phase 20`` or ``--phase
+21``) builds the kernels and runs that phase alone (a quicker check of
+that slice; it prints no kernel line).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -284,12 +305,16 @@ from fedml_tpu_torch.parallel.engine import (MeshFedAvgEngine,
                                              MeshFedProxEngine,
                                              MeshRobustEngine,
                                              chunked_weighted_train)
-from fedml_tpu_torch.parallel.multihost import (HostChannel,
+from fedml_tpu_torch.parallel.multihost import (DeadRankError,
+                                                ElasticChannel,
+                                                ElasticRunner, HostChannel,
                                                 MultihostContext,
                                                 MultihostRunner,
                                                 spawn_cluster,
                                                 variables_digest)
 from fedml_tpu_torch.scale import ArrivalConfig, run_serve_sim
+from fedml_tpu_torch.scale.cluster import (make_uplink_frame,
+                                           run_cluster_serve, send_uplinks)
 from fedml_tpu_torch.secure import SecAggConfig, SecureAggregator
 from fedml_tpu_torch.utils.checkpoint import FedCheckpointManager
 from fedml_tpu_torch.utils.config import FedConfig
@@ -2894,7 +2919,7 @@ def phase_slice7a_ii(gen: torch.Generator) -> dict:
 # slice 5b-i: the wire core and message-driven FedAvg
 # ---------------------------------------------------------------------------
 
-MSG_ROUNDS = 2                 # rounds of each messaging backend
+MSG_ROUNDS = 1                 # phase 16 (cut from 2 to hold the script's time)
 MSG_BACKENDS = ("INPROC", "TCP", "NATIVE_TCP")
 MSG_F32_CLIENTS, MSG_F32_BATCHES = 4, 4       # the f32 FedAvg check
 SPLIT_CLIENTS, SPLIT_BATCHES = 2, 4
@@ -4990,11 +5015,25 @@ def twolevel_main_path() -> dict:
     cfg_path.write_text(json.dumps({"arms": arms}))
     cmd = [sys.executable, str(Path(__file__).resolve()), "--rank20",
            str(cfg_path)]
-    docs, seconds = {}, {}
-    for procs in (1, 2):
-        t0 = time.perf_counter()
-        docs[procs] = spawn_json(cmd, procs)
-        seconds[procs] = time.perf_counter() - t0
+    docs, seconds, errs = {}, {}, []
+
+    def cluster(procs):
+        # the 1-rank and 2-rank clusters run at once (the script's time)
+        try:
+            t0 = time.perf_counter()
+            docs[procs] = spawn_json(cmd, procs)
+            seconds[procs] = time.perf_counter() - t0
+        except Exception as e:       # re-raised below, after the joins
+            errs.append(e)
+
+    threads = [threading.Thread(target=cluster, args=(p,)) for p in (1, 2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    docs = {p: docs[p] for p in (1, 2)}
     digests = {}
     for procs, ranks in docs.items():
         for doc in ranks:
@@ -5171,6 +5210,600 @@ def phase_slice6a() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 21: slice 6b, the elastic tier
+# ---------------------------------------------------------------------------
+
+EL_BLOCKS = 4                  # 21a: blocks of 2 clients; 3 ranks own 2, 1, 1
+EL_ROUNDS = 3                  # rounds a FedAvg run
+EL_CLIP_ROUNDS = 5             # rounds a norm_clip run
+EL_TIMEOUT_S = 300.0
+EL_HB = dict(hb_interval_s=0.25, hb_timeout_s=2.0)
+EL_KILL_SLEEP_S = 3.0          # pacing of the FedAvg kill arm's rounds
+EL_CLIP_SLEEP_S = 5.0          # pacing of the norm_clip kill arm's rounds
+EL_HANG_S = 8.0                # the hung rank's silence (> hb_timeout_s)
+EL_SERVE = dict(population=1_000_000, commits=6, warmup_commits=2,
+                buffer_k=32, row_dim=4096, sampler_mode="stratified",
+                dropout_prob=0.02, banned_frac=0.01, seed=0)
+EL_CLUSTER = dict(population=4096, commits=4, warmup_commits=1, buffer_k=8,
+                  row_dim=4096)
+EL_WORKER = dict(channel_timeout_s=EL_TIMEOUT_S, **EL_HB)   # mh_worker keys
+
+
+def el_engine(trainer, data, cfg, engine: str, residency: str):
+    kw = dict(chunk=MAIN_CHUNK, local_dtype=torch.bfloat16,
+              streaming=residency == "streaming")
+    if engine == "norm_clip":
+        return MeshRobustEngine(trainer, data, dataclasses.replace(
+            cfg, stddev=1e-3), defense="norm_clip", **kw)
+    return MeshFedAvgEngine(trainer, data, cfg, **kw)
+
+
+def rank21_main(cfg_path: str) -> int:
+    """One rank of a phase-21 cluster, started by the port's launcher as
+    ``chip_smoke.py --rank21 CONFIG``: a training config drives the main
+    path's recipe through ElasticRunner for each of its runs over one
+    ElasticChannel (cuDNN deterministic, TF32 off), with the injected
+    death, hang and pacing it names, launches counted from zero just
+    before each run; a serve config drives run_serve_sim at
+    partition=(rank, world).  Prints one JSON line (a killed or evicted
+    rank prints none)."""
+    with open(cfg_path) as f:
+        spec = json.load(f)
+    ctx = MultihostContext.from_env()
+    if spec["kind"] == "serve":
+        return rank21_serve(ctx, spec)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rejoining = (os.environ.get("FEDML_MH_REJOIN") == "1" and ctx.rank != 0)
+    started = os.stat("/proc/self").st_ctime    # this process's start
+    trainer, data, cfg = main_recipe()
+    channel = ElasticChannel(
+        ctx, n_items=EL_BLOCKS, timeout_s=EL_TIMEOUT_S, rejoin=rejoining,
+        config_digest=hashlib.md5(json.dumps(spec, sort_keys=True).encode())
+        .hexdigest(), **EL_HB)
+    runs = list(spec["runs"])
+    current = {"tag": None}
+    rejoin_state = None
+
+    def on_round_end(round_idx: int) -> None:
+        if spec.get("sleep_s"):
+            time.sleep(spec["sleep_s"])
+        if rejoining:
+            return
+        if spec.get("die_rank") == ctx.rank and round_idx == spec["at_round"]:
+            print(f"rank {ctx.rank}: injected SIGKILL-shaped exit at round "
+                  f"{round_idx}", file=sys.stderr, flush=True)
+            os._exit(3)
+        if spec.get("hang_rank") == ctx.rank \
+                and round_idx == spec["at_round"]:
+            print(f"rank {ctx.rank}: injected hang at round {round_idx} "
+                  f"(t={time.time():.3f})", file=sys.stderr, flush=True)
+            channel.hb_paused = True
+            time.sleep(EL_HANG_S)
+            channel.hb_paused = False
+
+    out = {"rank": ctx.rank, "world": ctx.world, "rejoined": rejoining,
+           "runs": {}}
+    try:
+        # seconds from this process's start to a built trainer and channel
+        # (the CUDA context comes with the first engine's upload)
+        out["boot_s"] = time.time() - started
+        if rejoining:
+            blob, resume, tag = channel.rejoin_handshake()
+            tags = [r["tag"] for r in runs]
+            runs = runs[tags.index(tag):]
+            rejoin_state = (blob, resume)
+            out.update(rejoin_tag=tag, resume_round=resume,
+                       admitted_s=time.time() - started)
+        v0 = None
+        for i, run in enumerate(runs):
+            current["tag"] = run["tag"]
+            eng = el_engine(trainer, data, cfg, run["engine"],
+                            run["residency"])
+            if v0 is None:
+                v0 = eng.init_variables()
+            runner = ElasticRunner(eng, ctx, n_blocks=EL_BLOCKS,
+                                   channel=channel, timeout_s=EL_TIMEOUT_S,
+                                   run_tag=run["tag"],
+                                   on_round_end=on_round_end, **EL_HB)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                v = runner.run(variables=dict(v0), rounds=run["rounds"],
+                               rejoin=False,
+                               rejoin_state=rejoin_state if i == 0 else None)
+            except DeadRankError as e:
+                if spec.get("hang_rank") == ctx.rank:
+                    print(f"rank {ctx.rank}: evicted after the injected "
+                          f"hang: {e}", file=sys.stderr, flush=True)
+                    return 4
+                raise
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rep = runner.report()
+            out["runs"][run["tag"]] = dict(
+                digest=variables_digest(v), launches=launch_counts(),
+                wall_s=wall, round_walls=runner.round_walls,
+                computed=rep["computed"], readopted=rep["readopted"],
+                readopt_s=rep["readopt_s"], evals=len(eng.metrics_history),
+                epoch=rep["epoch"], members=rep["members"],
+                view_changes=rep["view_changes"],
+                view_events=rep["view_events"],
+                view_change_latency_s=rep["view_change_latency_s"],
+                rejoined_at_round=rep["rejoined_at_round"],
+                resident_blocks=rep["resident_blocks"],
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                finite=all(bool(torch.isfinite(t).all()) for t in v.values()))
+        print(json.dumps(out), flush=True)
+    finally:
+        channel.close()
+    return 0
+
+
+def rank21_serve(ctx, spec: dict) -> int:
+    """21b's serve rank: run_serve_sim at partition=(rank, world) over a
+    HostChannel, or an ElasticChannel with rank `crash_rank` closing its
+    channel after `crash_at` commits; wsum launches counted."""
+    if spec.get("elastic"):
+        ch = ElasticChannel(ctx, n_items=ctx.world, config_digest="serve21",
+                            timeout_s=EL_TIMEOUT_S, **EL_HB)
+    else:
+        ch = HostChannel(ctx, timeout_s=EL_TIMEOUT_S)
+    crash = (spec.get("crash_at") if spec.get("crash_rank") == ctx.rank
+             else None)
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        rep = run_serve_sim(**EL_SERVE, partition=(ctx.rank, ctx.world),
+                            channel=ch, elastic=bool(spec.get("elastic")),
+                            crash_at_commit=crash)
+        rep["launches"] = launch_counts()
+    finally:
+        ch.close()
+    print(json.dumps({"rank": ctx.rank, "serve": rep}, default=str),
+          flush=True)
+    return 0
+
+
+def el_launch(cfg: dict, procs: int, respawn: bool, tmp: Path) -> dict:
+    """One phase-21 cluster through ``python -m
+    fedml_tpu_torch.parallel.launch --elastic [--respawn]``: its exit
+    code, stderr and each rank's JSON lines (a respawned rank's
+    incarnations in order)."""
+    path = tmp / f"{cfg['name']}.json"
+    path.write_text(json.dumps(cfg))
+    root = str(Path(__file__).resolve().parent)
+    argv = [sys.executable, "-m", "fedml_tpu_torch.parallel.launch",
+            "--procs", str(procs), "--timeout", str(EL_TIMEOUT_S),
+            "--elastic"] + (["--respawn"] if respawn else []) + [
+        "--", sys.executable, str(Path(__file__).resolve()), "--rank21",
+        str(path)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, cwd=root,
+                          timeout=EL_TIMEOUT_S + 60,
+                          env={**os.environ, "PYTHONPATH": root + os.pathsep
+                               + os.environ.get("PYTHONPATH", "")})
+    docs: dict = {}
+    for line in proc.stdout.splitlines():
+        m = re.match(r"\[rank (\d+)\] (\{.*\})$", line)
+        if m:
+            docs.setdefault(int(m.group(1)), []).append(json.loads(m.group(2)))
+    return dict(rc=proc.returncode, stderr=proc.stderr, docs=docs,
+                wall_s=time.perf_counter() - t0)
+
+
+def el_expected(computed: list, evals: int, norm_clip: bool) -> dict:
+    """One incarnation's launches from the blocks it computed (its owned
+    blocks and the re-adopted ones, 2 clients of 13 steps each, chunk 2:
+    one fold a block) and rank 0's evaluations, twolevel_expected's
+    arithmetic."""
+    blocks = len(computed)
+    steps = blocks * (MAIN_CLIENTS // EL_BLOCKS) * BATCHES
+    folds = blocks * (MAIN_CLIENTS // EL_BLOCKS) // MAIN_CHUNK
+    return {"gn_forward": 20 * (steps + 2 * evals), "gn_backward": 20 * steps,
+            "wsum": 0 if norm_clip else folds,
+            "sqnorm": folds if norm_clip else 0,
+            "clip_agg": folds if norm_clip else 0}
+
+
+def elastic_main_path() -> dict:
+    """21a: the main path's recipe through ElasticRunner (4 blocks of 2
+    clients: at 3 ranks rank 0 owns two, ranks 1 and 2 one each), each
+    cluster launched through the port's launcher with the ranks sharing
+    this card: clean FedAvg at 1 rank and at 3 ranks (streaming and
+    resident) at once; then, at once, clean norm_clip at 1 rank, a hang
+    arm (rank 2's heartbeats stop after round 1 and it is silent for
+    EL_HANG_S) and the kill arms (rank 1 exits abruptly after round 0, is
+    respawned once and rejoins through the snapshot), FedAvg streaming
+    and resident and norm_clip with its weak-DP noise.  Every FedAvg run of every
+    reporting incarnation commits the clean 1-rank digest, norm_clip its
+    own; the clean runs read 0 view changes at epoch 0; launches exact
+    for every incarnation that reports."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_el_"))
+    fed = [dict(tag="streaming", engine="fedavg", residency="streaming",
+                rounds=EL_ROUNDS),
+           dict(tag="resident", engine="fedavg", residency="resident",
+                rounds=EL_ROUNDS)]
+    clip = [dict(tag="norm_clip", engine="norm_clip", residency="streaming",
+                 rounds=EL_CLIP_ROUNDS)]
+    # the clean runs first (they must read no view change), then the
+    # fault arms together: the kill arms sleep between rounds
+    waves = [
+        {"clean 1 rank": (dict(kind="train", runs=fed[:1]), 1, False),
+         "clean 3 ranks": (dict(kind="train", runs=fed), 3, False)},
+        {"clean 1 rank norm_clip": (dict(kind="train", runs=clip), 1, False),
+         "hang": (dict(kind="train", runs=fed[:1], hang_rank=2, at_round=1),
+                  3, False),
+         "kill": (dict(kind="train", runs=fed, die_rank=1, at_round=0,
+                       sleep_s=EL_KILL_SLEEP_S), 3, True),
+         "norm_clip kill": (dict(kind="train", runs=clip, die_rank=1,
+                                 at_round=0, sleep_s=EL_CLIP_SLEEP_S), 3,
+                            True)}]
+    arms, seconds = {}, {}
+    for wave in waves:
+        results, errs = {}, []
+
+        def launch(name, cfg, procs, respawn):
+            try:
+                results[name] = el_launch({**cfg, "name": name.replace(
+                    " ", "_")}, procs, respawn, tmp)
+            except Exception as e:       # re-raised below, after the joins
+                errs.append(e)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=launch, args=(n, *a))
+                   for n, a in wave.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        seconds[" + ".join(wave)] = time.perf_counter() - t0
+        if errs:
+            raise errs[0]
+        arms.update(results)
+    for name, res in arms.items():
+        if res["rc"] != 0:
+            raise AssertionError(f"21a {name}: launcher rc {res['rc']}\n"
+                                 f"{res['stderr'][-3000:]}")
+    digests: dict = {}
+    rows = []
+    for name, res in arms.items():
+        for r, incs in sorted(res["docs"].items()):
+            for doc in incs:
+                for tag, rec in doc["runs"].items():
+                    clip_run = tag == "norm_clip"
+                    want = el_expected(rec["computed"], rec["evals"], clip_run)
+                    if rec["launches"] != want or not rec["finite"]:
+                        raise AssertionError(
+                            f"21a {name}, rank {r}, {tag}: launches "
+                            f"{rec['launches']} != {want} or a non-finite "
+                            f"model")
+                    if r != 0 and rec["evals"]:
+                        raise AssertionError(f"21a {name}: rank {r} "
+                                             f"evaluated")
+                    digests.setdefault("norm_clip" if clip_run else "fedavg",
+                                       set()).add(rec["digest"])
+                    walls = rec["round_walls"]
+                    rows.append(dict(arm=name, rank=r, run=tag,
+                                     rejoined=doc["rejoined"],
+                                     boot_s=doc.get("boot_s"),
+                                     s_per_round=walls,
+                                     view_changes=rec["view_changes"],
+                                     epoch=rec["epoch"],
+                                     latency_s=rec["view_change_latency_s"],
+                                     readopted=rec["readopted"],
+                                     readopt_s=rec["readopt_s"],
+                                     peak_gib=rec["peak_bytes"] / 2**30,
+                                     launches=rec["launches"],
+                                     resident_blocks=rec["resident_blocks"]))
+                    print(f"[21a] {name}, rank {r}"
+                          f"{' (rejoined)' if doc['rejoined'] else ''}, "
+                          f"{tag}: s/round "
+                          + ", ".join(f"{w:.3f}" for w in walls)
+                          + f"; view changes {rec['view_changes']} (epoch "
+                          f"{rec['epoch']}), view-change latency "
+                          f"{rec['view_change_latency_s'] * 1e3:.2f} ms; "
+                          f"re-adopted {rec['readopted']} in "
+                          + ", ".join(f"{s:.3f}" for s in rec["readopt_s"])
+                          + f" s; peak device memory "
+                          f"{rec['peak_bytes'] / 2**30:.2f} GiB; resident "
+                          f"blocks {rec['resident_blocks']}; launches "
+                          f"{rec['launches']} == expected; digest "
+                          f"{rec['digest']}")
+    # the clean runs: no view change, epoch 0, no re-adoption
+    for name in ("clean 1 rank", "clean 3 ranks", "clean 1 rank norm_clip"):
+        for incs in arms[name]["docs"].values():
+            for rec in incs[0]["runs"].values():
+                if rec["view_changes"] or rec["epoch"] or rec["readopted"]:
+                    raise AssertionError(
+                        f"21a {name}: a clean run read {rec['view_changes']} "
+                        f"view changes at epoch {rec['epoch']}: a healthy "
+                        f"rank missed its heartbeats")
+    checks = {}
+    for name in ("kill", "norm_clip kill"):
+        docs = arms[name]["docs"]
+        rej = [d for d in docs.get(1, []) if d["rejoined"]]
+        last = list(docs[0][0]["runs"].values())[-1]
+        # the rejoiner must train after its admission, or its digest is
+        # only the snapshot's
+        trained = sum(len(rec["computed"]) for d in rej
+                      for rec in d["runs"].values())
+        checks[name] = dict(
+            rejoined=bool(rej), rejoiner_blocks=trained,
+            view_changes=last["view_changes"],
+            respawned="respawning once" in arms[name]["stderr"],
+            rejoin_boot_s=rej[0].get("boot_s") if rej else None,
+            rejoin_admitted_s=rej[0].get("admitted_s") if rej else None,
+            rejoin_tag=rej[0].get("rejoin_tag") if rej else None,
+            resume_round=rej[0].get("resume_round") if rej else None)
+        if not rej or not trained or last["view_changes"] < 2 \
+                or not checks[name]["respawned"]:
+            raise AssertionError(f"21a {name}: {checks[name]}\n"
+                                 f"{arms[name]['stderr'][-3000:]}")
+    hang0 = arms["hang"]["docs"][0][0]["runs"]["streaming"]
+    evicted = [e for e in hang0["view_events"] if e.get("dead")]
+    checks["hang"] = dict(evicted=evicted, rank2_reported=2 in
+                          arms["hang"]["docs"])
+    if [e["dead"] for e in evicted] != [[2]] \
+            or "heartbeat" not in evicted[0]["reason"]:
+        raise AssertionError(f"21a hang: evictions {evicted}")
+    bad = {k: v for k, v in digests.items() if len(v) != 1}
+    clean1 = arms["clean 1 rank"]["docs"][0][0]["runs"]
+    print(f"[21a] elastic main path on one card: FedAvg one digest over "
+          f"every run and incarnation: {len(digests['fedavg']) == 1} "
+          f"({clean1['streaming']['digest']}); norm_clip one digest over "
+          f"its clean and kill arms: {len(digests['norm_clip']) == 1}; "
+          f"kill arm {checks['kill']}; norm_clip kill arm "
+          f"{checks['norm_clip kill']}; hang arm evicted rank 2 "
+          f"({evicted[0]['reason']}, {evicted[0]['latency_s'] * 1e3:.2f} ms "
+          f"to re-task); waves "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+          + f" ({card_line()})")
+    if bad:
+        raise AssertionError(f"21a: the arms did not commit one model: {bad}")
+    return dict(rows=rows, checks=checks, seconds=seconds,
+                launches={f"elastic {n} rank 0 {tag}": rec["launches"]
+                          for n, res in arms.items()
+                          for tag, rec in res["docs"][0][0]["runs"].items()})
+
+
+def serve_sharded() -> dict:
+    """21b: run_serve_sim at partition=(r, 2) over a HostChannel in two
+    processes against the same in two threads of this process (the trace
+    and committed digests equal), then the elastic variant in two
+    processes with rank 1 closing its channel after 3 commits (rank 0
+    re-adopts its range and finishes); wsum launches one an admitted
+    row."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    root = str(Path(__file__).resolve().parent)
+    env = {"PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--rank21"]
+    cfgs = {"host": dict(kind="serve"),
+            "elastic": dict(kind="serve", elastic=True, crash_rank=1,
+                            crash_at=3)}
+    for k, v in cfgs.items():
+        (tmp / f"{k}.json").write_text(json.dumps(v))
+    procs: dict = {}
+
+    def spawn(key):
+        outs = spawn_cluster(cmd + [str(tmp / f"{key}.json")], 2, env=env,
+                             timeout_s=EL_TIMEOUT_S, elastic=key == "elastic")
+        procs[key] = {json.loads(o.strip().splitlines()[-1])["rank"]:
+                      json.loads(o.strip().splitlines()[-1])["serve"]
+                      for o in outs}
+
+    threads = [threading.Thread(target=spawn, args=(k,)) for k in cfgs]
+    for t in threads:
+        t.start()
+    # the same two ranks on threads of this process
+    port = free_base_port(1)
+    local: dict = {}
+
+    def rank(r):
+        ch = HostChannel(MultihostContext(r, 2, f"localhost:{port}"),
+                         timeout_s=EL_TIMEOUT_S)
+        try:
+            local[r] = run_serve_sim(**EL_SERVE, partition=(r, 2), channel=ch)
+        finally:
+            ch.close()
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ts = [threading.Thread(target=rank, args=(r,)) for r in (0, 1)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    counts = launch_counts()
+    for t in threads:
+        t.join()
+    if set(procs) != set(cfgs) or set(local) != {0, 1}:
+        raise AssertionError(f"21b: a serve cluster did not report: "
+                             f"{sorted(procs)}, {sorted(local)}")
+    host = procs["host"]
+    same = all(host[r][f] == local[r][f] for r in (0, 1)
+               for f in ("trace_digest", "committed_digest",
+                         "committed_updates", "crashed", "banned"))
+    one = host[0]["committed_digest"] == host[1]["committed_digest"]
+    exact = all(d["launches"]["wsum"] == d["committed_updates"]
+                for p in procs.values() for d in p.values())
+    exact &= counts["wsum"] == sum(local[r]["committed_updates"]
+                                   for r in (0, 1))
+    el = procs["elastic"]
+    readopt = (el[0]["commits"] == EL_SERVE["commits"]
+               and el[1]["elastic"]["crashed_at_commit"] == 3
+               and 1 in el[0]["elastic"]["adopted_items"]
+               and el[0]["elastic"]["view_changes"] >= 1)
+    for key, p in procs.items():
+        for r, d in sorted(p.items()):
+            print(f"[21b] serve {key}, rank {r} of 2: {d['commits']} commits, "
+                  f"{d['committed_updates']} updates "
+                  f"({d['committed_updates_per_sec']:.1f}/s), lanes "
+                  f"{d.get('elastic', {}).get('lanes', [r])}, wsum launches "
+                  f"{d['launches']['wsum']}, trace {d['trace_digest']}, "
+                  f"digest {d['committed_digest']}")
+    print(f"[21b] host-sharded serve, {EL_SERVE['population']} clients in 2 "
+          f"ranges: two processes equal two threads (traces and digests): "
+          f"{same}; one digest across ranks: {one}; wsum launches one an "
+          f"admitted row: {exact}; elastic re-adoption of rank 1's range "
+          f"after its crash at commit 3: {readopt} ({card_line()})")
+    if not (same and one and exact and readopt):
+        raise AssertionError(f"21b serve: {procs} vs {local}")
+    return dict(procs=procs, launches={
+        f"serve sharded {k} rank {r}": d["launches"]
+        for k, p in procs.items() for r, d in p.items()})
+
+
+def feed_frames(port: int, frames: list, hold: threading.Event,
+                deadline_s: float = 120.0) -> None:
+    deadline = time.monotonic() + deadline_s
+    while True:
+        try:
+            send_uplinks("127.0.0.1", port, frames, hold_open=hold,
+                         timeout_s=EL_TIMEOUT_S)
+            return
+        except OSError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.05)
+
+
+def serving_cluster() -> dict:
+    """21b: the serve_cluster route of the port's mh_worker at 2 ranks
+    under the elastic launcher, fed live frames from this process (equal
+    committed digests, one wsum launch an admitted row); and at world 1
+    the socket-fed lane against the synthetic serve simulation on the
+    same rows (one digest)."""
+    c = EL_CLUSTER
+    k, dim, commits = c["buffer_k"], c["row_dim"], c["commits"]
+    seed, pop = 7, 64
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    sim = run_serve_sim(pop, commits=commits, warmup_commits=1, buffer_k=k,
+                        row_dim=dim, seed=seed,
+                        arrival=ArrivalConfig(mode="constant", rate=1000.0,
+                                              seed=seed))
+    pool = np.random.default_rng([seed, 2]).standard_normal(
+        (64, dim)).astype(np.float32)
+    frames = [make_uplink_frame(pool[i % 64], sender=1)
+              for i in range(commits * k)]
+    port = free_base_port(1)
+    hold = threading.Event()
+    feeder = threading.Thread(target=feed_frames, args=(port, frames, hold),
+                              daemon=True)
+    feeder.start()
+    try:
+        one = run_cluster_serve(pop, commits=commits, warmup_commits=1,
+                                buffer_k=k, row_dim=dim, port=port,
+                                n_connections=4, ingest_pool=1,
+                                window_deadline_s=EL_TIMEOUT_S,
+                                timeout_s=EL_TIMEOUT_S,
+                                backlog_cap=commits * k)
+    finally:
+        hold.set()
+    counts1 = launch_counts()
+    world1 = one["committed_digest"] == sim["committed_digest"]
+    # 2 ranks through the port's mh_worker, fed from here
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cluster_"))
+    ports = [free_base_port(1) for _ in range(2)]
+    cfg = {"serve_cluster": {**c, "connections": 8, "ingest_pool": 1,
+                             "window_deadline_s": 60.0,
+                             "timeout_s": EL_TIMEOUT_S, "ports": ports},
+           **EL_WORKER}
+    (tmp / "cluster.json").write_text(json.dumps(cfg))
+    rows = np.random.default_rng(3).standard_normal((64, dim)).astype(
+        np.float32)
+    hold = threading.Event()
+    feeders = [threading.Thread(target=feed_frames, daemon=True, args=(
+        ports[r], [make_uplink_frame(rows[(r * 16 + i) % 64], sender=1)
+                   for i in range(commits * k)], hold)) for r in (0, 1)]
+    for t in feeders:
+        t.start()
+    root = str(Path(__file__).resolve().parent)
+    try:
+        outs = spawn_cluster(
+            [sys.executable, "-m", "fedml_tpu_torch.parallel.mh_worker",
+             str(tmp / "cluster.json")], 2, timeout_s=EL_TIMEOUT_S,
+            elastic=True, env={"PYTHONPATH": root + os.pathsep
+                               + os.environ.get("PYTHONPATH", "")})
+    finally:
+        hold.set()
+    docs = {r: json.loads(o.strip().splitlines()[-1])["serve_cluster"]
+            for r, o in enumerate(outs)}
+    agree = docs[0]["committed_digest"] == docs[1]["committed_digest"]
+    exact = (all(d["launches"]["wsum"] == d["committed_updates"]
+                 == commits * k for d in docs.values())
+             and counts1["wsum"] == sim["committed_updates"]
+             + one["committed_updates"])
+    for r, d in docs.items():
+        print(f"[21b] serve_cluster route, rank {r} of 2: {d['commits']} "
+              f"commits, {d['committed_updates']} updates "
+              f"({d['committed_updates_per_sec']:.1f}/s local, "
+              f"{d['cluster_updates_per_sec']:.1f}/s cluster), admission "
+              f"p50 {d['admission_p50_s'] * 1e3:.2f} ms, deadline windows "
+              f"{d['deadline_windows']}, wsum launches "
+              f"{d['launches']['wsum']}, digest {d['committed_digest']}")
+    print(f"[21b] serving cluster: 2 ranks agree {agree}; world 1 socket-fed "
+          f"lane equals the synthetic serve sim's digest {world1}; wsum "
+          f"launches exact {exact} ({card_line()})")
+    if not (agree and world1 and exact):
+        raise AssertionError(f"21b cluster: {docs}, world 1 {one} vs {sim}")
+    return dict(docs=docs, world1=one, launches={
+        "serve cluster world 1": counts1,
+        **{f"serve cluster rank {r}": d["launches"] for r, d in docs.items()}})
+
+
+def phase_slice6b() -> dict:
+    """Phase 21: the elastic tier on the card; each part's seconds.  TF32
+    settings restored after."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    rec, seconds, errs = {}, {}, []
+
+    def part(key, fn):
+        try:
+            t0 = time.perf_counter()
+            rec[key] = fn()
+            seconds[key] = time.perf_counter() - t0
+        except Exception as e:       # re-raised below, after the join
+            errs.append(e)
+
+    # 21a's clusters are processes of their own: 21b runs meanwhile, its
+    # parts one after another (each counts this process's launches)
+    t_all = time.perf_counter()
+    main = threading.Thread(target=part, args=("21a elastic main path",
+                                               elastic_main_path))
+    main.start()
+    try:
+        part("21b serve sharded", serve_sharded)
+        part("21b serving cluster", serving_cluster)
+    finally:
+        main.join()
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    if errs:
+        raise errs[0]
+    seconds["phase (21b under 21a)"] = time.perf_counter() - t_all
+    rec["seconds"] = seconds
+    print(f"[slice 6b] phase 21 took "
+          f"{seconds['phase (21b under 21a)']:.1f} s: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+          + f" ({card_line()})")
+    return rec
+
+
+def phase21_paths(rec: dict) -> dict:
+    """Phase 21's paths and their launch counts (each zeroed in its
+    process just before its run)."""
+    return {**rec["21a elastic main path"]["launches"],
+            **rec["21b serve sharded"]["launches"],
+            **rec["21b serving cluster"]["launches"]}
+
+
 def phase20_paths(rec: dict) -> dict:
     """Phase 20's paths and their launch counts per rank (each zeroed in
     the rank just before its arm ran)."""
@@ -5294,6 +5927,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--rank20"]:
         return rank20_main(sys.argv[2])
+    if sys.argv[1:2] == ["--rank21"]:
+        return rank21_main(sys.argv[2])
     card = card_line()
     print(card)
     phase_build()
@@ -5302,6 +5937,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--phase", "20"]:
         print(json.dumps({"slice6a": phase_slice6a()}, default=str))
+        return 0
+    if sys.argv[1:] == ["--phase", "21"]:
+        print(json.dumps({"slice6b": phase_slice6b()}, default=str))
         return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     seconds = {}
@@ -5332,13 +5970,14 @@ def main() -> int:
     slice4a = clock("18 slice 4a", phase_slice4a, gen)
     slice4b = clock("19 slice 4b", phase_slice4b)
     slice6a = clock("20 slice 6a", phase_slice6a)
+    slice6b = clock("21 slice 6b", phase_slice6b)
     print(json.dumps({"zoo": zoo, "resnet56_path": {
         k: v for k, v in resnet56.items() if k != "fold"},
         "word_lstm": word_lstm, "c1": c1, "data_path": data_path,
         "slice7a": slice7a, "slice7a_ii": slice7a_ii,
         "slice5b_i": slice5b_i, "slice5b_ii": slice5b_ii,
         "slice4a": slice4a, "slice4b": slice4b, "slice6a": slice6a,
-        "seconds": seconds},
+        "slice6b": slice6b, "seconds": seconds},
         default=str))
     print("[timing] seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
@@ -5356,7 +5995,8 @@ def main() -> int:
              "async scheduler": slice4a["scheduler"]["launches"],
              "async defended": slice4a["defended"]["launches"],
              "async messaging": slice4a["messaging"]["launches"],
-             **phase19_paths(slice4b), **phase20_paths(slice6a)}
+             **phase19_paths(slice4b), **phase20_paths(slice6a),
+             **phase21_paths(slice6b)}
     print(json.dumps(kernel_line(gn_fwd, gn_bwd, fold_rec, robust_rec, counts,
                                  robust_counts, resnet56, paths,
                                  slice7a["gn_shapes"],

@@ -12,11 +12,18 @@ the same env.
 
 Failure policy (spawn_cluster): the first rank to exit nonzero kills the
 rest and the launcher exits nonzero naming that rank with its stderr
-tail; a --timeout overrun names the ranks still running.  Child stderr
-streams through line-prefixed (`[rank i]`); child stdout is echoed after
-completion in rank order.  --elastic and --respawn are slice 6b of the
-port; --jax-distributed has no counterpart (the in-program mesh tier is
-slice 6c).
+tail; a --timeout overrun names the ranks still running.  With --elastic
+a dead rank does not take the survivors down (only rank 0's death is
+fatal), and --respawn starts a dead rank other than 0 once more with
+FEDML_MH_REJOIN=1, so it rejoins through the elastic channel:
+
+    python -m fedml_tpu_torch.parallel.launch --procs 3 --elastic \\
+        --respawn -- python -m fedml_tpu_torch.parallel.mh_worker CFG
+
+(CFG with "elastic": true).  Child stderr streams through line-prefixed
+(`[rank i]`); child stdout is echoed after completion in rank order.
+--jax-distributed has no counterpart (the in-program mesh tier is slice
+6c of the port).
 """
 from __future__ import annotations
 
@@ -33,11 +40,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--timeout", type=float, default=600.0,
                     help="whole-cluster wall deadline in seconds")
     ap.add_argument("--elastic", action="store_true",
-                    help="the elastic launch policy (slice 6b of the "
-                         "port: refused)")
+                    help="elastic launch policy: a dead rank does not "
+                         "kill the survivors; only rank 0's death (or "
+                         "the deadline) fails the launch.  The workers "
+                         "must run the elastic runtime (mh_worker "
+                         "'elastic': true)")
     ap.add_argument("--respawn", action="store_true",
-                    help="with --elastic: relaunch a dead rank once "
-                         "(slice 6b of the port: refused)")
+                    help="with --elastic: start a dead rank other than 0 "
+                         "once more with FEDML_MH_REJOIN=1 (it rejoins "
+                         "through the elastic handshake)")
     ap.add_argument("cmd", nargs=argparse.REMAINDER,
                     help="worker command (prefix with --)")
     args = ap.parse_args(argv)
@@ -56,8 +67,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.respawn and not args.elastic:
         ap.error("--respawn needs --elastic (a fail-fast cluster kills "
                  "the survivors the rejoiner would rejoin)")
-    if args.elastic:
-        ap.error("--elastic is slice 6b of the port, not ported yet")
     args.cmd = cmd
     return args
 
@@ -68,7 +77,8 @@ def main(argv=None) -> int:
                                                     spawn_cluster)
     try:
         outs = spawn_cluster(args.cmd, args.procs, timeout_s=args.timeout,
-                             echo=True)
+                             echo=True, elastic=args.elastic,
+                             respawn=args.respawn)
     except MultihostLaunchError as e:
         print(f"launch: {e}", file=sys.stderr)
         return 1

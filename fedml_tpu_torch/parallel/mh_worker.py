@@ -1,16 +1,17 @@
 """One rank of a launched two-level cluster (port of
-fedml_tpu/parallel/mh_worker.py, its fail-fast part).
+fedml_tpu/parallel/mh_worker.py).
 
     python -m fedml_tpu_torch.parallel.launch --procs 2 -- \\
         python -m fedml_tpu_torch.parallel.mh_worker CONFIG.json
 
 Reads its rank and world from the FEDML_MH_* env (set by the launcher,
 parallel/multihost.py::spawn_cluster), builds a synthetic separable-LR
-workload, drives MultihostRunner for the configured residency mode(s)
-over one HostChannel, and prints ONE JSON line per rank:
+workload, drives MultihostRunner (or ElasticRunner) for the configured
+residency mode(s) over one channel, and prints ONE JSON line per rank:
 
-    {"rank", "world", "n_blocks", "digests": {mode: md5},
-     "rounds_per_sec", "carry_allreduce_bytes_per_round", ...}
+    {"rank", "world", "n_blocks", "elastic", "rejoined",
+     "digests": {mode: md5}, "rounds_per_sec",
+     "carry_allreduce_bytes_per_round", ...}
 
 Config keys (all optional; defaults in DEFAULTS):
     clients, spc, dim, classes, k_per_round, n_blocks, rounds, warmup,
@@ -23,9 +24,32 @@ Config keys (all optional; defaults in DEFAULTS):
     compute), device (the engines' device: the card unless "cpu" is
     named).
 
-The elastic keys (elastic, hang_rank) and serve_cluster are slice 6b of
-the port; jax_distributed and local_devices > 1 are slice 6c.  Setting
-any of them raises.
+The elastic keys:
+    elastic (bool: ElasticRunner over an ElasticChannel; a rank's death
+    is a view change and its blocks are re-adopted, and a respawned rank
+    with FEDML_MH_REJOIN=1 rejoins the run the coordinator is in, routed
+    by the snapshot's run tag), hang_rank/hang_at_round/hang_s (hang
+    injection: that rank pauses its heartbeats and sleeps hang_s at the
+    end of that round; the coordinator evicts it by heartbeat timeout and
+    it exits rc=4 when it wakes to a closed channel),
+    hb_timeout_s/hb_interval_s (the failure detector), and
+    round_sleep_s/round_sleep_mode (a sleep at the end of every round of
+    that mode, or of every mode: it holds a run open so a respawned rank
+    rejoins mid-run).
+
+serve_cluster (a dict) routes the worker into the fused serving cluster
+(scale/cluster.py) instead of the training engines: this rank binds a
+reactor on its endpoint port and serves live-socket uplinks into its
+registry-shard lanes, folding the partials across ranks at each commit
+barrier over an ElasticChannel.  Keys: population, commits,
+warmup_commits, buffer_k, row_dim, connections, ingest_pool,
+window_deadline_s, timeout_s, ports (one per rank) or base_port (port =
+base + rank), chaos (a wire-fault dict), chaos_seed,
+die_rank/die_at_commit (that rank closes its channel after that many
+commits and exits rc=3), slo (bool), sparse_uplink (bool).
+
+jax_distributed and local_devices > 1 (an in-program mesh a rank) are
+slice 6c of the port; setting either raises.
 """
 import json
 import os
@@ -39,20 +63,19 @@ DEFAULTS = {
     "channel_timeout_s": 60.0, "die_rank": None, "die_at_round": None,
     "eval": False, "carry_codec": "f32", "carry_chunk": None,
     "overlap_exchange": False, "device": None,
+    "elastic": False, "hang_rank": None, "hang_at_round": None,
+    "hang_s": 20.0, "hb_timeout_s": 2.0, "hb_interval_s": 0.25,
+    "round_sleep_s": 0.0, "round_sleep_mode": None,
+    "serve_cluster": None,
 }
-
-# keys whose tier is a later slice of the port: (key, slice)
-_LATER = (("elastic", "6b"), ("hang_rank", "6b"), ("serve_cluster", "6b"),
-          ("jax_distributed", "6c"))
 
 
 def check_config(cfg: dict) -> None:
-    """Refuse the keys of tiers this slice does not carry, by name."""
-    for key, sl in _LATER:
-        if cfg.get(key):
-            raise NotImplementedError(
-                f"mh_worker: {key!r} belongs to slice {sl} of the port, "
-                f"not ported yet")
+    """Refuse the keys of the tier this slice does not carry, by name."""
+    if cfg.get("jax_distributed"):
+        raise NotImplementedError(
+            "mh_worker: 'jax_distributed' belongs to slice 6c of the "
+            "port, not ported yet")
     if cfg.get("local_devices", 1) != 1:
         raise NotImplementedError(
             "mh_worker: local_devices > 1 (an in-program mesh per rank) "
@@ -60,6 +83,16 @@ def check_config(cfg: dict) -> None:
     for mode in cfg["modes"]:
         if mode not in ("streaming", "resident"):
             raise ValueError(f"unknown residency mode {mode!r}")
+    if cfg["hang_rank"] is not None and not cfg["elastic"]:
+        raise ValueError("hang_rank needs 'elastic': true (a fail-fast "
+                         "channel has no heartbeats to miss)")
+
+
+def config_digest(cfg: dict) -> str:
+    """The elastic config digest: md5 of the whole worker config, so a
+    skewed rank or a stale rejoiner is rejected by name at hello."""
+    import hashlib
+    return hashlib.md5(json.dumps(cfg, sort_keys=True).encode()).hexdigest()
 
 
 def build_case(cfg: dict):
@@ -107,6 +140,66 @@ def build_case(cfg: dict):
     return make_engine
 
 
+def _serve_cluster_main(ctx, cfg: dict) -> int:
+    """One host of the fused serving cluster: the elastic channel (world
+    > 1), run_cluster_serve on this rank's endpoint port, and ONE JSON
+    line (with the launch counts of the run).  A rank with crash
+    injection armed exits rc=3 without a JSON line (the launcher's
+    report names it; the survivors' reports are the evidence)."""
+    from fedml_tpu_torch.ops import launch_counts, reset_launch_counts
+    from fedml_tpu_torch.parallel.multihost import ElasticChannel
+    from fedml_tpu_torch.scale.cluster import run_cluster_serve
+
+    sc = dict(cfg["serve_cluster"])
+    channel = None
+    crashed = False
+    if ctx.world > 1:
+        channel = ElasticChannel(
+            ctx, n_items=ctx.world, config_digest=config_digest(cfg),
+            timeout_s=cfg["channel_timeout_s"],
+            hb_interval_s=cfg["hb_interval_s"],
+            hb_timeout_s=cfg["hb_timeout_s"])
+    ports = sc.get("ports")
+    port = (int(ports[ctx.rank]) if ports
+            else int(sc.get("base_port", 54300)) + ctx.rank)
+    crash_at = (sc.get("die_at_commit")
+                if sc.get("die_rank") == ctx.rank else None)
+    try:
+        reset_launch_counts()
+        report = run_cluster_serve(
+            int(sc.get("population", 4096)),
+            commits=int(sc.get("commits", 8)),
+            warmup_commits=int(sc.get("warmup_commits", 2)),
+            buffer_k=int(sc.get("buffer_k", 16)),
+            row_dim=int(sc.get("row_dim", 256)),
+            port=port, partition=(ctx.rank, ctx.world),
+            channel=channel, elastic=ctx.world > 1,
+            n_connections=int(sc.get("connections", 64)),
+            ingest_pool=int(sc.get("ingest_pool", 2)),
+            sparse_uplink=bool(sc.get("sparse_uplink", False)),
+            window_deadline_s=float(sc.get("window_deadline_s", 10.0)),
+            timeout_s=float(sc.get("timeout_s", 600.0)),
+            chaos=sc.get("chaos"),
+            chaos_seed=int(sc.get("chaos_seed", 0)),
+            crash_at_commit=crash_at,
+            slo_window=bool(sc.get("slo", ctx.rank == 0)),
+            device=cfg["device"])
+        report["launches"] = launch_counts()
+        crashed = bool(crash_at is not None
+                       and report.get("elastic", {})
+                                 .get("crashed_at_commit") is not None)
+    finally:
+        if channel is not None and not crashed:
+            channel.close()
+    if crashed:
+        print(f"rank {ctx.rank}: injected crash at commit {crash_at}",
+              file=sys.stderr, flush=True)
+        os._exit(3)
+    print(json.dumps({"rank": ctx.rank, "world": ctx.world,
+                      "serve_cluster": report}, default=str), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     if len(argv) != 1:
@@ -118,45 +211,119 @@ def main(argv=None) -> int:
     check_config(cfg)
     from fedml_tpu_torch import obs
     from fedml_tpu_torch.obs import cluster as cluster_mod
-    from fedml_tpu_torch.parallel.multihost import (HostChannel,
+    from fedml_tpu_torch.parallel.multihost import (DeadRankError,
+                                                    ElasticChannel,
+                                                    ElasticRunner,
+                                                    HostChannel,
                                                     MultihostContext,
                                                     MultihostRunner,
                                                     variables_digest)
     ctx = MultihostContext.from_env() or MultihostContext.single()
-    make_engine = build_case(cfg)
     n_blocks = cfg["n_blocks"] or ctx.world
+    rejoining = (os.environ.get("FEDML_MH_REJOIN") == "1"
+                 and ctx.rank != 0)
     obs_root = os.environ.get("FEDML_OBS_DIR")
     if obs_root:
         # a per-RANK obs namespace: co-spawned workers handed one dir
-        # would race each other's exports.  Enabling obs also arms the
-        # telemetry piggyback; with the env unset the wire stays
-        # byte-identical to the channel without the observatory
-        obs.configure(os.path.join(obs_root, f"rank{ctx.rank}"))
+        # would race each other's exports, and a rejoining incarnation
+        # reuses its rank id, so it is namespaced by pid too.  Enabling
+        # obs also arms the telemetry piggybacks and the coordinated
+        # dumps; with the env unset the wire stays byte-identical to the
+        # channel without the observatory
+        sub = (f"rank{ctx.rank}-pid{os.getpid()}" if rejoining
+               else f"rank{ctx.rank}")
+        obs.configure(os.path.join(obs_root, sub))
+    if cfg["serve_cluster"]:
+        return _serve_cluster_main(ctx, cfg)
+    make_engine = build_case(cfg)
+    current_mode = {"mode": None}
+    channel = None
 
     def on_round_end(round_idx: int) -> None:
+        if cfg["round_sleep_s"] > 0 and (
+                cfg["round_sleep_mode"] is None
+                or cfg["round_sleep_mode"] == current_mode["mode"]):
+            # pacing: a respawned process needs seconds to boot, so a
+            # sleep a round holds the run open for its rejoin
+            time.sleep(float(cfg["round_sleep_s"]))
         if (cfg["die_rank"] == ctx.rank
-                and cfg["die_at_round"] == round_idx):
+                and cfg["die_at_round"] == round_idx and not rejoining):
             print(f"rank {ctx.rank}: injected crash at round "
                   f"{round_idx}", file=sys.stderr, flush=True)
             os._exit(3)
+        if (cfg["hang_rank"] == ctx.rank
+                and cfg["hang_at_round"] == round_idx and not rejoining):
+            # a stopped process's shape without stopping it (a stopped
+            # child never exits and would wedge the launcher): the
+            # heartbeats pause, the rank is silent for hang_s, and the
+            # coordinator must evict it by heartbeat timeout
+            print(f"rank {ctx.rank}: injected hang at round {round_idx} "
+                  f"for {cfg['hang_s']:.0f}s", file=sys.stderr, flush=True)
+            channel.hb_paused = True
+            time.sleep(float(cfg["hang_s"]))
+            channel.hb_paused = False
 
-    # ONE channel for the whole worker: both residency modes ride it
+    # ONE channel for the whole worker: every residency mode rides it
     # (re-binding the coordinator port between modes would race peers)
-    channel = HostChannel(ctx, timeout_s=cfg["channel_timeout_s"])
+    if cfg["elastic"]:
+        channel = ElasticChannel(
+            ctx, n_items=n_blocks, config_digest=config_digest(cfg),
+            timeout_s=cfg["channel_timeout_s"],
+            hb_interval_s=cfg["hb_interval_s"],
+            hb_timeout_s=cfg["hb_timeout_s"], rejoin=rejoining)
+    else:
+        channel = HostChannel(ctx, timeout_s=cfg["channel_timeout_s"])
     out = {"rank": ctx.rank, "world": ctx.world, "n_blocks": n_blocks,
+           "elastic": bool(cfg["elastic"]), "rejoined": bool(rejoining),
            "digests": {}, "per_mode": {}}
+    modes = list(cfg["modes"])
+    rejoin_state = None
     try:
-        for mode in cfg["modes"]:
+        if cfg["elastic"] and rejoining:
+            # the handshake comes before any engine: the snapshot's run
+            # tag names the residency mode the coordinator is in, and a
+            # respawned process resumes THAT run (the runs share one
+            # channel: rejoining another would cross-wire the exchanges)
+            blob, resume_round, tag = channel.rejoin_handshake()
+            if tag in modes:
+                skipped, modes = (modes[:modes.index(tag)],
+                                  modes[modes.index(tag):])
+                if skipped:
+                    print(f"rank {ctx.rank}: rejoined into {tag!r}; "
+                          f"skipping completed mode(s) {skipped}",
+                          file=sys.stderr, flush=True)
+            rejoin_state = (blob, resume_round)
+        for mi, mode in enumerate(modes):
+            current_mode["mode"] = mode
             engine = make_engine(streaming=(mode == "streaming"))
-            runner = MultihostRunner(
-                engine, ctx, n_blocks=n_blocks, channel=channel,
-                timeout_s=cfg["channel_timeout_s"],
-                carry_codec=cfg["carry_codec"],
-                carry_chunk=cfg["carry_chunk"],
-                overlap_exchange=cfg["overlap_exchange"],
-                on_round_end=on_round_end)
+            kw = dict(n_blocks=n_blocks, channel=channel,
+                      timeout_s=cfg["channel_timeout_s"],
+                      carry_codec=cfg["carry_codec"],
+                      carry_chunk=cfg["carry_chunk"],
+                      overlap_exchange=cfg["overlap_exchange"],
+                      on_round_end=on_round_end)
             t0 = time.perf_counter()
-            variables = runner.run(rounds=cfg["rounds"])
+            if cfg["elastic"]:
+                runner = ElasticRunner(
+                    engine, ctx, hb_interval_s=cfg["hb_interval_s"],
+                    hb_timeout_s=cfg["hb_timeout_s"], run_tag=mode, **kw)
+                try:
+                    # only the first run of a respawned process resumes
+                    # mid-run; later modes start as a member
+                    variables = runner.run(
+                        rounds=cfg["rounds"], rejoin=False,
+                        rejoin_state=rejoin_state if mi == 0 else None)
+                except DeadRankError as e:
+                    if cfg["hang_rank"] == ctx.rank and not rejoining:
+                        # the injected hang got this rank evicted, as
+                        # intended: exit distinctly (rc=4, not a crash)
+                        print(f"rank {ctx.rank}: evicted after injected "
+                              f"hang: {e}", file=sys.stderr, flush=True)
+                        return 4
+                    raise
+            else:
+                runner = MultihostRunner(engine, ctx, **kw)
+                variables = runner.run(rounds=cfg["rounds"])
             rep = runner.report(warmup_rounds=cfg["warmup"])
             rep["total_wall_s"] = time.perf_counter() - t0
             out["digests"][mode] = variables_digest(variables)

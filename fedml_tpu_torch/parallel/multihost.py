@@ -34,15 +34,22 @@ rank-local index; and every rank folds all partials in global block
 order.  Any process count that tiles the same blocks therefore commits
 the same bits.
 
-The elastic tier (`ElasticChannel`, `ClusterView`, `ElasticRunner`, the
-launcher's ``elastic``/``respawn``) is slice 6b of the port; the
-in-program mesh tier (`init_multihost`, `make_global_mesh`, the
-hierarchical host mesh, ``jax_distributed``) is slice 6c.
+* The elastic tier: `ClusterView` (an epoch of membership and the pure
+  block -> owner map), `ElasticChannel` (typed hellos, heartbeats, view
+  changes that re-task the survivors mid-round, rejoin through a config
+  digest and a snapshot at the commit barrier), `ElasticRunner` (the
+  two-level round over it: a dead or hung rank's blocks are recomputed
+  by the survivors, and the round commits the bits the clean run
+  commits), and the launcher's ``elastic``/``respawn`` policy.
+
+The in-program mesh tier (`init_multihost`, `make_global_mesh`, the
+hierarchical host mesh, ``jax_distributed``) is slice 6c of the port.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import io
 import json
 import logging
 import os
@@ -67,10 +74,6 @@ log = logging.getLogger(__name__)
 ENV_RANK = "FEDML_MH_RANK"
 ENV_WORLD = "FEDML_MH_WORLD"
 ENV_COORD = "FEDML_MH_COORD"           # host:port of the HostChannel
-
-ELASTIC_LATER = ("the elastic tier (elastic=/respawn=, ElasticChannel, "
-                 "ElasticRunner) is slice 6b of the port, not ported yet")
-
 
 # ---------------------------------------------------------------------------
 # process context + cluster spawning
@@ -141,16 +144,25 @@ def spawn_cluster(cmd: list[str], procs: int, *,
                   respawn: bool = False,
                   kill_grace_s: float = 5.0) -> list[str]:
     """Fork `procs` copies of `cmd` wired as one cluster (env
-    FEDML_MH_RANK/WORLD/COORD); returns each rank's stdout, rank-ordered.
+    FEDML_MH_RANK/WORLD/COORD); returns each rank's stdout, rank-ordered
+    (a respawned rank's incarnations joined in order).
 
-    Failure policy (fail-fast): the first rank to exit nonzero kills the
-    rest and raises MultihostLaunchError naming that rank (with its
+    Fail-fast policy (the default): the first rank to exit nonzero kills
+    the rest and raises MultihostLaunchError naming that rank (with its
     stderr tail) and every rank's outcome: exit code, or the signal's
     name for a signal death, so an injected kill reads differently from
     the channel-EOF deaths it causes.  A deadline overrun kills
-    everything and names the ranks still running.  `echo` streams each
-    child's stderr line-prefixed (`[rank i]`).  The coordinator binds
-    `coordinator_port`, or a free port when None."""
+    everything and names the ranks still running.
+
+    Elastic policy (`elastic=True`): a dead rank does not take the
+    survivors down; the cluster runs to its end and only a rank-0
+    (coordinator) failure or the deadline raises.  With `respawn=True` a
+    dead rank other than 0 is started once more with FEDML_MH_REJOIN=1,
+    so the worker re-enters the cluster through the elastic rejoin
+    handshake (ElasticChannel).
+
+    `echo` streams each child's stderr line-prefixed (`[rank i]`).  The
+    coordinator binds `coordinator_port`, or a free port when None."""
     outs, _report = spawn_cluster_report(
         cmd, procs, env=env, timeout_s=timeout_s, echo=echo,
         coordinator_host=coordinator_host,
@@ -170,7 +182,8 @@ def spawn_cluster_report(cmd: list[str], procs: int, *,
                          kill_grace_s: float = 5.0
                          ) -> tuple[list[str], dict]:
     """spawn_cluster plus a per-rank outcome report: ({rank stdouts},
-    {"ranks": {r: {"rc", "outcome"}}, "first_failed": r | None})."""
+    {"ranks": {r: {"rc", "outcome", "respawned", "incarnations",
+    "all_rcs"}}, "first_failed": r | None})."""
     if procs < 1:
         raise ValueError(f"procs must be >= 1, got {procs}")
     if not cmd:
@@ -179,22 +192,21 @@ def spawn_cluster_report(cmd: list[str], procs: int, *,
         raise ValueError("respawn=True needs elastic=True (a fail-fast "
                          "cluster kills the survivors the rejoiner "
                          "would rejoin)")
-    if elastic:
-        raise NotImplementedError(ELASTIC_LATER)
     port = free_port() if coordinator_port is None else coordinator_port
     coord = f"{coordinator_host}:{port}"
     base_env = {**os.environ, **(env or {}),
                 ENV_WORLD: str(procs), ENV_COORD: coord}
     base_env.pop("FEDML_MH_REJOIN", None)
-    ps: list[subprocess.Popen] = []
-    bufs: dict[int, tuple[list, list]] = {}
+    # per-rank incarnations (a respawn appends a second one)
+    incarnations: list[list[subprocess.Popen]] = [[] for _ in range(procs)]
+    bufs: dict[tuple[int, int], tuple[list, list]] = {}
     drains: list[threading.Thread] = []
     policy_killed: set[int] = set()
 
-    def _drain(rank: int, p: subprocess.Popen):
+    def _drain(rank: int, gen: int, p: subprocess.Popen):
         buf_out: list = []
         buf_err: list = []
-        bufs[rank] = (buf_out, buf_err)
+        bufs[(rank, gen)] = (buf_out, buf_err)
 
         def _pump(stream, buf, is_err):
             for line in stream:
@@ -211,50 +223,90 @@ def spawn_cluster_report(cmd: list[str], procs: int, *,
         _pump(p.stdout, buf_out, False)
         t_err.join()
 
+    def _launch(rank: int, rejoin: bool = False) -> None:
+        e = dict(base_env)
+        e[ENV_RANK] = str(rank)
+        if rejoin:
+            e["FEDML_MH_REJOIN"] = "1"
+        p = subprocess.Popen(cmd, env=e, text=True,
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE)
+        gen = len(incarnations[rank])
+        incarnations[rank].append(p)
+        t = threading.Thread(target=_drain, args=(rank, gen, p))
+        t.start()
+        drains.append(t)
+
+    def _cur(rank: int) -> subprocess.Popen:
+        return incarnations[rank][-1]
+
+    def _live() -> list[int]:
+        return [r for r in range(procs) if _cur(r).poll() is None]
+
+    def _kill(ranks) -> None:
+        for r in ranks:
+            policy_killed.add(r)
+            _cur(r).kill()
+        for r in ranks:      # reap: the summary must show the kill
+            try:             # outcome, not "still running"
+                _cur(r).wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                pass
+
     try:
         for r in range(procs):
-            e = dict(base_env)
-            e[ENV_RANK] = str(r)
-            p = subprocess.Popen(cmd, env=e, text=True,
-                                 stdout=subprocess.PIPE,
-                                 stderr=subprocess.PIPE)
-            ps.append(p)
-            t = threading.Thread(target=_drain, args=(r, p))
-            t.start()
-            drains.append(t)
+            _launch(r)
     except BaseException:
-        for p in ps:
-            p.kill()
-            p.wait()
+        for ps in incarnations:
+            for p in ps:
+                p.kill()
+                p.wait()
         for t in drains:
             t.join()
         raise
 
     def _summary() -> str:
-        return "; ".join(f"rank {r}: "
-                         f"{_rank_outcome(ps[r].poll(), r in policy_killed)}"
-                         for r in range(procs))
+        rows = []
+        for r in range(procs):
+            tags = [_rank_outcome(p.poll(), r in policy_killed)
+                    for p in incarnations[r]]
+            rows.append(f"rank {r}: " + " -> respawned: ".join(tags))
+        return "; ".join(rows)
 
-    def _kill(ranks) -> None:
-        for r in ranks:
-            policy_killed.add(r)
-            ps[r].kill()
-        for r in ranks:      # reap: the summary must show the kill
-            try:             # outcome, not "still running"
-                ps[r].wait(timeout=10)
-            except subprocess.TimeoutExpired:
-                pass
+    def _err_tail(rank: int) -> str:
+        return "".join("".join(bufs.get((rank, g), ([], []))[1])
+                       for g in range(len(incarnations[rank])))[-3000:]
 
     deadline = time.monotonic() + timeout_s
     first_failed: Optional[int] = None
+    handled: set[tuple[int, int]] = set()
+    respawned: set[int] = set()
     try:
         while True:
             for r in range(procs):
-                if (first_failed is None and ps[r].poll() is not None
-                        and ps[r].returncode != 0):
-                    first_failed = r
-            live = [r for r in range(procs) if ps[r].poll() is None]
-            if first_failed is not None or not live:
+                for g, p in enumerate(incarnations[r]):
+                    if (p.poll() is not None and p.returncode != 0
+                            and (r, g) not in handled):
+                        handled.add((r, g))
+                        if first_failed is None:
+                            first_failed = r
+                        if (elastic and respawn and r != 0
+                                and r not in respawned):
+                            respawned.add(r)
+                            log.warning(
+                                "elastic launch: rank %d died (%s); "
+                                "respawning once with FEDML_MH_REJOIN=1",
+                                r, _rank_outcome(p.returncode))
+                            _launch(r, rejoin=True)
+            live = _live()
+            if elastic:
+                # survivors outlive a dead peer; only the coordinator's
+                # death (or the deadline) is fatal to the cluster
+                if _cur(0).poll() is not None and _cur(0).returncode != 0:
+                    break
+                if not live:
+                    break
+            elif first_failed is not None or not live:
                 break
             if time.monotonic() > deadline:
                 _kill(live)
@@ -263,39 +315,44 @@ def spawn_cluster_report(cmd: list[str], procs: int, *,
                     f"rank(s) {live} still running (of {procs})\n"
                     f"per-rank: {_summary()}")
             time.sleep(0.05)
-        if first_failed is not None:
+        if any(p.returncode not in (0, None)
+               for ps in incarnations for p in ps):
             # give survivors a short grace (a dead peer's channel EOF
-            # usually fails them promptly with their OWN named error),
-            # then kill what still runs
+            # usually fails them promptly with their OWN named error;
+            # elastic survivors already ran to their end), then kill
+            # what still runs
             grace = time.monotonic() + kill_grace_s
-            while (time.monotonic() < grace
-                   and any(p.poll() is None for p in ps)):
+            while time.monotonic() < grace and _live():
                 time.sleep(0.05)
-            _kill([r for r in range(procs) if ps[r].poll() is None])
+            _kill(_live())
     except BaseException:
-        _kill([r for r in range(procs) if ps[r].poll() is None])
+        _kill(_live())
         raise
     finally:
         for t in drains:
             t.join()
     report = {
         "first_failed": first_failed,
-        "ranks": {r: {"rc": ps[r].returncode,
-                      "outcome": _rank_outcome(ps[r].returncode,
-                                               r in policy_killed)}
+        "ranks": {r: {"rc": _cur(r).returncode,
+                      "outcome": _rank_outcome(_cur(r).returncode,
+                                               r in policy_killed),
+                      "respawned": r in respawned,
+                      "incarnations": len(incarnations[r]),
+                      "all_rcs": [p.returncode for p in incarnations[r]]}
                   for r in range(procs)},
     }
-    bad = [r for r in range(procs) if ps[r].returncode != 0]
-    if bad:
+    bad = [r for r in range(procs) if _cur(r).returncode != 0]
+    if bad and (not elastic or 0 in bad):
         # blame the FIRST rank observed failing (the injected or original
         # fault), not a survivor that died of the resulting channel EOF
         i = first_failed if first_failed in bad else bad[0]
         raise MultihostLaunchError(
             f"multihost rank {i}/{procs} failed first "
-            f"(rc={ps[i].returncode}; {len(bad)}/{procs} ranks "
-            f"failed):\nper-rank: {_summary()}\n"
-            f"{''.join(bufs.get(i, ([], []))[1])[-3000:]}")
-    outs = ["".join(bufs.get(r, ([], []))[0]) for r in range(procs)]
+            f"(rc={_cur(i).returncode}; {len(bad)}/{procs} ranks "
+            f"failed):\nper-rank: {_summary()}\n{_err_tail(i)}")
+    outs = ["".join("".join(bufs.get((r, g), ([], []))[0])
+                    for g in range(len(incarnations[r])))
+            for r in range(procs)]
     return outs, report
 
 
@@ -434,6 +491,22 @@ class _GatherHandle:
         self.collector = None
         self.pushed = 0
         self.aborted = False
+
+
+class _ContribHandle:
+    """The early contributions of one elastic exchange: a worker chains
+    one-block CONTRIB sends (the coordinator accepts several per round),
+    rank 0 keeps its own blocks; ElasticChannel.exchange(pending=...)
+    drains the handle.  A stale handle is harmless: the coordinator drops
+    a CONTRIB whose round is not the one in flight."""
+
+    __slots__ = ("round_idx", "blocks", "stash", "pending")
+
+    def __init__(self, round_idx: int):
+        self.round_idx = int(round_idx)
+        self.blocks: list[int] = []
+        self.stash: dict[int, bytes] = {}
+        self.pending = None
 
 
 class HostChannel:
@@ -886,6 +959,883 @@ def fold_sparse_partials(pairs: dict[int, tuple], n_blocks: int,
 
 
 # ---------------------------------------------------------------------------
+# elastic membership: epoch-numbered views, heartbeats, deterministic block
+# re-adoption, rejoin
+# ---------------------------------------------------------------------------
+
+def _send_msg(sock: socket.socket, mtype: str, header: dict,
+              payload=b"") -> int:
+    """One elastic-protocol message: a frame of [u32 header length][JSON
+    header with its "t" type, keys sorted][payload], the JAX channel's
+    bytes.  `payload` may be a list of byte-like pieces, written in
+    order without joining them.  Returns the bytes on the wire."""
+    hdr = json.dumps({"t": mtype, **header}, sort_keys=True).encode()
+    pieces = payload if isinstance(payload, (list, tuple)) else [payload]
+    n = 4 + len(hdr) + sum(memoryview(p).nbytes for p in pieces)
+    sock.sendall(struct.pack("<QI", n, len(hdr)) + hdr)
+    for p in pieces:
+        if memoryview(p).nbytes:
+            sock.sendall(p)
+    return n + 8
+
+
+def _recv_msg(sock: socket.socket) -> tuple[str, dict, memoryview, int]:
+    """(type, header, payload, bytes on the wire) of one message; the
+    payload is a view into the received frame (no copy)."""
+    frame = _recv_frame(sock)
+    (n,) = struct.unpack_from("<I", frame, 0)
+    hdr = json.loads(bytes(frame[4:4 + n]).decode())
+    return hdr.pop("t"), hdr, memoryview(frame)[4 + n:], len(frame) + 8
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterView:
+    """One epoch of elastic membership: the sorted live ranks and the
+    deterministic item -> owner map.  `n_items` is the fixed block space
+    (the reduction tree's shape, never repartitioned); only ownership
+    moves.  owner_of is a pure function of (members, n_items), so every
+    rank that knows the member list derives the same partition.  With the
+    full initial membership and a block count that the world divides it
+    is the contiguous tiling (rank r owns blocks [r·B/W, (r+1)·B/W))."""
+    epoch: int
+    members: tuple
+    n_items: int
+
+    def owner_of(self, item: int) -> int:
+        if not 0 <= item < self.n_items:
+            raise ValueError(f"item {item} outside [0, {self.n_items})")
+        return self.members[item * len(self.members) // self.n_items]
+
+    def assigned(self, rank: int) -> tuple:
+        return tuple(i for i in range(self.n_items)
+                     if self.owner_of(i) == rank)
+
+
+class ElasticChannel:
+    """Epoch-numbered elastic membership over the HostChannel's star.
+    Rank 0 coordinates: it owns the member list, detects death (the data
+    link's EOF, bounded waits, and heartbeats: a stopped rank stops
+    heartbeating and is suspected within `hb_timeout_s`, between
+    exchanges too), drives view changes, and admits rejoiners at commit
+    barriers.
+
+    The collective is `exchange(round, parts, compute)`, a block-keyed
+    allgather.  Every item is a pure function of (seed, round, block),
+    not of who computes it, so when a rank dies mid-round the coordinator
+    asks the survivors for exactly the missing items (`need` lists in
+    VIEW messages, owners from ClusterView.owner_of over the shrunk
+    membership) and the round completes with the bytes of a clean run.
+
+    Every connection's first frame is a typed hello: "data" (CONTRIB,
+    VIEW, RESULT, DUMP), "hb" (heartbeats) or "rejoin" (checked against
+    the config digest: REJECT by name on a mismatch, else a SNAPSHOT
+    {epoch, resume_round, members, tag} with the runner's blob at the next
+    commit barrier).  Rank 0's death is fatal by design: workers name it
+    in DeadRankError.  The frames are the JAX channel's byte for byte.
+    Byte counters are bumped from the exchange thread and the handler
+    threads, under their own lock."""
+
+    def __init__(self, ctx: MultihostContext, *, n_items: int,
+                 config_digest: str = "",
+                 timeout_s: float = 120.0,
+                 connect_timeout_s: float = 60.0,
+                 hb_interval_s: float = 0.25,
+                 hb_timeout_s: float = 2.0,
+                 rejoin: bool = False):
+        if n_items < 1:
+            raise ValueError(f"n_items must be >= 1, got {n_items}")
+        self.ctx = ctx
+        self.n_items = int(n_items)
+        self.config_digest = str(config_digest)
+        self.timeout_s = float(timeout_s)
+        self.connect_timeout_s = float(connect_timeout_s)
+        self.hb_interval_s = float(hb_interval_s)
+        self.hb_timeout_s = float(hb_timeout_s)
+        self.bytes_sent = 0
+        self.bytes_received = 0
+        self._mark = (0, 0)
+        self.view = ClusterView(0, tuple(range(ctx.world)), self.n_items)
+        self.view_events: list[dict] = []
+        # fault hook: a paused sender is a hung (stopped) rank whose
+        # process still runs
+        self.hb_paused = False
+        self._item_nbytes: Optional[int] = None
+        self._lock = threading.Lock()
+        self._io_lock = threading.Lock()     # byte counters only
+        self._send_lock = threading.Lock()   # rank 0's data-link writes
+        self._cond = threading.Condition(self._lock)
+        self._closed = False
+        self._sock: Optional[socket.socket] = None        # worker data
+        self._hb_sock: Optional[socket.socket] = None     # worker hb
+        self._listener: Optional[socket.socket] = None
+        self._data: dict[int, socket.socket] = {}         # coordinator
+        self._hb: dict[int, socket.socket] = {}
+        self._hb_last: dict[int, float] = {}
+        self._suspect: dict[int, str] = {}
+        self._pending_rejoin: list[tuple[int, socket.socket]] = []
+        host, port = ctx.coordinator.rsplit(":", 1)
+        self._host, self._port = host, int(port)
+        _cluster.set_role(ctx.rank, ctx.world, elastic=True)
+        if ctx.world <= 1:
+            return
+        if ctx.rank == 0:
+            # coordinated incident dumps fan out through this channel's
+            # DUMP frames (only with telemetry on: the obs-off wire stays
+            # clean)
+            _cluster.set_dump_broadcaster(self._broadcast_dump_frames)
+            grace = time.monotonic() + self.connect_timeout_s
+            for m in self.view.members:
+                if m != 0:
+                    self._hb_last[m] = grace   # connect grace
+            self._listener = socket.create_server((host, self._port))
+            self._listener.settimeout(0.25)
+            threading.Thread(target=self._accept_loop, daemon=True,
+                             name="elastic-accept").start()
+        elif not rejoin:
+            self._connect_worker()
+        # rejoin=True defers all dialing to rejoin_handshake()
+
+    # -- byte-counted message wrappers ---------------------------------------
+    def _send(self, sock, mtype, header, payload=b"") -> None:
+        if self.ctx.rank == 0:
+            with self._send_lock:
+                n = _send_msg(sock, mtype, header, payload)
+        else:
+            n = _send_msg(sock, mtype, header, payload)
+        with self._io_lock:
+            self.bytes_sent += n
+
+    def _recv(self, sock):
+        mtype, hdr, payload, n = _recv_msg(sock)
+        with self._io_lock:
+            self.bytes_received += n
+        return mtype, hdr, payload
+
+    # -- per-round wire accounting -------------------------------------------
+    def mark_round(self) -> None:
+        """Open a per-round wire window (HostChannel.mark_round's
+        contract, under the io lock: the handler threads bump the
+        counters too)."""
+        with self._io_lock:
+            self._mark = (self.bytes_sent, self.bytes_received)
+
+    def round_wire_delta(self) -> dict[str, int]:
+        with self._io_lock:
+            s0, r0 = self._mark
+            return {"sent": self.bytes_sent - s0,
+                    "received": self.bytes_received - r0}
+
+    # -- worker side ---------------------------------------------------------
+    def _connect_worker(self) -> None:
+        ctx = self.ctx
+        deadline = time.monotonic() + self.connect_timeout_s
+        self._sock = _dial_with_backoff(
+            self._host, self._port, deadline,
+            f"elastic channel: rank {ctx.rank} data link to the "
+            f"coordinator at {ctx.coordinator}")
+        self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self._send(self._sock, "hello",
+                   {"rank": ctx.rank, "role": "data",
+                    "digest": self.config_digest})
+        self._sock.settimeout(max(0.1, deadline - time.monotonic()))
+        try:
+            mtype, hdr, _ = self._recv(self._sock)
+        except (socket.timeout, ConnectionError, OSError) as e:
+            raise DeadRankError(
+                f"elastic channel: rank {ctx.rank} got no hello reply "
+                f"from the coordinator within "
+                f"{self.connect_timeout_s:.0f}s "
+                f"({type(e).__name__})") from e
+        if mtype == "reject":
+            raise DeadRankError(hdr.get("error", "rejected"))
+        self._install_view(hdr)
+        self._hb_sock = _dial_with_backoff(
+            self._host, self._port, deadline,
+            f"elastic channel: rank {ctx.rank} heartbeat link to the "
+            f"coordinator at {ctx.coordinator}")
+        self._send(self._hb_sock, "hello",
+                   {"rank": ctx.rank, "role": "hb"})
+        threading.Thread(target=self._hb_loop, daemon=True,
+                         name=f"elastic-hb-{ctx.rank}").start()
+
+    def _hb_loop(self) -> None:
+        while not self._closed:
+            if not self.hb_paused:
+                # the live telemetry plane: a bounded metrics delta on
+                # the heartbeat's header, only with telemetry on (the
+                # obs-off header stays exactly {})
+                hdr = {}
+                if _cluster.telemetry_enabled():
+                    d = _rollup_delta(_cluster.SIDECAR_CAP_BYTES)
+                    if d is not None:
+                        hdr["delta"] = d
+                try:
+                    self._send(self._hb_sock, "hb", hdr)
+                except (OSError, AttributeError):
+                    return      # coordinator gone: the data path names it
+            time.sleep(self.hb_interval_s)
+
+    def _install_view(self, hdr: dict) -> None:
+        v = ClusterView(int(hdr["epoch"]),
+                        tuple(int(m) for m in hdr["members"]),
+                        self.n_items)
+        if v.epoch < self.view.epoch:
+            return                       # stale (reordered) view
+        if v.epoch > self.view.epoch:
+            self.view_events.append({"epoch": v.epoch,
+                                     "members": list(v.members)})
+            obs.counter("multihost_view_changes_total").inc()
+        self.view = v
+        obs.gauge("multihost_epoch", rank=str(self.ctx.rank)).set(
+            float(v.epoch))
+
+    # -- coordinator side ----------------------------------------------------
+    def _accept_loop(self) -> None:
+        while not self._closed:
+            try:
+                conn, _ = self._listener.accept()
+            except socket.timeout:
+                continue
+            except (OSError, AttributeError):
+                return
+            threading.Thread(target=self._handle_hello, args=(conn,),
+                             daemon=True).start()
+
+    def _handle_hello(self, conn: socket.socket) -> None:
+        try:
+            conn.settimeout(10.0)
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            mtype, hdr, _ = self._recv(conn)
+        except (socket.timeout, ConnectionError, OSError, ValueError):
+            conn.close()
+            return
+        rank = int(hdr.get("rank", -1))
+        role = hdr.get("role", mtype)
+        if mtype == "rejoin" or role == "rejoin":
+            self._handle_rejoin_hello(rank, hdr, conn)
+            return
+        if mtype != "hello" or rank < 0:
+            conn.close()
+            return
+        if role == "data":
+            if hdr.get("digest", "") != self.config_digest:
+                try:
+                    self._send(conn, "reject", {"error": (
+                        f"elastic channel: rank {rank} config digest "
+                        f"{hdr.get('digest', '')!r} does not match the "
+                        f"cluster's {self.config_digest!r}: the "
+                        f"two-level reduction would not be bitwise")})
+                except OSError:
+                    pass
+                conn.close()
+                return
+            with self._cond:
+                old = self._data.pop(rank, None)
+                self._data[rank] = conn
+                self._hb_last[rank] = max(
+                    self._hb_last.get(rank, 0.0), time.monotonic())
+                view = self.view
+                self._cond.notify_all()
+            if old is not None:
+                try:
+                    old.close()
+                except OSError:
+                    pass
+            try:
+                self._send(conn, "hello_ok",
+                           {"epoch": view.epoch,
+                            "members": list(view.members),
+                            "n_items": self.n_items})
+            except OSError:
+                pass
+        elif role == "hb":
+            with self._lock:
+                old = self._hb.pop(rank, None)
+                self._hb[rank] = conn
+                self._hb_last[rank] = max(
+                    self._hb_last.get(rank, 0.0), time.monotonic())
+            if old is not None:
+                try:
+                    old.close()
+                except OSError:
+                    pass
+            self._hb_reader(rank, conn)
+        else:
+            conn.close()
+
+    def _handle_rejoin_hello(self, rank: int, hdr: dict,
+                             conn: socket.socket) -> None:
+        """Check the digest now (a stale build is named at once), else
+        queue the rejoiner for admission at the next commit barrier."""
+        digest = hdr.get("digest", "")
+        if digest != self.config_digest:
+            try:
+                self._send(conn, "reject", {"error": (
+                    f"elastic rejoin: rank {rank} config digest "
+                    f"{digest!r} does not match the cluster's "
+                    f"{self.config_digest!r}: stale config or code; "
+                    f"admission refused")})
+            except OSError:
+                pass
+            conn.close()
+            obs.counter("multihost_rejoins_rejected_total").inc()
+            return
+        with self._lock:
+            self._pending_rejoin.append((rank, conn))
+        obs.instant("multihost.rejoin_request", rank=rank)
+        log.info("elastic: rank %d requested rejoin (pending admission "
+                 "at the next commit barrier)", rank)
+
+    def _hb_reader(self, rank: int, conn: socket.socket) -> None:
+        conn.settimeout(self.hb_timeout_s)
+        while not self._closed:
+            try:
+                mtype, hdr, _ = self._recv(conn)
+                with self._lock:
+                    self._hb_last[rank] = time.monotonic()
+                    self._suspect.pop(rank, None)
+                _cluster.note_heartbeat(rank)
+                delta = hdr.get("delta") if mtype == "hb" else None
+                if delta:
+                    _cluster.fold_remote(rank, delta)
+            except socket.timeout:
+                with self._lock:
+                    fresh = (rank in self.view.members
+                             and rank not in self._suspect)
+                    if fresh:
+                        self._suspect[rank] = (
+                            f"no heartbeat for {self.hb_timeout_s:.1f}s "
+                            f"(process hung or stopped)")
+                if fresh:
+                    obs.instant("multihost.rank_suspect", rank=rank)
+                    obs.counter("multihost_rank_suspects_total",
+                                rank=str(rank)).inc()
+                    log.warning("elastic: rank %d heartbeat silent, "
+                                "suspected hung", rank)
+            except (ConnectionError, OSError, ValueError):
+                with self._lock:
+                    if rank in self.view.members:
+                        self._suspect.setdefault(
+                            rank, "heartbeat link closed")
+                return
+
+    def wait_members(self) -> None:
+        """Rank 0's setup barrier: wait for every initial member's data
+        link within connect_timeout_s; ranks that never connect are
+        evicted (an epoch bump, logged) instead of failing the launch."""
+        if self.ctx.rank != 0 or self.ctx.world <= 1:
+            return
+        deadline = time.monotonic() + self.connect_timeout_s
+        with self._cond:
+            while time.monotonic() < deadline:
+                missing = [m for m in self.view.members
+                           if m != 0 and m not in self._data]
+                if not missing:
+                    return
+                self._cond.wait(0.1)
+            missing = [m for m in self.view.members
+                       if m != 0 and m not in self._data]
+        if missing:
+            log.warning("elastic setup: rank(s) %s never connected "
+                        "within %.0fs: evicting them and starting "
+                        "without them", missing, self.connect_timeout_s)
+            self._coord_view_change(missing, -1, None, None,
+                                    reason="never connected at setup")
+
+    def _coord_view_change(self, dead: list, round_idx: int,
+                           have: Optional[dict], compute,
+                           reason: str = "dead or hung") -> None:
+        """The view change: evict `dead`, bump the epoch, send every
+        surviving member a VIEW with the members and the missing items it
+        now owns, then compute rank 0's own newly owned missing items.
+        Latency runs to the point every survivor is re-tasked; the
+        recompute is goodput, not membership latency."""
+        t0 = time.perf_counter()
+        dead = sorted(set(int(r) for r in dead))
+        with obs.span("multihost.view_change",
+                      epoch=self.view.epoch + 1, round=round_idx):
+            with self._lock:
+                for r in dead:
+                    self._suspect.pop(r, None)
+                    for tbl in (self._data, self._hb):
+                        s = tbl.pop(r, None)
+                        if s is not None:
+                            try:
+                                s.close()
+                            except OSError:
+                                pass
+                members = tuple(m for m in self.view.members
+                                if m not in dead)
+                self.view = ClusterView(self.view.epoch + 1, members,
+                                        self.n_items)
+                view = self.view
+                socks = dict(self._data)
+            for r in dead:
+                obs.counter("multihost_rank_deaths_total",
+                            rank=str(r)).inc()
+            obs.counter("multihost_view_changes_total").inc()
+            obs.gauge("multihost_epoch", rank="0").set(float(view.epoch))
+            missing = ([] if have is None else
+                       [b for b in range(self.n_items) if b not in have])
+            for m in view.members:
+                if m == 0 or m not in socks:
+                    continue
+                need = [b for b in missing if view.owner_of(b) == m]
+                try:
+                    socks[m].settimeout(self.timeout_s)
+                    self._send(socks[m], "view",
+                               {"epoch": view.epoch, "round": round_idx,
+                                "members": list(view.members),
+                                "need": need})
+                except (socket.timeout, OSError):
+                    with self._lock:
+                        self._suspect.setdefault(
+                            m, "view notification failed")
+        latency = time.perf_counter() - t0
+        obs.histogram("multihost_view_change_seconds").observe(latency)
+        self.view_events.append({
+            "epoch": view.epoch, "round": round_idx, "dead": dead,
+            "members": list(view.members), "latency_s": latency,
+            "reason": reason})
+        log.warning("elastic view change: epoch %d, rank(s) %s evicted "
+                    "(%s), members now %s (%.1f ms)", view.epoch, dead,
+                    reason, list(view.members), latency * 1e3)
+        # every survivor snapshots the same incident window (throttled;
+        # a no-op with telemetry off)
+        _cluster.maybe_coordinated_dump(
+            f"view_change:epoch{view.epoch}:dead{dead}")
+        if have is not None and compute is not None:
+            mine = [b for b in missing if view.owner_of(b) == 0]
+            if mine:
+                got = {int(b): bytes(v) for b, v in compute(mine).items()}
+                self._note_items(got.values())
+                have.update(got)
+
+    # -- the elastic collective ----------------------------------------------
+    def _note_items(self, values) -> None:
+        for v in values:
+            n = memoryview(v).nbytes
+            if self._item_nbytes is None:
+                self._item_nbytes = n
+            elif n != self._item_nbytes:
+                raise ValueError(
+                    f"elastic exchange: item payload of {n} bytes, "
+                    f"expected {self._item_nbytes} (config skew or a "
+                    f"truncated frame)")
+
+    def contrib_begin(self, round_idx: int) -> _ContribHandle:
+        """Open an early-contribution window for `round_idx`: blocks
+        pushed through contrib_push ship while the remaining blocks still
+        compute, and exchange(pending=h) closes the window."""
+        return _ContribHandle(round_idx)
+
+    def contrib_push(self, h: _ContribHandle, block: int,
+                     data: bytes) -> None:
+        """Ship one block's payload into an open window.  Rank 0 keeps
+        its own (they never cross the wire); a worker chains a one-block
+        CONTRIB send onto the previous push, so the socket writes stay in
+        order while the caller computes the next block.  A death in the
+        window surfaces at exchange(), whose re-adoption recomputes from
+        the round's frozen state, never from this buffer."""
+        data = bytes(data)
+        self._note_items([data])
+        h.blocks.append(int(block))
+        if self.ctx.world <= 1 or self.ctx.rank == 0:
+            h.stash[int(block)] = data
+            return
+        from fedml_tpu_torch.parallel.prefetch import AsyncValue
+
+        prev = h.pending
+
+        def _ship(prev=prev, block=int(block), data=data):
+            if prev is not None:
+                prev.result()
+            self._send_contrib(h.round_idx, {block: data})
+
+        h.pending = AsyncValue(_ship, name=f"contrib_push#{h.round_idx}")
+
+    def exchange(self, round_idx: int, parts: dict,
+                 compute: Optional[Callable] = None,
+                 pending: Optional[_ContribHandle] = None
+                 ) -> tuple[dict, ClusterView]:
+        """The block-keyed elastic allgather: contribute `parts` ({item:
+        bytes or f32 array}), receive all n_items payloads and the view
+        that completed the round.  `compute(items)` is the re-adoption
+        callback, called on this thread when a view change assigns a dead
+        rank's missing items here.  `pending` closes a contrib_begin
+        window.  Every rank receives the same payload set, so a
+        deterministic fold over it commits the same bits on every
+        survivor."""
+        t0 = time.perf_counter()
+        parts = {int(b): (v.tobytes() if hasattr(v, "tobytes")
+                          else bytes(v))
+                 for b, v in parts.items()}
+        self._note_items(parts.values())
+        pre_sent: tuple = ()
+        if pending is not None:
+            if pending.round_idx != round_idx:
+                raise ValueError(
+                    f"elastic exchange round {round_idx}: pending "
+                    f"contributions belong to round {pending.round_idx}")
+            if self.ctx.rank == 0 or self.ctx.world <= 1:
+                parts = {**pending.stash, **parts}
+            else:
+                if pending.pending is not None:
+                    pending.pending.result()   # DeadRankError re-raises
+                pre_sent = tuple(pending.blocks)
+        try:
+            if self.ctx.rank == 0:
+                return self._exchange_coord(round_idx, parts, compute)
+            return self._exchange_worker(round_idx, parts, compute,
+                                         pre_sent)
+        finally:
+            obs.histogram("multihost_allgather_seconds").observe(
+                time.perf_counter() - t0)
+
+    def _exchange_coord(self, round_idx, parts, compute):
+        have: dict = dict(parts)
+        # barrier ledger: rank 0 arrives with its own parts in hand, each
+        # member at its first accepted CONTRIB of this round
+        arrivals: dict[int, float] = {self.ctx.rank: time.monotonic()}
+        deadline = time.monotonic() + self.timeout_s
+        while True:
+            missing = [b for b in range(self.n_items) if b not in have]
+            if not missing:
+                break
+            # rank 0's own outstanding items first (world 1, and the
+            # re-adoption right after a view change)
+            mine = [b for b in missing if self.view.owner_of(b) == 0]
+            if mine:
+                if compute is None:
+                    raise DeadRankError(
+                        f"elastic exchange #{round_idx}: items {mine} "
+                        f"fell to rank 0 but no compute callback was "
+                        f"given")
+                got = {int(b): bytes(v) for b, v in compute(mine).items()}
+                self._note_items(got.values())
+                have.update(got)
+                continue
+            now = time.monotonic()
+            with self._lock:
+                why = dict(self._suspect)
+                hb_stale = [m for m in self.view.members
+                            if m != 0
+                            and now - self._hb_last.get(m, now)
+                            > self.hb_timeout_s]
+                socks = dict(self._data)
+            for m in hb_stale:
+                why.setdefault(m, f"no heartbeat for "
+                                  f"{self.hb_timeout_s:.1f}s (process "
+                                  f"hung or stopped)")
+            if now > deadline:
+                # whoever still owes an item at the deadline is hung
+                for m in {self.view.owner_of(b) for b in missing} - {0}:
+                    why.setdefault(m, f"owes items at the {self.timeout_s:.0f}"
+                                      f"s deadline")
+            dead = set(why) & (set(self.view.members) - {0})
+            if dead:
+                self._coord_view_change(
+                    sorted(dead), round_idx, have, compute,
+                    reason="; ".join(f"rank {m}: {why[m]}"
+                                     for m in sorted(dead)))
+                # the re-tasked survivors need fresh time to recompute
+                # the dead rank's blocks, or a late view change cascades
+                # into evictions of healthy ranks
+                deadline = max(deadline, time.monotonic() + self.timeout_s)
+                continue
+            rl: list = []
+            waitable = [s for m, s in socks.items()
+                        if m in self.view.members]
+            if waitable:
+                try:
+                    rl, _, _ = select.select(waitable, [], [], 0.1)
+                except (OSError, ValueError):
+                    rl = []     # a sock closed under us: re-snapshot
+            else:
+                time.sleep(0.05)
+            for s in rl:
+                m = next((r for r, c in socks.items() if c is s), None)
+                if m is None:
+                    continue
+                try:
+                    s.settimeout(max(0.05, min(5.0, deadline - now)))
+                    mtype, hdr, payload = self._recv(s)
+                except (socket.timeout, ConnectionError, OSError,
+                        ValueError):
+                    with self._lock:
+                        self._suspect.setdefault(m, "data link failed")
+                    continue
+                if mtype != "contrib":
+                    continue
+                if int(hdr.get("round", -1)) != round_idx:
+                    log.warning("elastic: dropping stale contrib for "
+                                "round %s from rank %d (at round %d)",
+                                hdr.get("round"), m, round_idx)
+                    continue
+                arrivals.setdefault(m, time.monotonic())
+                blocks = [int(b) for b in hdr.get("blocks", [])]
+                if self._item_nbytes is None and blocks:
+                    self._item_nbytes = len(payload) // len(blocks)
+                sz = self._item_nbytes or 0
+                if sz * len(blocks) != len(payload):
+                    with self._lock:
+                        self._suspect.setdefault(
+                            m, f"contrib size mismatch ({len(payload)} "
+                               f"bytes for {len(blocks)} items of {sz})")
+                    continue
+                for j, b in enumerate(blocks):
+                    if 0 <= b < self.n_items and b not in have:
+                        have[b] = payload[j * sz:(j + 1) * sz]
+        _cluster.note_barrier("exchange", round_idx, round_idx, arrivals)
+        # broadcast the complete payload set in item order
+        blob = [have[b] for b in range(self.n_items)]
+        view = self.view
+        with self._lock:
+            socks = dict(self._data)
+        for m in view.members:
+            if m == 0 or m not in socks:
+                continue
+            try:
+                socks[m].settimeout(self.timeout_s)
+                self._send(socks[m], "result",
+                           {"epoch": view.epoch, "round": round_idx,
+                            "members": list(view.members)},
+                           blob)
+            except (socket.timeout, OSError):
+                with self._lock:
+                    self._suspect.setdefault(m, "result send failed")
+        return have, view
+
+    def _exchange_worker(self, round_idx, parts, compute,
+                         pre_sent: tuple = ()):
+        sent = set(parts) | set(pre_sent)
+        if parts or not pre_sent:
+            # an all-early overlap round has nothing left to contribute
+            # inline; everything else keeps the eager single CONTRIB
+            self._send_contrib(round_idx, parts)
+        deadline = time.monotonic() + self.timeout_s
+        while True:
+            self._sock.settimeout(max(0.05, deadline - time.monotonic()))
+            try:
+                mtype, hdr, payload = self._recv(self._sock)
+            except (socket.timeout, ConnectionError, OSError,
+                    ValueError) as e:
+                raise DeadRankError(
+                    f"elastic exchange round {round_idx}: rank "
+                    f"{self.ctx.rank} lost the rank-0 coordinator "
+                    f"({type(e).__name__}: coordinator dead, or this "
+                    f"rank was evicted from the view)") from e
+            if mtype == "view":
+                self._install_view(hdr)
+                # a view change re-tasks the survivors: the round runs
+                # longer than one clean window
+                deadline = max(deadline, time.monotonic() + self.timeout_s)
+                need = [int(b) for b in hdr.get("need", [])
+                        if int(b) not in sent]
+                if need and compute is not None:
+                    out = {int(b): bytes(v)
+                           for b, v in compute(need).items()}
+                    self._send_contrib(round_idx, out)
+                    sent |= set(out)
+            elif mtype == "result":
+                if int(hdr.get("round", -1)) != round_idx:
+                    continue             # a stale, consumed round
+                self._install_view(hdr)
+                sz = len(payload) // self.n_items
+                if sz * self.n_items != len(payload):
+                    raise DeadRankError(
+                        f"elastic exchange round {round_idx}: result "
+                        f"payload of {len(payload)} bytes does not tile "
+                        f"{self.n_items} items")
+                return ({b: payload[b * sz:(b + 1) * sz]
+                         for b in range(self.n_items)}, self.view)
+            elif mtype == "dump":
+                # the coordinator saw a view change, death or breach:
+                # snapshot the same window into this rank's obs dir
+                obs.dump_flight("coordinated:" + str(hdr.get("reason", "")))
+
+    def _send_contrib(self, round_idx: int, parts: dict) -> None:
+        blocks = sorted(parts)
+        try:
+            self._sock.settimeout(self.timeout_s)
+            self._send(self._sock, "contrib",
+                       {"epoch": self.view.epoch, "round": round_idx,
+                        "blocks": blocks},
+                       [parts[b] for b in blocks])
+        except (socket.timeout, ConnectionError, OSError) as e:
+            raise DeadRankError(
+                f"elastic exchange round {round_idx}: rank "
+                f"{self.ctx.rank} could not ship its contribution to "
+                f"the coordinator ({type(e).__name__})") from e
+
+    # -- rejoin --------------------------------------------------------------
+    def rejoin_handshake(self) -> tuple[bytes, int, str]:
+        """A restarted worker's entry: dial the coordinator's rejoin role
+        with the config digest and await admission (at the next commit
+        barrier).  Returns (snapshot blob, resume round, run tag) and
+        leaves the channel connected (data and heartbeat links) under
+        the new membership.  `run_tag` names the run the snapshot
+        belongs to: a worker driving several runs over one channel must
+        resume the one the coordinator is in."""
+        ctx = self.ctx
+        deadline = time.monotonic() + self.connect_timeout_s
+        sock = _dial_with_backoff(
+            self._host, self._port, deadline,
+            f"elastic rejoin: rank {ctx.rank} dialing the coordinator "
+            f"at {ctx.coordinator}")
+        try:
+            sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            self._send(sock, "rejoin",
+                       {"rank": ctx.rank, "digest": self.config_digest})
+            # admission lands at a commit barrier: a round on top of the
+            # connect window
+            sock.settimeout(self.timeout_s + self.connect_timeout_s)
+            try:
+                mtype, hdr, payload = self._recv(sock)
+            except (socket.timeout, ConnectionError, OSError) as e:
+                raise DeadRankError(
+                    f"elastic rejoin: rank {ctx.rank} got no admission "
+                    f"from the coordinator within "
+                    f"{self.timeout_s + self.connect_timeout_s:.0f}s "
+                    f"({type(e).__name__}: run finished or coordinator "
+                    f"dead)") from e
+            if mtype == "reject":
+                raise DeadRankError(hdr.get("error", "rejoin rejected"))
+            if mtype != "snapshot":
+                raise DeadRankError(
+                    f"elastic rejoin: unexpected {mtype!r} reply")
+        finally:
+            sock.close()
+        self._install_view(hdr)
+        self._connect_worker()
+        log.info("elastic: rank %d readmitted at epoch %d, resuming run "
+                 "%r at round %d", ctx.rank, self.view.epoch,
+                 hdr.get("tag", ""), int(hdr["resume_round"]))
+        return bytes(payload), int(hdr["resume_round"]), hdr.get("tag", "")
+
+    def admit_rejoins(self, resume_round: int,
+                      snapshot_fn: Callable[[], bytes],
+                      tag: str = "") -> list:
+        """Rank 0, at a commit barrier: admit every pending rejoiner (an
+        epoch bump, a SNAPSHOT reply with the view, the resume round and
+        the blob snapshot_fn builds, a VIEW to the incumbents).  Returns
+        the admitted ranks."""
+        if self.ctx.rank != 0:
+            return []
+        with self._lock:
+            pending, self._pending_rejoin = self._pending_rejoin, []
+        if not pending:
+            return []
+        blob = snapshot_fn()
+        admitted = []
+        for rank, conn in pending:
+            if rank in self.view.members:
+                try:
+                    self._send(conn, "reject", {"error": (
+                        f"elastic rejoin: rank {rank} is still a live "
+                        f"member of epoch {self.view.epoch}: a rank id "
+                        f"cannot be claimed twice")})
+                except OSError:
+                    pass
+                conn.close()
+                continue
+            members = tuple(sorted(set(self.view.members) | {rank}))
+            view = ClusterView(self.view.epoch + 1, members, self.n_items)
+            try:
+                conn.settimeout(self.timeout_s)
+                self._send(conn, "snapshot",
+                           {"epoch": view.epoch,
+                            "resume_round": int(resume_round),
+                            "members": list(members),
+                            "n_items": self.n_items,
+                            "tag": tag},
+                           blob)
+            except (socket.timeout, OSError):
+                conn.close()
+                log.warning("elastic: rejoiner rank %d vanished before "
+                            "its snapshot was delivered", rank)
+                continue
+            conn.close()
+            with self._lock:
+                self.view = view
+                # connect grace for the fresh data and heartbeat links
+                self._hb_last[rank] = (time.monotonic()
+                                       + self.connect_timeout_s)
+                self._suspect.pop(rank, None)
+            admitted.append(rank)
+            obs.counter("multihost_rejoins_admitted_total").inc()
+            obs.gauge("multihost_epoch", rank="0").set(float(view.epoch))
+            obs.counter("multihost_view_changes_total").inc()
+            self.view_events.append({
+                "epoch": view.epoch, "round": int(resume_round),
+                "rejoined": [rank], "members": list(members),
+                "latency_s": 0.0, "reason": "rejoin admitted"})
+            log.warning("elastic: rank %d readmitted at epoch %d (resume "
+                        "round %d)", rank, view.epoch, resume_round)
+        if admitted:
+            with self._lock:
+                socks = dict(self._data)
+            for m in self.view.members:
+                if m == 0 or m in admitted or m not in socks:
+                    continue
+                try:
+                    socks[m].settimeout(self.timeout_s)
+                    self._send(socks[m], "view",
+                               {"epoch": self.view.epoch,
+                                "round": int(resume_round),
+                                "members": list(self.view.members),
+                                "need": []})
+                except (socket.timeout, OSError):
+                    with self._lock:
+                        self._suspect.setdefault(
+                            m, "view notification failed")
+        return admitted
+
+    def _broadcast_dump_frames(self, reason: str) -> None:
+        """Fan a coordinated-dump order out to every member's data link
+        (the observatory's DUMP broadcaster).  Best effort: a member that
+        died in between is the failure detector's business."""
+        with self._lock:
+            socks = {m: s for m, s in self._data.items()
+                     if m in self.view.members}
+        for m, s in socks.items():
+            try:
+                self._send(s, "dump", {"reason": str(reason)})
+            except OSError:
+                pass
+
+    # -- plumbing shared with HostChannel ------------------------------------
+    def export_byte_counters(self) -> None:
+        with self._io_lock:
+            sent, recv = self.bytes_sent, self.bytes_received
+        _export_channel_byte_counters(self.ctx.rank, sent, recv)
+
+    def close(self) -> None:
+        self._closed = True
+        if self.ctx.rank == 0:
+            _cluster.set_dump_broadcaster(None)
+        with self._lock:
+            socks = (list(self._data.values()) + list(self._hb.values())
+                     + [c for _, c in self._pending_rejoin])
+            self._data.clear()
+            self._hb.clear()
+            self._pending_rejoin.clear()
+        for s in socks + [self._sock, self._hb_sock, self._listener]:
+            if s is not None:
+                try:
+                    s.close()
+                except OSError:
+                    pass
+        self._sock = self._hb_sock = self._listener = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+# ---------------------------------------------------------------------------
 # the two-level round loop
 # ---------------------------------------------------------------------------
 
@@ -947,6 +1897,8 @@ class MultihostRunner:
     cohort.  The engine runs one device per rank (`n_shards` 1 in the
     handshake); two ranks may share one card."""
 
+    _contiguous = True          # rank r owns blocks [r·B/W, (r+1)·B/W)
+
     def __init__(self, engine, ctx: Optional[MultihostContext] = None,
                  *, n_blocks: Optional[int] = None,
                  channel: Optional[HostChannel] = None,
@@ -970,7 +1922,7 @@ class MultihostRunner:
         self.on_round_end = on_round_end
         world = self.ctx.world
         self.n_blocks = int(n_blocks) if n_blocks else world
-        if self.n_blocks % world:
+        if self._contiguous and self.n_blocks % world:
             raise ValueError(
                 f"n_blocks ({self.n_blocks}) must be a multiple of the "
                 f"process count ({world}): contiguous tiling is the "
@@ -983,14 +1935,15 @@ class MultihostRunner:
         self.sampler = BlockCohortSampler(
             engine.data.client_num, self.n_blocks,
             cfg.client_num_per_round // self.n_blocks, cfg.seed)
-        bpp = self.n_blocks // world
-        self.owned_blocks = tuple(range(self.ctx.rank * bpp,
-                                        (self.ctx.rank + 1) * bpp))
-        # this process's population id range (contiguous because its
-        # blocks are): the resident device stack holds only this slice
-        self.range_lo = self.owned_blocks[0] * self.sampler.range_size
-        self.range_hi = ((self.owned_blocks[-1] + 1)
-                         * self.sampler.range_size)
+        if self._contiguous:
+            bpp = self.n_blocks // world
+            self.owned_blocks = tuple(range(self.ctx.rank * bpp,
+                                            (self.ctx.rank + 1) * bpp))
+            # this process's population id range (contiguous because its
+            # blocks are): the resident device stack holds only this slice
+            self.range_lo = self.owned_blocks[0] * self.sampler.range_size
+            self.range_hi = ((self.owned_blocks[-1] + 1)
+                             * self.sampler.range_size)
         self._channel = channel
         self._owns_channel = channel is None
         self._range_stack = None
@@ -1055,21 +2008,26 @@ class MultihostRunner:
         rank computes it."""
         return block * self.sampler.k_per_block
 
+    def _upload_id_range(self, lo: int, hi: int) -> tuple:
+        """The client stack and weights of population ids [lo, hi) on the
+        device."""
+        eng = self.engine
+        host = eng._cast_stack_x({k: np.asarray(v)[lo:hi] for k, v in
+                                  eng._host_shards().items()})
+        eng.transfer_stats.add_h2d_bytes(
+            sum(v.numel() * v.element_size() for v in host.values()))
+        from fedml_tpu_torch.parallel.prefetch import upload
+        stack = {k: upload(v, eng.device) for k, v in host.items()}
+        weights = eng._upload_weights(np.asarray(
+            eng.data.client_num_samples, np.float32)[lo:hi])
+        return stack, weights
+
     def _upload_range_stack(self):
         """Resident mode: upload THIS process's population id range
         once (device residency is id-range partitioned across ranks)."""
         if self._range_stack is None:
-            eng = self.engine
-            lo, hi = self.range_lo, self.range_hi
-            host = eng._cast_stack_x({k: np.asarray(v)[lo:hi] for k, v in
-                                      eng._host_shards().items()})
-            eng.transfer_stats.add_h2d_bytes(
-                sum(v.numel() * v.element_size() for v in host.values()))
-            from fedml_tpu_torch.parallel.prefetch import upload
-            stack = {k: upload(v, eng.device) for k, v in host.items()}
-            weights = eng._upload_weights(np.asarray(
-                eng.data.client_num_samples, np.float32)[lo:hi])
-            self._range_stack = (stack, weights)
+            self._range_stack = self._upload_id_range(self.range_lo,
+                                                      self.range_hi)
         return self._range_stack
 
     def _gather_streaming(self, round_idx: int):
@@ -1359,6 +2317,324 @@ class MultihostRunner:
         if self._channel is not None and self._owns_channel:
             self._channel.close()
             self._channel = None
+
+
+class ElasticRunner(MultihostRunner):
+    """The elastic twin of the two-level round: the same sample, partial,
+    exchange and commit, but the inter-process tier is an ElasticChannel.
+    A dead or hung rank triggers a view change, the survivors recompute
+    its blocks mid-round, and a restarted process re-enters through the
+    rejoin handshake (the config digest, then rank 0's snapshot at a
+    commit barrier).
+
+    Bitwise under death, by construction: `BlockCohortSampler` draws on
+    [seed, round, block] streams and every partial is a function of
+    (variables, seed, round, block) alone (lane j of block b trains with
+    client_generator(seed, round, b·k + j)), so a re-adopted block's
+    partial is the one the dead rank would have shipped, and
+    `fold_block_partials` folds all blocks in global block order whoever
+    computed them.  A run that loses a rank commits the clean run's bits.
+
+    Differences from the fail-fast runner, on purpose: the blocks are
+    owned through `ClusterView` (any block count, so 3 ranks may own
+    unequal shares of 4 blocks); resident mode caches a device stack per
+    block and drops it when the view moves the block away; the streaming
+    path gathers each block when it computes it (the cross-round prefetch
+    assumes fixed ownership); and the end-of-run metrics rollup is left
+    out (membership may change under it).
+
+    The rejoin snapshot is the port's own, not the JAX package's: host
+    copies of the model, the server state, the engine's extra state (the
+    norm_clip weak-DP noise generator, drawn once a round on every rank)
+    and the carry codec's state, through torch.save (bf16 leaves ride as
+    they are).  It rides the same coordinator sockets as every carry."""
+
+    _contiguous = False
+
+    def __init__(self, engine, ctx: Optional[MultihostContext] = None,
+                 *, n_blocks: Optional[int] = None,
+                 channel: Optional[ElasticChannel] = None,
+                 timeout_s: float = 120.0,
+                 connect_timeout_s: float = 60.0,
+                 hb_interval_s: float = 0.25,
+                 hb_timeout_s: float = 2.0,
+                 run_tag: str = "run",
+                 carry_codec: str = "f32",
+                 carry_chunk: Optional[int] = None,
+                 overlap_exchange: bool = False,
+                 on_round_end: Optional[Callable[[int], None]] = None):
+        if channel is not None and not isinstance(channel, ElasticChannel):
+            raise ValueError(
+                f"ElasticRunner needs an ElasticChannel (got "
+                f"{type(channel).__name__}); use MultihostRunner for the "
+                f"fail-fast HostChannel")
+        super().__init__(engine, ctx, n_blocks=n_blocks, channel=channel,
+                         timeout_s=timeout_s, carry_codec=carry_codec,
+                         carry_chunk=carry_chunk,
+                         overlap_exchange=overlap_exchange,
+                         on_round_end=on_round_end)
+        self.connect_timeout_s = float(connect_timeout_s)
+        self.hb_interval_s = float(hb_interval_s)
+        self.hb_timeout_s = float(hb_timeout_s)
+        self.run_tag = str(run_tag)
+        if channel is not None and channel.n_items != self.n_blocks:
+            raise ValueError(
+                f"channel n_items ({channel.n_items}) != n_blocks "
+                f"({self.n_blocks}): the block space is the reduction "
+                f"tree and must agree")
+        self._block_stacks: dict[int, tuple] = {}
+        self._round_ctx: Optional[tuple] = None
+        self.computed: list[tuple] = []     # (round, block) in order
+        self.readopted: list[tuple] = []    # the re-adopted subset
+        self.readopt_walls: list[float] = []
+        self.rejoined_at: Optional[int] = None
+
+    @property
+    def channel(self) -> ElasticChannel:
+        if self._channel is None:
+            self._channel = ElasticChannel(
+                self.ctx, n_items=self.n_blocks,
+                config_digest=self.config_digest(),
+                timeout_s=self.timeout_s,
+                connect_timeout_s=self.connect_timeout_s,
+                hb_interval_s=self.hb_interval_s,
+                hb_timeout_s=self.hb_timeout_s,
+                rejoin=os.environ.get("FEDML_MH_REJOIN") == "1")
+        return self._channel
+
+    def config_digest(self) -> str:
+        return hashlib.md5(self._config_doc()).hexdigest()
+
+    # -- per-block partials (whoever owns them) ------------------------------
+    def _block_stack(self, b: int) -> tuple:
+        """Resident mode, one block's id range on the device (cached while
+        the block is owned here)."""
+        hit = self._block_stacks.get(b)
+        if hit is None:
+            rs = self.sampler.range_size
+            hit = self._block_stacks[b] = self._upload_id_range(
+                b * rs, (b + 1) * rs)
+        return hit
+
+    def _compute_partials(self, variables, round_idx: int,
+                          blocks) -> dict[int, np.ndarray]:
+        eng = self.engine
+        parts: dict[int, np.ndarray] = {}
+        for b in blocks:
+            b = int(b)
+            ids = self.sampler.sample_block(round_idx, b)
+            if eng.streaming:
+                cohort, weights = eng._stream_gather(ids)
+                parts[b] = eng._twolevel_partial(
+                    variables, cohort, weights, round_idx, self._lane0(b))
+            else:
+                stack, stack_w = self._block_stack(b)
+                parts[b] = eng._twolevel_partial_resident(
+                    variables, stack, stack_w,
+                    ids - b * self.sampler.range_size, round_idx,
+                    self._lane0(b))
+            self.computed.append((round_idx, b))
+        return parts
+
+    def _readopt_compute(self, blocks) -> dict[int, bytes]:
+        """The re-adoption callback the channel calls on a view change
+        (on the thread that called exchange): recompute the named blocks
+        against this round's frozen variables, encoded through the same
+        codec as owned blocks (an int8_ef residual of a freshly adopted
+        block starts at zero: the compression error's trajectory, never
+        the ranks' agreement)."""
+        if self._round_ctx is None:
+            raise RuntimeError("re-adoption requested outside a round")
+        variables, round_idx = self._round_ctx
+        blocks = [int(b) for b in blocks]
+        t0 = time.perf_counter()
+        with obs.span("multihost.readopt", round=round_idx,
+                      blocks=len(blocks)):
+            parts = self._compute_partials(variables, round_idx, blocks)
+        self.readopt_walls.append(time.perf_counter() - t0)
+        self.readopted.extend((round_idx, b) for b in blocks)
+        return {b: self.codec.encode(b, v) for b, v in parts.items()}
+
+    # -- the rejoin snapshot -------------------------------------------------
+    def _snapshot_blob(self, resume_round: int, variables,
+                       server_state) -> bytes:
+        """The rejoin catch-up snapshot: the committed model, the server
+        state, the engine's extra state and the codec's state, as host
+        copies through torch.save (byte-exact: the rejoiner re-enters the
+        bitwise contract).  The topk_ef reconstruction mirror is
+        replicated decode state and must ride; int8_ef residuals are
+        encoder-local, and the rejoiner's retain_blocks() drops the
+        coordinator's copies, so its residuals restart at zero."""
+        from fedml_tpu_torch.utils.checkpoint import _to_host
+        extra = getattr(self.engine, "_resume_state", lambda: None)()
+        buf = io.BytesIO()
+        torch.save({"round": int(resume_round),
+                    "variables": _to_host(variables),
+                    "server_state": _to_host(server_state),
+                    "engine": _to_host(extra),
+                    "carry": self.carry_state()}, buf)
+        return buf.getvalue()
+
+    def _install_snapshot(self, blob: bytes) -> tuple:
+        """(variables, server_state, resume round) from a snapshot, on
+        this engine's device, with the engine and codec state installed
+        before the first fold."""
+        from fedml_tpu_torch.utils.checkpoint import _like
+        eng = self.engine
+        snap = torch.load(io.BytesIO(blob), map_location="cpu",
+                          weights_only=False)
+        variables = {k: v.to(eng.device)
+                     for k, v in snap["variables"].items()}
+        server_state = _like(snap["server_state"],
+                             eng.server_init(variables))
+        if snap.get("engine"):
+            eng._load_resume_state(snap["engine"])
+        self.load_carry_state(snap.get("carry"))
+        return variables, server_state, int(snap["round"])
+
+    # -- the elastic loop ----------------------------------------------------
+    def run(self, variables: Optional[dict] = None,
+            rounds: Optional[int] = None, rejoin: Optional[bool] = None,
+            rejoin_state: Optional[tuple] = None) -> dict:
+        """Drive the elastic two-level loop.  `rejoin=True` (by default
+        from FEDML_MH_REJOIN, which the launcher's respawn sets) makes
+        this process re-enter a running cluster: the digest handshake,
+        the snapshot installed, the run resumed at the coordinator's
+        commit barrier.  `rejoin_state=(blob, resume_round)` injects a
+        handshake the caller already made (mh_worker makes its own, so
+        the snapshot's run tag can pick the run to resume)."""
+        eng = self.engine
+        cfg = eng.cfg
+        rank = self.ctx.rank
+        rounds = rounds if rounds is not None else cfg.comm_round
+        if rejoin is None:
+            rejoin = (os.environ.get("FEDML_MH_REJOIN") == "1"
+                      and rank != 0)
+        ch = self.channel
+        if rank == 0:
+            ch.wait_members()
+        if rejoin or rejoin_state is not None:
+            if rejoin_state is not None:
+                blob, _resume = rejoin_state
+            else:
+                blob, _resume, tag = ch.rejoin_handshake()
+                if tag and tag != self.run_tag:
+                    log.warning(
+                        "elastic rejoin: admitted into run %r but this "
+                        "runner drives %r; resuming anyway (the caller "
+                        "should route on the tag, see mh_worker)", tag,
+                        self.run_tag)
+            variables, server_state, start_round = \
+                self._install_snapshot(blob)
+            self.rejoined_at = start_round
+        else:
+            if variables is None:
+                variables = eng.init_variables()
+            server_state = eng.server_init(variables)
+            start_round = 0
+        try:
+            for round_idx in range(start_round, rounds):
+                t_round = time.perf_counter()
+                self._round_ctx = (variables, round_idx)
+                with obs.span("round.twolevel", round=round_idx, rank=rank,
+                              epoch=ch.view.epoch, elastic=True):
+                    mine = ch.view.assigned(rank)
+                    # drop the resident stacks of blocks the view moved
+                    # away, or repeated death and rejoin leave every rank
+                    # holding every block
+                    for b in list(self._block_stacks):
+                        if b not in mine:
+                            del self._block_stacks[b]
+                    # error-feedback residuals follow ownership too
+                    self.codec.retain_blocks(mine)
+                    ch.mark_round()
+                    self._round_raw = self._round_payload = 0
+                    w0 = time.perf_counter()
+                    if self.overlap_exchange and self.ctx.world > 1:
+                        hnd = ch.contrib_begin(round_idx)
+                        for b in mine:
+                            part = self._compute_partials(
+                                variables, round_idx, [b])
+                            ch.contrib_push(hnd, b,
+                                            self._encode_block(b, part[b]))
+                        with obs.span("multihost.overlap_wait",
+                                      round=round_idx):
+                            t0 = time.perf_counter()
+                            all_parts, _view = ch.exchange(
+                                round_idx, {}, self._readopt_compute,
+                                pending=hnd)
+                            wait = time.perf_counter() - t0
+                        self.overlap_waits.append(wait)
+                        self.exchange_walls.append(time.perf_counter() - w0)
+                    else:
+                        parts = self._compute_partials(variables, round_idx,
+                                                       mine)
+                        enc = {b: self._encode_block(b, v)
+                               for b, v in parts.items()}
+                        with obs.span("multihost.allreduce",
+                                      round=round_idx):
+                            t0 = time.perf_counter()
+                            all_parts, _view = ch.exchange(
+                                round_idx, enc, self._readopt_compute)
+                            wait = time.perf_counter() - t0
+                        self.overlap_waits.append(wait)
+                        self.exchange_walls.append(wait)
+                    self._finish_round_bytes()
+                    total = self._decode_fold(all_parts)
+                    variables, server_state, m = eng._twolevel_commit(
+                        variables, server_state, total)
+                if eng.device.type == "cuda":
+                    torch.cuda.synchronize(eng.device)
+                obs.counter("multihost_rounds_committed_total",
+                            rank=str(rank)).inc()
+                self._round_ctx = None
+                self.round_walls.append(time.perf_counter() - t_round)
+                ch.export_byte_counters()
+                if rank == 0:
+                    # the commit barrier is the admission point: the
+                    # snapshot ships the bits just committed
+                    ch.admit_rejoins(
+                        round_idx + 1,
+                        lambda: self._snapshot_blob(
+                            round_idx + 1, variables, server_state),
+                        tag=self.run_tag)
+                if rank == 0 and (round_idx % cfg.frequency_of_the_test == 0
+                                  or round_idx == rounds - 1):
+                    with obs.span("eval", round=round_idx):
+                        stats = eng.evaluate(variables)
+                    stats.update(round=round_idx,
+                                 train_loss=float(m["train_loss"]),
+                                 round_time=self.round_walls[-1])
+                    eng.metrics_history.append(stats)
+                    log.info("round %d: %s", round_idx, stats)
+                if self.on_round_end is not None:
+                    self.on_round_end(round_idx)
+        except Exception as e:
+            obs.dump_flight(f"multihost_elastic_error:rank{rank}: {e!r}")
+            raise
+        finally:
+            self._round_ctx = None
+        return variables
+
+    def report(self, warmup_rounds: int = 0) -> dict:
+        rep = super().report(warmup_rounds)
+        ch = self._channel
+        events = list(ch.view_events) if ch is not None else []
+        lat = [e["latency_s"] for e in events if e.get("latency_s")]
+        rep.update({
+            "elastic": True,
+            "epoch": ch.view.epoch if ch is not None else 0,
+            "members": list(ch.view.members) if ch is not None else [],
+            "view_changes": len(events),
+            "view_change_latency_s": float(np.mean(lat)) if lat else 0.0,
+            "view_events": events,
+            "rejoined_at_round": self.rejoined_at,
+            "computed": [list(x) for x in self.computed],
+            "readopted": [list(x) for x in self.readopted],
+            "readopt_s": list(self.readopt_walls),
+            "resident_blocks": sorted(self._block_stacks),
+        })
+        return rep
 
 
 def variables_digest(variables: dict) -> str:

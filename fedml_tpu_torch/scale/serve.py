@@ -1,5 +1,5 @@
 """Virtual-time serve simulation: the million-client serving spine (port of
-fedml_tpu/scale/serve.py, its one-process part).
+fedml_tpu/scale/serve.py).
 
 What it measures: the server's cross-device round hot path at production
 populations — cohort sampling over the sharded registry, per-uplink
@@ -30,9 +30,18 @@ Determinism: sampler draws, the row pool, dropout and arrival times are
 all ``default_rng([seed, ...])`` streams, so the trace (dispatches,
 returns, staleness, crashes and rejoins, registry counters) is bitwise
 the JAX package's on any device; only the committed row is floating
-point.  Host-sharded serving (``partition`` with a world above 1,
-``channel``, ``elastic``, ``crash_at_commit``) needs the multi-process
-host channel and is a later slice of the port.
+point.
+
+Host-sharded serving: ``partition=(rank, world)`` makes this process own
+only its client-id range, one lane keyed on its range's index (the item);
+each commit packs the lane partials, exchanges them over a HostChannel
+(one payload a rank) or an ElasticChannel (n_items = world, one payload a
+range), and every rank folds them in item order on the host and applies
+the same commit.  Elastic: a range whose host died folds zero in the
+window of the death (the same bytes on every survivor), and at the next
+commit barrier the view's new owner re-adopts it as a fresh lane
+(``make_lane(item, start_version)``, the dead rank's item and streams
+from their start); lanes the view moves away retire.
 """
 from __future__ import annotations
 
@@ -49,11 +58,6 @@ from fedml_tpu_torch.scale.arrivals import (ArrivalConfig, ArrivalProcess,
 from fedml_tpu_torch.scale.registry import ClientRegistry
 from fedml_tpu_torch.scale.sampler import StreamingCohortSampler
 from fedml_tpu_torch.utils.device import resolve_device
-
-_MULTIHOST_LATER = ("host-sharded serving (partition with world > 1, "
-                    "channel=, elastic=, crash_at_commit=) needs the "
-                    "elastic channel and scale/cluster.py, slice 6b of "
-                    "the port")
 
 
 def pack_partial(acc, wsum) -> bytes:
@@ -111,9 +115,12 @@ class _ServeLane:
     boundary.  The one-process path is one lane over the whole population
     (`item` 0), with the JAX package's world-1 streams, in its per-arrival
     op order (dispatch, arrival, pop, crash or fold, commit-yield,
-    rejoins, refill).  `trace` hashes every event of that order."""
+    rejoins, refill).  `trace` hashes every event of that order.  With a
+    world above 1 each lane's streams are keyed on its item too, so a
+    range re-adopted on another rank replays the dead rank's streams."""
 
-    def __init__(self, item: int, lo: int, hi: int, *, seed: int,
+    def __init__(self, item: int, lo: int, hi: int, *, world: int = 1,
+                 seed: int,
                  buffer_k: int, concurrency: int, row_dim: int,
                  sampler_mode: str, arrival: ArrivalConfig,
                  dropout_prob: float, banned_frac: float, device,
@@ -126,7 +133,10 @@ class _ServeLane:
         self.concurrency = int(concurrency)
         self.dropout_prob = float(dropout_prob)
         self.registry = ClientRegistry(self.local_population)
-        self.rng = np.random.default_rng([seed, 2])
+        # per-range streams when sharded; the world-1 streams are the
+        # unsharded ones
+        self.rng = np.random.default_rng(
+            [seed, 2] if world == 1 else [seed, 2, item])
         if banned_frac > 0.0:
             n_ban = max(1, int(banned_frac * self.local_population))
             self.registry.ban(np.unique(self.rng.integers(
@@ -139,10 +149,13 @@ class _ServeLane:
         # lives on the device: each arrival folds one of its rows
         self.pool = torch.from_numpy(self.rng.standard_normal(
             (64, row_dim)).astype(np.float32)).to(device)
-        self.drop_rng = np.random.default_rng([seed, 3])
+        self.drop_rng = np.random.default_rng(
+            [seed, 3] if world == 1 else [seed, 3, item])
         proc: Optional[ArrivalProcess] = make_arrivals(arrival)
         self.arr_iter = (proc.arrivals(0.0, np.random.default_rng(
-            [arrival.seed, seed, 1])) if proc is not None else None)
+            [arrival.seed, seed, 1] if world == 1
+            else [arrival.seed, seed, 1, item]))
+            if proc is not None else None)
         self.cap = 2 * self.concurrency + self.buffer_k
         self.ring = np.zeros(self.cap, np.int64)
         self.head = self.tail = 0
@@ -236,7 +249,15 @@ def run_serve_sim(population: int, *, commits: int = 30,
     on `device` (the card unless named); returns the serve report
     (committed updates/sec, registry memory, RSS, virtual-time stats, the
     trace digest).  `keep_variables` adds the committed model
-    (``report["variables"]``, tensors on the device)."""
+    (``report["variables"]``, tensors on the device).
+
+    `partition=(rank, world)` with a world above 1 serves only this
+    rank's id range and folds the ranks' partials over `channel` (a
+    HostChannel; with `elastic` an ElasticChannel of n_items = world):
+    every rank performs exactly `commits` commits, and the report's
+    `committed_digest` agrees across ranks.  `crash_at_commit` is the
+    fault hook: this rank closes its channel after that many commits and
+    returns a partial report."""
     from fedml_tpu_torch.async_.staleness import make_stream_commit_fn
 
     if commits <= warmup_commits:
@@ -245,19 +266,57 @@ def run_serve_sim(population: int, *, commits: int = 30,
     rank, world = int(partition[0]), int(partition[1])
     if not 0 <= rank < world:
         raise ValueError(f"partition rank {rank} outside world {world}")
-    if world > 1 or channel is not None or elastic \
-            or crash_at_commit is not None:
-        raise NotImplementedError(_MULTIHOST_LATER)
+    if world > 1 and channel is None:
+        raise ValueError("world > 1 needs a HostChannel to fold the "
+                         "partial aggregates upward")
+    if elastic and world > 1 and not hasattr(channel, "exchange"):
+        raise ValueError("elastic=True needs an ElasticChannel "
+                         "(n_items=world); HostChannel is the "
+                         "fail-fast transport")
     device = resolve_device(device)
     concurrency = (concurrency if concurrency is not None
                    else 4 * buffer_k)
     arrival = arrival if arrival is not None else ArrivalConfig(
         mode="constant", rate=1000.0, seed=seed)
-    lane = _ServeLane(0, 0, population, seed=seed, buffer_k=buffer_k,
-                      concurrency=concurrency, row_dim=row_dim,
-                      sampler_mode=sampler_mode, arrival=arrival,
-                      dropout_prob=dropout_prob, banned_frac=banned_frac,
-                      device=device)
+
+    def make_lane(item: int, start_version: int = 0) -> _ServeLane:
+        return _ServeLane(
+            item, item * population // world,
+            (item + 1) * population // world, world=world, seed=seed,
+            buffer_k=buffer_k, concurrency=concurrency, row_dim=row_dim,
+            sampler_mode=sampler_mode, arrival=arrival,
+            dropout_prob=dropout_prob, banned_frac=banned_frac,
+            device=device, start_version=start_version)
+
+    primary = make_lane(rank)
+    lanes: dict[int, _ServeLane] = {rank: primary}
+    gens: dict[int, object] = {}
+    retired: list[_ServeLane] = []      # lanes the view moved elsewhere
+    adopted_items: list[int] = []
+    zero_payload = zero_partial(row_dim)
+
+    def all_lanes() -> list:
+        return list(lanes.values()) + retired
+
+    def registry_lanes() -> list:
+        """At most one lane per item for the registry's state (the live
+        lane wins over a retired one): re-adopting a range this rank had
+        retired must not count its registry twice.  Work counters still
+        sum over all_lanes(): a retired lane's updates were folded."""
+        by_item = {ln.item: ln for ln in retired}
+        by_item.update(lanes)
+        return list(by_item.values())
+
+    def lanes_admitted() -> int:
+        return sum(ln.admitted for ln in all_lanes())
+
+    def clock_lane() -> _ServeLane:
+        """The lane whose virtual clock is this rank's now: the primary
+        while hosted, else a hosted lane (a view change can retire the
+        rank's own range; a retired lane's clock stops)."""
+        if rank in lanes:
+            return lanes[rank]
+        return next(iter(lanes.values())) if lanes else primary
 
     # the commit math: a one-leaf flat "model" through the real streaming
     # buffer and the O(P) commit
@@ -269,43 +328,91 @@ def run_serve_sim(population: int, *, commits: int = 30,
     t_wall0 = time.perf_counter()
     t_timed = None
     admitted_at_warmup = 0
+    crashed_out = False
     with obs.span("serve.run", population=population, commits=commits,
                   sampler=sampler_mode, arrival=arrival.mode,
                   elastic=elastic):
-        gen = lane.gen()
+        gens[rank] = primary.gen()
         while version < commits:
-            acc, wsum, n_committed = next(gen)
+            if crash_at_commit is not None and version == crash_at_commit:
+                # fault injection: this rank vanishes mid-run; the
+                # survivors' next exchange evicts it
+                if channel is not None:
+                    channel.close()
+                crashed_out = True
+                break
+            partials = {item: next(gens[item]) for item in sorted(gens)}
+            n_committed = sum(p[2] for p in partials.values())
             with obs.span("serve.commit", version=version,
-                          t_virtual=round(lane.now, 3), rank=rank):
+                          t_virtual=round(clock_lane().now, 3), rank=rank):
+                if world > 1 and elastic:
+                    payloads = {item: pack_partial(acc, wsum)
+                                for item, (acc, wsum, _n)
+                                in partials.items()}
+                    # a range re-assigned here but not hosted yet folds
+                    # zero this window (the same bytes on every
+                    # survivor); its lane starts at the barrier below
+                    allp, view = channel.exchange(
+                        version, payloads,
+                        lambda items: {i: zero_payload for i in items})
+                    acc, wsum = fold_partials(
+                        (allp[item] for item in range(world)), row_dim,
+                        device)
+                elif world > 1:
+                    # one (wsum, acc) payload a rank, summed in rank order
+                    acc, wsum, _n = partials[rank]
+                    acc, wsum = fold_partials(
+                        channel.allgather(pack_partial(acc, wsum)),
+                        row_dim, device)
+                else:
+                    acc, wsum, _n = partials[rank]
                 variables, _stats = commit_fn(variables, acc, wsum, alpha)
             obs.counter("async_updates_committed_total").inc(n_committed)
             version += 1
+            if world > 1 and elastic:
+                # the commit barrier puts the lanes on the view: one host
+                # a range (two would race different partials for one
+                # item); drop lanes moved away, adopt lanes moved here
+                for item in list(gens):
+                    if view.owner_of(item) != rank:
+                        gens.pop(item).close()
+                        retired.append(lanes.pop(item))
+                for item in view.assigned(rank):
+                    if item not in lanes:
+                        lanes[item] = make_lane(item, start_version=version)
+                        gens[item] = lanes[item].gen()
+                        adopted_items.append(item)
+                        obs.instant("serve.readopt", item=item, rank=rank,
+                                    version=version)
             if version == warmup_commits:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 t_timed = time.perf_counter()
-                admitted_at_warmup = lane.admitted
+                admitted_at_warmup = lanes_admitted()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     wall = time.perf_counter() - (t_timed if t_timed is not None
                                   else t_wall0)
-    timed_updates = lane.admitted - (admitted_at_warmup
-                                     if t_timed is not None else 0)
+    timed_updates = lanes_admitted() - (admitted_at_warmup
+                                        if t_timed is not None else 0)
     # contributor spread, from the allocated shards only (O(touched))
     distinct = max_part = 0
-    for sh in lane.registry._shards.values():
-        part = sh["participation"]
-        distinct += int(np.count_nonzero(part))
-        max_part = max(max_part, int(part.max()) if part.size else 0)
+    for ln in registry_lanes():
+        for sh in ln.registry._shards.values():
+            part = sh["participation"]
+            distinct += int(np.count_nonzero(part))
+            max_part = max(max_part, int(part.max()) if part.size else 0)
+    clk = clock_lane()
     report = {
         "population": int(population),
-        "local_population": int(lane.local_population),
+        "local_population": int(primary.local_population),
         "partition": [rank, world],
         "committed_digest": variables_digest(variables),
-        "trace_digest": lane.trace.hexdigest(),
-        "carry_allreduce_bytes": 0,
+        "trace_digest": primary.trace.hexdigest(),
+        "carry_allreduce_bytes": int(getattr(channel, "bytes_received", 0)
+                                     if channel is not None else 0),
         "commits": int(version),
-        "committed_updates": int(lane.admitted),
+        "committed_updates": int(lanes_admitted()),
         "distinct_contributors": distinct,
         "max_client_participation": max_part,
         "committed_updates_per_sec": (timed_updates / wall
@@ -314,21 +421,38 @@ def run_serve_sim(population: int, *, commits: int = 30,
         "concurrency": int(concurrency),
         "row_dim": int(row_dim),
         "sampler_mode": sampler_mode,
-        "sampler_peak_scratch_bytes": int(lane.sampler.peak_scratch_bytes),
+        "sampler_peak_scratch_bytes": int(
+            max(ln.sampler.peak_scratch_bytes for ln in all_lanes())),
         "arrival_mode": arrival.mode,
-        "virtual_time_s": float(lane.now),
-        "mean_arrival_rate": ((lane.admitted + lane.crashed) / lane.now
-                              if lane.now > 0 else 0.0),
-        "registry_bytes": int(lane.registry.nbytes),
-        "registry_bytes_per_client": float(lane.registry.bytes_per_client),
-        "registry_shards_allocated": len(lane.registry._shards),
-        "crashed": int(lane.crashed),
-        "banned": int(lane.registry.count_banned),
+        "virtual_time_s": float(clk.now),
+        "mean_arrival_rate": ((clk.admitted + clk.crashed) / clk.now
+                              if clk.now > 0 else 0.0),
+        "registry_bytes": int(sum(ln.registry.nbytes
+                                  for ln in registry_lanes())),
+        "registry_bytes_per_client": float(
+            primary.registry.bytes_per_client),
+        "registry_shards_allocated": sum(len(ln.registry._shards)
+                                         for ln in registry_lanes()),
+        "crashed": int(sum(ln.crashed for ln in all_lanes())),
+        "banned": int(sum(ln.registry.count_banned
+                          for ln in registry_lanes())),
         "rss_bytes": rss_bytes(),
         "wall_s": float(wall),
         "seed": int(seed),
         "device": str(device),
     }
+    if elastic:
+        report["elastic"] = {
+            "lanes": sorted(lanes),
+            "adopted_items": adopted_items,
+            "retired_items": [ln.item for ln in retired],
+            "lane_traces": {str(ln.item): ln.trace.hexdigest()
+                            for ln in all_lanes()},
+            "crashed_at_commit": (crash_at_commit if crashed_out
+                                  else None),
+            "epoch": getattr(getattr(channel, "view", None), "epoch", 0),
+            "view_changes": len(getattr(channel, "view_events", ())),
+        }
     if keep_variables:
         report["variables"] = variables
     return report

@@ -323,7 +323,8 @@ def test_spawn_cluster_blames_the_first_failure_and_names_every_rank():
          "os.environ['FEDML_MH_WORLD'])"], 2, timeout_s=25)
     assert outs == ["r02\n", "r12\n"]
     assert rep["first_failed"] is None
-    assert rep["ranks"][1] == {"rc": 0, "outcome": "ok"}
+    assert rep["ranks"][1] == {"rc": 0, "outcome": "ok", "respawned": False,
+                               "incarnations": 1, "all_rcs": [0]}
 
 
 def test_spawn_cluster_deadline_and_refusals():
@@ -333,8 +334,12 @@ def test_spawn_cluster_deadline_and_refusals():
                            "import time; time.sleep(30)"], 1, timeout_s=1)
     with pytest.raises(ValueError, match="elastic"):
         tmh.spawn_cluster([sys.executable, "-c", "pass"], 1, respawn=True)
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        tmh.spawn_cluster([sys.executable, "-c", "pass"], 1, elastic=True)
+    # the elastic policy: a dead worker does not fail the launch
+    outs = tmh.spawn_cluster(
+        [sys.executable, "-c", "import os, sys; print('ok'); "
+         "sys.exit(3 if os.environ['FEDML_MH_RANK'] == '1' else 0)"], 2,
+        timeout_s=25, elastic=True)
+    assert outs == ["ok\n", "ok\n"]
     with pytest.raises(ValueError, match="procs must be >= 1"):
         tmh.spawn_cluster(["true"], 0)
     assert tmh._rank_outcome(-9) == jmh._rank_outcome(-9) == \
@@ -346,10 +351,14 @@ def test_spawn_cluster_deadline_and_refusals():
     (["--procs", "0", "--", "true"], "--procs must be >= 1"),
     (["--procs", "2"], "missing worker command"),
     (["--procs", "2", "--respawn", "--", "true"], "--respawn needs"),
-    (["--procs", "2", "--elastic", "--", "true"], "slice 6b"),
+    (["--procs", "2", "--elastic", "--", "true"], None),
     (["--procs", "2", "--timeout", "0", "--", "true"], "--timeout"),
 ])
 def test_launcher_validates_args(argv, err, capsys):
+    if err is None:                      # a valid command line
+        args = tlaunch.parse_args(argv)
+        assert args.elastic and args.cmd == ["true"]
+        return
     with pytest.raises(SystemExit) as ei:
         tlaunch.parse_args(argv)
     assert ei.value.code == 2
@@ -395,10 +404,15 @@ def test_mh_worker_two_ranks_bitwise_one_rank(tmp_path):
 def test_mh_worker_refuses_later_slices():
     from fedml_tpu_torch.parallel import mh_worker
     base = {**mh_worker.DEFAULTS}
-    for key, sl in (("elastic", "6b"), ("hang_rank", "6b"),
-                    ("serve_cluster", "6b"), ("jax_distributed", "6c"),
-                    ("local_devices", "6c")):
-        with pytest.raises(NotImplementedError, match=f"slice {sl}"):
+    # the elastic keys and the serving cluster are ported; a hang needs
+    # the elastic channel's heartbeats
+    for key, val in (("elastic", True), ("serve_cluster", {"commits": 3})):
+        mh_worker.check_config({**base, key: val})
+    mh_worker.check_config({**base, "elastic": True, "hang_rank": 2})
+    with pytest.raises(ValueError, match="elastic"):
+        mh_worker.check_config({**base, "hang_rank": 2})
+    for key in ("jax_distributed", "local_devices"):
+        with pytest.raises(NotImplementedError, match="slice 6c"):
             mh_worker.check_config({**base, key: 2})
     with pytest.raises(ValueError, match="residency mode"):
         mh_worker.check_config({**base, "modes": ["mesh"]})

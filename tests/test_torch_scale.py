@@ -249,12 +249,14 @@ def test_partials_pack_and_fold_in_item_order():
 
 
 def test_multi_process_serving_and_mesh_refuse_by_name():
-    with pytest.raises(NotImplementedError, match="slice 6b"):
+    # host-sharded serving is ported: a world above 1 needs its channel,
+    # named; the elastic report block rides a one-process run too
+    with pytest.raises(ValueError, match="HostChannel"):
         run_serve_sim(100, commits=3, buffer_k=4, partition=(0, 2),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        run_serve_sim(100, commits=3, buffer_k=4, elastic=True,
-                      device="cpu")
+    rep = run_serve_sim(100, commits=3, buffer_k=4, elastic=True,
+                        device="cpu")
+    assert rep["elastic"]["lanes"] == [0] and rep["elastic"]["epoch"] == 0
     with pytest.raises(ValueError, match="warmup_commits"):
         run_serve_sim(100, commits=2, warmup_commits=2, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 6c"):
