@@ -194,16 +194,30 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    at 2 ranks fed live frames from here, and the socket-fed lane at world
    1 against the synthetic serve simulation, one wsum launch an admitted
    row;
-22. one JSON line of the zoo's, C.1's, the data path's and slices 7a-i's,
-   7a-ii's, 5b-i's, 5b-ii's, 4a's, 4b's, 6a's and 6b's numbers, one
-   listing every TPU kernel of the JAX package with its port's numbers and
-   its launches on every path, then the last line {"ok": true, "device":
-   {...}}.
+22. slice 6c-i, the client-axis mesh across ranks, in real processes
+   sharing this card through ``python -m fedml_tpu_torch.parallel.launch
+   --jax-distributed -- python -m fedml_tpu_torch.parallel.mesh_worker``
+   (each rank joins torch.distributed's gloo group; the floats cross
+   ranks through the host and fold in rank order): 22a at 2 ranks, the
+   main path through MeshFedAvgEngine(mesh=make_mesh(2)) (2 rounds,
+   streaming) and norm_clip with weak-DP noise (2 rounds), whose digests
+   are phase 20's 1-rank two-block digests, and one median round bitwise
+   this process's one-card round; a mesh of one
+   rank bitwise the one-card engine here; 22b at 8 clients of 4 batches:
+   MeshHierarchicalEngine on 2 x 2 (4 ranks, one digest) within f32
+   tolerance of the flat mesh round of 4, and MeshGossipEngine's ring of
+   2 bitwise the ring of one; launches exact per rank, s/round, the
+   gathers' walls and bytes and peak device memory per rank;
+23. one JSON line of the zoo's, C.1's, the data path's and slices 7a-i's,
+   7a-ii's, 5b-i's, 5b-ii's, 4a's, 4b's, 6a's, 6b's and 6c-i's numbers,
+   one listing every TPU kernel of the JAX package with its port's
+   numbers and its launches on every path, then the last line {"ok":
+   true, "device": {...}}.
 
 It needs one card; it imports nothing of JAX or of fedml_tpu.
-``python3 chip_smoke.py --phase 19`` (or ``--phase 20`` or ``--phase
-21``) builds the kernels and runs that phase alone (a quicker check of
-that slice; it prints no kernel line).
+``python3 chip_smoke.py --phase 19`` (or ``--phase 20``, ``--phase 21``
+or ``--phase 22``) builds the kernels and runs that phase alone (a
+quicker check of that slice; it prints no kernel line).
 """
 from __future__ import annotations
 
@@ -224,6 +238,7 @@ import time
 import zlib
 from pathlib import Path
 from types import SimpleNamespace
+from typing import Optional
 
 import numpy as np
 import torch
@@ -305,6 +320,8 @@ from fedml_tpu_torch.parallel.engine import (MeshFedAvgEngine,
                                              MeshFedProxEngine,
                                              MeshRobustEngine,
                                              chunked_weighted_train)
+from fedml_tpu_torch.parallel.gossip import MeshGossipEngine
+from fedml_tpu_torch.parallel.mesh import make_mesh
 from fedml_tpu_torch.parallel.multihost import (DeadRankError,
                                                 ElasticChannel,
                                                 ElasticRunner, HostChannel,
@@ -327,6 +344,7 @@ P_PADDED = N_PARAMS + (-N_PARAMS) % 512
 BATCH, SAMPLES, BATCHES = 32, 390, 13
 MAIN_CLIENTS, MAIN_CHUNK, MAIN_ROUNDS = 8, 2, 3
 R56_ROUNDS = 2                 # phase 11 (cut from 3 to hold the script's time)
+R56_PROFILED = 1               # phase 11's profiled clients (cut from 2 likewise)
 SIDE_CLIENTS = 4               # phases 7 and 9
 BN_RANGE = "fedml_batch_norm"  # the profiled BatchNorm forwards' range
 # the TPU kernel each port kernel replaces: (the pl.pallas_call that
@@ -1200,8 +1218,7 @@ def phase_robust_main_path() -> dict:
     float(fedavg.round_fn_streaming(variables, (), cohort, weights)[2]
           ["train_loss"])                       # its first-call cost
     turns = {"fedavg": [], "norm_clip": []}
-    for order in (("fedavg", "norm_clip"), ("norm_clip", "fedavg"),
-                  ("fedavg", "norm_clip")):
+    for order in (("fedavg", "norm_clip"), ("norm_clip", "fedavg")):
         for name in order:
             eng = fedavg if name == "fedavg" else engine
             t0 = time.perf_counter()
@@ -1486,7 +1503,7 @@ def phase_resnet56_path(gen: torch.Generator) -> dict:
     against its plain version at [2, 860,160]; a round whose global
     statistics must equal the plain weighted mean of the clients' trained
     statistics rows (within 1e-6 of sum_k |w_k v_k| / sum(w), computed in
-    f64 on the host); and a profiled round of one chunk's 2 clients."""
+    f64 on the host); and a profiled round of R56_PROFILED client(s)."""
     torch.backends.cudnn.allow_tf32 = True
     data = synthetic_data(MAIN_CLIENTS, SAMPLES, seed=5)
     cfg = FedConfig(model="resnet56", dataset="cifar10",
@@ -1570,11 +1587,11 @@ def phase_resnet56_path(gen: torch.Generator) -> dict:
     print(f"[resnet56 path] global statistics segment ({n - n_p} values) = the "
           f"plain weighted mean of the {len(V)} clients' statistics rows: max "
           f"abs err {err:.3e} (limit 1e-6 of sum|w v| / sum w)")
-    # the profile reads a round of one chunk's clients: a whole round's
+    # the profile reads a round of R56_PROFILED client(s): a whole round's
     # trace (~300,000 events) takes minutes to read
-    sub = {k: v[:MAIN_CHUNK] for k, v in cohort.items()}
+    sub = {k: v[:R56_PROFILED] for k, v in cohort.items()}
     sub_round = lambda: engine.round_fn_streaming(variables, (), sub,
-                                                  weights[:MAIN_CHUNK])
+                                                  weights[:R56_PROFILED])
     sub_round()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1582,11 +1599,11 @@ def phase_resnet56_path(gen: torch.Generator) -> dict:
     torch.cuda.synchronize()
     sub_s = time.perf_counter() - t0
     prof = profile_round(sub_round, sub_s,
-                         tag=f"resnet56 path, {MAIN_CHUNK} clients")
+                         tag=f"resnet56 path, {R56_PROFILED} client(s)")
     return dict(s_per_round=round_s, steady_s=steady, losses=losses,
                 eval=stats, launches=counts, fold=fold_rec,
                 stats_fold_max_abs_err=err, profile=prof,
-                profiled_round_s=sub_s, profiled_clients=MAIN_CHUNK,
+                profiled_round_s=sub_s, profiled_clients=R56_PROFILED,
                 bn_layer=bn_layer_ms())
 
 
@@ -1937,8 +1954,7 @@ def phase_data_path() -> dict:
     float(f32_engine.round_fn_streaming(variables, (), *f32_cohort)[2]
           ["train_loss"])                       # its first-call cost
     turns = {"f32": [], "uint8+augment": []}
-    for order in (("f32", "uint8+augment"), ("uint8+augment", "f32"),
-                  ("f32", "uint8+augment")):
+    for order in (("f32", "uint8+augment"), ("uint8+augment", "f32")):
         for name in order:
             eng, args = ((f32_engine, f32_cohort) if name == "f32"
                          else (engine, (cohort, weights)))
@@ -2447,11 +2463,11 @@ NAS_MICRO_STEP_GN = {"first_order": (2 * 37, 37 + 6),
                      "unrolled": (3 * 37, 3 * 37 + 6),
                      "gdas": (2 * 37, 37 + 6)}
 NAS_GN_FORWARD = 705
-# (mode, rounds, clients a round): one round of each mode, the second-order
-# round on 1 of the 4 clients, to keep the script's time (its steps cost
-# ~5x a first-order one)
-NAS_PATH_ROUNDS = (("first_order", 1, NAS_CLIENTS), ("unrolled", 1, 1),
-                   ("gdas", 1, NAS_CLIENTS))
+# (mode, rounds, clients a round): one round of each mode on 2 of the 4
+# clients, the second-order round on 1 (its steps cost ~5x a first-order
+# one), to keep the script's time
+NAS_PATH_ROUNDS = (("first_order", 1, 2), ("unrolled", 1, 1),
+                   ("gdas", 1, 2))
 
 
 def nas_engine(data: FederatedData, mode: str, device=None, lr: float = 0.1,
@@ -2700,9 +2716,9 @@ def phase_fednas_path() -> dict:
     CIFAR-10-shaped clients of NAS_BATCHES batches of 32 (the interleaved
     split: 2 train and 2 validation batches each), the published
     optimizers (w: clip 5, wd 3e-4, SGD lr 0.025 momentum 0.9; alphas:
-    Adam 3e-4, b1 0.5, wd 1e-3): NAS_PATH_ROUNDS (1 first-order round, 1
-    exact second-order round on 1 of the clients, 1 GDAS round), each with an
-    evaluation; the derived genotype; then make_train_engine(genotype, C
+    Adam 3e-4, b1 0.5, wd 1e-3): NAS_PATH_ROUNDS (1 first-order round on 2
+    of the clients, 1 exact second-order round on 1, 1 GDAS round on 2),
+    each with an evaluation; the derived genotype; then make_train_engine(genotype, C
     36, 20 layers) on the same clients, one FedAvg round and an
     evaluation.  TF32 is off (the caller's f32_off).  Exact launch counts
     over the whole path; s/round by mode; every (shape, groups) its
@@ -5796,6 +5812,277 @@ def phase_slice6b() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 22: slice 6c-i, the client-axis mesh across ranks
+# ---------------------------------------------------------------------------
+
+MESH_ROUNDS = MH_ROUNDS        # 22a FedAvg and norm_clip rounds: phase 20's
+MESH_SMALL_BATCHES = 4         # 22b and gossip: batches a client (cut depth)
+MESH_TIMEOUT_S = 420.0
+MESH_TOL = dict(rtol=5e-4, atol=5e-5)   # tests/test_parallel.py:93-95
+
+
+def mesh_case(tmp: Path, name: str, data_paths: dict, arms: list) -> Path:
+    """A mesh worker case on phase 5's recipe (ResNet-18-GN at full width,
+    bf16 compute, cuDNN deterministic); `data_paths` maps a depth to its
+    pickled data."""
+    _, _, cfg = main_recipe()
+    case = dict(data=data_paths["main"], out=str(tmp), deterministic=True,
+                timeout_s=MESH_TIMEOUT_S,
+                model={"name": "resnet18_gn", "output_dim": 10},
+                trainer={"lr": cfg.lr, "train_dtype": "bfloat16"},
+                cfg={k: getattr(cfg, k) for k in (
+                    "model", "dataset", "client_num_in_total",
+                    "client_num_per_round", "epochs", "batch_size", "lr",
+                    "frequency_of_the_test")},
+                arms=[{**{k: v for k, v in a.items() if k != "depth"},
+                       "data": data_paths[a.get("depth", "main")]}
+                      for a in arms])
+    path = tmp / f"{name}.json"
+    path.write_text(json.dumps(case))
+    return path
+
+
+def mesh_launch(path: Path, procs: int) -> dict:
+    """One phase-22 cluster through ``python -m
+    fedml_tpu_torch.parallel.launch --jax-distributed``: each rank's JSON
+    line, by rank.  Any rank's failure fails the phase."""
+    root = str(Path(__file__).resolve().parent)
+    argv = [sys.executable, "-m", "fedml_tpu_torch.parallel.launch",
+            "--procs", str(procs), "--timeout", str(MESH_TIMEOUT_S),
+            "--jax-distributed", "--", sys.executable, "-m",
+            "fedml_tpu_torch.parallel.mesh_worker", str(path)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, cwd=root,
+                          timeout=MESH_TIMEOUT_S + 60,
+                          env={**os.environ, "PYTHONPATH": root + os.pathsep
+                               + os.environ.get("PYTHONPATH", "")})
+    docs = {}
+    for line in proc.stdout.splitlines():
+        m = re.match(r"\[rank (\d+)\] (\{.*\})$", line)
+        if m:
+            docs[int(m.group(1))] = json.loads(m.group(2))
+    if proc.returncode != 0 or sorted(docs) != list(range(procs)):
+        raise AssertionError(f"22: the {procs}-rank mesh cluster failed: rc "
+                             f"{proc.returncode}\n{proc.stderr[-4000:]}")
+    return dict(docs=docs, wall_s=time.perf_counter() - t0)
+
+
+def mesh_expected(lanes: int, batches: int, rounds: int, evals: int,
+                  chunk_kernel: Optional[str]) -> dict:
+    """One rank's launches: `lanes` clients of `batches` steps a round,
+    `evals` evaluations (2 batches each), and the chunk fold's kernel (one
+    launch a chunk of 2; norm_clip's two)."""
+    steps = rounds * lanes * batches
+    folds = rounds * lanes // MAIN_CHUNK
+    out = {"gn_forward": 20 * (steps + 2 * evals), "gn_backward": 20 * steps,
+           "wsum": 0, "sqnorm": 0, "clip_agg": 0}
+    if chunk_kernel == "norm_clip":
+        out.update(sqnorm=folds, clip_agg=folds)
+    elif chunk_kernel == "wsum":
+        out["wsum"] = folds
+    return out
+
+
+def mesh_one_card(data_paths: dict) -> dict:
+    """The parent's references on this card (cuDNN deterministic): phase
+    5's MeshFedAvgEngine round with no mesh and on a mesh of one rank; the
+    one-card median round; the gossip ring of one rank at 22b's depth."""
+    trainer, data, cfg = main_recipe()
+    kw = dict(chunk=MAIN_CHUNK, local_dtype=torch.bfloat16, streaming=True)
+    out = {}
+
+    def run(tag, eng, v0, rounds=1):
+        t0 = time.perf_counter()
+        v = eng.run(variables=dict(v0), rounds=rounds)
+        torch.cuda.synchronize()
+        out[tag] = dict(digest=variables_digest(v),
+                        wall_s=time.perf_counter() - t0)
+
+    def body():
+        one = MeshFedAvgEngine(trainer, data, cfg, **kw)
+        v0 = one.init_variables()
+        run("one card", one, v0)
+        run("mesh of one", MeshFedAvgEngine(trainer, data, cfg,
+                                            mesh=make_mesh(1), **kw), v0)
+        run("median one card", MeshRobustEngine(
+            trainer, data, cfg, defense="median", **kw), v0)
+        with open(data_paths["small"], "rb") as f:
+            small = pickle.load(f)
+        gossip = MeshGossipEngine(trainer, small, cfg, mesh=make_mesh(1))
+        t0 = time.perf_counter()
+        rows = gossip.run(rounds=1, variables=dict(v0))
+        out["gossip ring of one"] = dict(
+            digest=variables_digest(gossip.worker_variables(rows)),
+            wall_s=time.perf_counter() - t0)
+
+    deterministic(body)
+    return out
+
+
+def mesh_main_path(ref_digests: Optional[dict]) -> dict:
+    """22a and 22b: the mesh worker's clusters on this card, started
+    through the launcher at once with the parent's one-card references.
+    22a (2 ranks, phase 5's 8 clients of 13 batches, chunk 2, bf16
+    masters, streaming): MeshFedAvgEngine and norm_clip with weak-DP noise
+    2 rounds each, whose digests are phase 20's 1-rank two-block runs'
+    (`ref_digests` by engine; run here when None), one median round
+    bitwise the one-card round, and MeshGossipEngine's ring of 2 (22b's depth) bitwise
+    the ring of one.  22b (4 ranks, 8 clients of 4 batches, 1 round):
+    MeshHierarchicalEngine on 2 x 2 with one inner round, within f32
+    tolerance of the flat mesh round of 4.  Launches exact per rank."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    trainer, data, cfg = main_recipe()
+    small = synthetic_data(MAIN_CLIENTS, MESH_SMALL_BATCHES * BATCH, seed=2)
+    data_paths = {"main": str(tmp / "main.pkl"), "small": str(tmp / "small.pkl")}
+    for key, d in (("main", data), ("small", small)):
+        with open(data_paths[key], "wb") as f:
+            pickle.dump(d, f)
+    bf16 = dict(chunk=MAIN_CHUNK, local_dtype="bfloat16")
+    two = mesh_case(tmp, "two", data_paths, [
+        dict(tag="fedavg", engine="fedavg", mesh={"kind": "1d"},
+             rounds=MESH_ROUNDS, engine_kw={**bf16, "streaming": True}),
+        dict(tag="norm_clip", engine="robust", mesh={"kind": "1d"},
+             rounds=MESH_ROUNDS, cfg={"stddev": 1e-3},
+             engine_kw={**bf16, "streaming": True, "defense": "norm_clip"}),
+        dict(tag="median", engine="robust", mesh={"kind": "1d"}, rounds=1,
+             engine_kw={**bf16, "streaming": True, "defense": "median"}),
+        dict(tag="gossip", engine="gossip", mesh={"kind": "1d"}, rounds=1,
+             depth="small")])
+    four = mesh_case(tmp, "four", data_paths, [
+        dict(tag="hierarchical", engine="hierarchical",
+             mesh={"kind": "2d", "n_silos": 2, "per_silo": 2}, rounds=1,
+             depth="small", save=True,
+             engine_kw={**bf16, "group_comm_round": 1}),
+        dict(tag="flat", engine="fedavg", mesh={"kind": "1d"}, rounds=1,
+             depth="small", save=True, engine_kw={**bf16, "streaming": True})])
+    runs, errs, seconds = {}, [], {}
+
+    def job(key, fn):
+        try:
+            t0 = time.perf_counter()
+            runs[key] = fn()
+            seconds[key] = time.perf_counter() - t0
+        except Exception as e:       # re-raised below, after the joins
+            errs.append(e)
+
+    jobs = {"22a 2 ranks": lambda: mesh_launch(two, 2),
+            "22b 4 ranks": lambda: mesh_launch(four, 4)}
+    if ref_digests is None:
+        arms = [dict(tag="streaming serial", engine="fedavg",
+                     residency="streaming", overlap=False),
+                dict(tag="norm_clip", engine="norm_clip",
+                     residency="streaming", overlap=False)]
+        (tmp / "ref.json").write_text(json.dumps({"arms": arms}))
+        jobs["phase 20 reference"] = lambda: spawn_json(
+            [sys.executable, str(Path(__file__).resolve()), "--rank20",
+             str(tmp / "ref.json")], 1)
+    threads = [threading.Thread(target=job, args=kv) for kv in jobs.items()]
+    for t in threads:
+        t.start()
+    job("22 one-card references", lambda: mesh_one_card(data_paths))
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    if ref_digests is None:
+        ref_digests = phase20_digests(runs["phase 20 reference"][0])
+    ref = runs["22 one-card references"]
+    a, b = runs["22a 2 ranks"]["docs"], runs["22b 4 ranks"]["docs"]
+    checks = {
+        "fedavg 2 ranks == phase 20's 1 rank x 2 blocks":
+            {d["arms"]["fedavg"]["digest"] for d in a.values()}
+            == {ref_digests["fedavg"]},
+        "mesh of one == one card": ref["mesh of one"]["digest"]
+            == ref["one card"]["digest"],
+        "norm_clip 2 ranks == phase 20's 1 rank x 2 blocks":
+            {d["arms"]["norm_clip"]["digest"] for d in a.values()}
+            == {ref_digests["norm_clip"]},
+        "median 2 ranks == one card":
+            {d["arms"]["median"]["digest"] for d in a.values()}
+            == {ref["median one card"]["digest"]},
+        "gossip ring of 2 == ring of one":
+            {d["arms"]["gossip"]["digest"] for d in a.values()}
+            == {ref["gossip ring of one"]["digest"]},
+        "hierarchical 2 x 2: 4 ranks one digest":
+            len({d["arms"]["hierarchical"]["digest"]
+                 for d in b.values()}) == 1,
+        "flat mesh of 4: 4 ranks one digest":
+            len({d["arms"]["flat"]["digest"] for d in b.values()}) == 1}
+    hier = torch.load(tmp / "hierarchical.rank0.pt")
+    flat = torch.load(tmp / "flat.rank0.pt")
+    worst = max(float((hier[k] - flat[k]).abs().max()) for k in flat)
+    checks["hierarchical within f32 tolerance of flat"] = all(
+        torch.allclose(hier[k], flat[k], **MESH_TOL) for k in flat)
+    # launches exact per rank (rank 0 evaluates after the first and last
+    # round)
+    want = {
+        "fedavg": lambda r: mesh_expected(4, BATCHES, MESH_ROUNDS,
+                                          2 * (r == 0), "wsum"),
+        "norm_clip": lambda r: mesh_expected(4, BATCHES, MESH_ROUNDS,
+                                             2 * (r == 0), "norm_clip"),
+        "median": lambda r: mesh_expected(4, BATCHES, 1, r == 0, None),
+        "gossip": lambda r: mesh_expected(4, MESH_SMALL_BATCHES, 1, r == 0,
+                                          None),
+        "hierarchical": lambda r: mesh_expected(2, MESH_SMALL_BATCHES, 1,
+                                                r == 0, "wsum"),
+        "flat": lambda r: mesh_expected(2, MESH_SMALL_BATCHES, 1, r == 0,
+                                        "wsum")}
+    launches, bad = {}, []
+    for docs in (a, b):
+        for r, d in docs.items():
+            for tag, rec in d["arms"].items():
+                launches[f"mesh {tag} r{r}"] = rec["launches"]
+                if rec["launches"] != want[tag](r) or not rec["finite"]:
+                    bad.append(f"{tag} rank {r}: {rec['launches']} != "
+                               f"{want[tag](r)} or non-finite")
+                walls, nbytes = rec["gather_walls"], rec["gather_bytes"]
+                print(f"[22] {tag}, {len(docs)} ranks, rank {r}: s/round "
+                      + ", ".join(f"{w:.3f}" for w in rec["round_walls"])
+                      + f"; {len(walls)} gathers, wall "
+                      + ", ".join(f"{w:.4f}" for w in walls) + " s, "
+                      f"received {sum(nbytes)} B ({max(nbytes, default=0)} "
+                      f"B the largest); peak device memory "
+                      f"{rec['peak_bytes'] / 2**30:.3f} GiB; launches "
+                      f"{rec['launches']}; digest {rec['digest']}")
+    for k, v in ref.items():
+        print(f"[22] one-card reference {k}: {v['wall_s']:.2f} s, digest "
+              f"{v['digest']}")
+    print(f"[22] phase 20's 1-rank two-block digests {ref_digests}; "
+          f"hierarchical against flat: max abs difference {worst:.3e}")
+    print(f"[22] checks: {checks}; launches exact: {not bad}; cluster "
+          "walls " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+          + f" ({card_line()})")
+    if bad or not all(checks.values()):
+        raise AssertionError(f"22: {bad} {checks}")
+    return dict(checks=checks, launches=launches, seconds=seconds,
+                docs={k: v["docs"] for k, v in runs.items()
+                      if k.startswith("22") and "docs" in v},
+                references=ref, hier_flat_max_abs=worst)
+
+
+def phase20_digests(doc: dict) -> dict:
+    """A phase-20 rank's FedAvg (streaming, serial) and norm_clip digests."""
+    return {"fedavg": doc["arms"]["streaming serial"]["digest"],
+            "norm_clip": doc["arms"]["norm_clip"]["digest"]}
+
+
+def phase_slice6c_i(slice6a: Optional[dict] = None) -> dict:
+    """Phase 22: the client-axis mesh across ranks on the card; its
+    seconds.  With phase 20's record, its 1-rank two-block FedAvg and
+    norm_clip digests are the references of 22a's."""
+    ref = None
+    if slice6a is not None:
+        ref = phase20_digests(slice6a["20a two-level main path"]["docs"][1][0])
+    t0 = time.perf_counter()
+    rec = mesh_main_path(ref)
+    rec["seconds"]["phase"] = time.perf_counter() - t0
+    print(f"[slice 6c-i] phase 22 took {rec['seconds']['phase']:.1f} s: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in rec["seconds"].items())
+          + f" ({card_line()})")
+    return rec
+
+
 def phase21_paths(rec: dict) -> dict:
     """Phase 21's paths and their launch counts (each zeroed in its
     process just before its run)."""
@@ -5941,6 +6228,9 @@ def main() -> int:
     if sys.argv[1:] == ["--phase", "21"]:
         print(json.dumps({"slice6b": phase_slice6b()}, default=str))
         return 0
+    if sys.argv[1:] == ["--phase", "22"]:
+        print(json.dumps({"slice6c_i": phase_slice6c_i()}, default=str))
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     seconds = {}
 
@@ -5948,6 +6238,7 @@ def main() -> int:
         t0 = time.perf_counter()
         out = fn(*args)
         seconds[name] = time.perf_counter() - t0
+        print(f"[timing] phase {name}: {seconds[name]:.1f} s", flush=True)
         return out
 
     gn_fwd, gn_bwd = clock("3 gn", phase_gn, gen)
@@ -5971,13 +6262,14 @@ def main() -> int:
     slice4b = clock("19 slice 4b", phase_slice4b)
     slice6a = clock("20 slice 6a", phase_slice6a)
     slice6b = clock("21 slice 6b", phase_slice6b)
+    slice6c_i = clock("22 slice 6c-i", phase_slice6c_i, slice6a)
     print(json.dumps({"zoo": zoo, "resnet56_path": {
         k: v for k, v in resnet56.items() if k != "fold"},
         "word_lstm": word_lstm, "c1": c1, "data_path": data_path,
         "slice7a": slice7a, "slice7a_ii": slice7a_ii,
         "slice5b_i": slice5b_i, "slice5b_ii": slice5b_ii,
         "slice4a": slice4a, "slice4b": slice4b, "slice6a": slice6a,
-        "slice6b": slice6b, "seconds": seconds},
+        "slice6b": slice6b, "slice6c_i": slice6c_i, "seconds": seconds},
         default=str))
     print("[timing] seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
@@ -5996,7 +6288,7 @@ def main() -> int:
              "async defended": slice4a["defended"]["launches"],
              "async messaging": slice4a["messaging"]["launches"],
              **phase19_paths(slice4b), **phase20_paths(slice6a),
-             **phase21_paths(slice6b)}
+             **phase21_paths(slice6b), **slice6c_i["launches"]}
     print(json.dumps(kernel_line(gn_fwd, gn_bwd, fold_rec, robust_rec, counts,
                                  robust_counts, resnet56, paths,
                                  slice7a["gn_shapes"],

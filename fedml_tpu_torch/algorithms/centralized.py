@@ -9,7 +9,7 @@ matches this trainer's accuracy (CI-script-fedavg.sh:41-47).  One epoch is
 uploaded once and reused, as are the eval shards.
 
 The JAX trainer's ``mesh=`` (classic data parallelism, the reference's
-DDP) is slice 6c of the port and raises here.
+DDP) is slice 6c-ii of the port and raises here.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ class CentralizedTrainer:
         if mesh is not None:
             raise NotImplementedError(
                 "CentralizedTrainer(mesh=...), data parallelism over a "
-                "device mesh, is slice 6c of the port")
+                "device mesh, is slice 6c-ii of the port")
         self.device = resolve_device(device)
         self.trainer = trainer
         self.data = data

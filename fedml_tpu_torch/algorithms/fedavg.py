@@ -47,6 +47,9 @@ class FedAvgEngine:
     the card's stream time, values untouched."""
 
     program_family = "fedavg_resident"
+    # the mesh of rank processes the rounds span (parallel/mesh.py::Mesh);
+    # None on one device
+    mesh = None
 
     def __init__(self, trainer: ClientTrainer, data: FederatedData,
                  cfg: FedConfig, device=None):
@@ -119,6 +122,11 @@ class FedAvgEngine:
         cohort, _ = self.data.cohort(self.sampler.sample(round_idx), self.device)
         return cohort, round_idx
 
+    def _evaluates(self) -> bool:
+        """Whether this process evaluates in `run` (over a mesh of ranks,
+        whose models are the same bits, the first rank alone does)."""
+        return self.mesh is None or self.mesh.is_first
+
     def _resume_state(self) -> Optional[dict]:
         """Engine state a checkpoint carries beyond (variables,
         server_state) for a bitwise resume: the weak-DP noise generator of
@@ -140,6 +148,10 @@ class FedAvgEngine:
         rounds; with `resume` the run continues from its latest round,
         bitwise as the uninterrupted run (the sampler reseeds per round,
         each client's generator is keyed on (seed, round, lane))."""
+        if ckpt is not None and self.mesh is not None and self.mesh.size > 1:
+            raise NotImplementedError(
+                "checkpoint and resume across the ranks of a mesh is slice "
+                "6c-ii of the port")
         cfg = self.cfg
         variables = variables if variables is not None else self.init_variables()
         server_state = self.server_init(variables)
@@ -166,7 +178,8 @@ class FedAvgEngine:
                         obs.span("round", round=round_idx, engine=engine_name):
                     variables, server_state, m = self.round_fn(
                         variables, server_state, *self._round_args(round_idx))
-                if (round_idx % cfg.frequency_of_the_test == 0
+                if self._evaluates() and (
+                        round_idx % cfg.frequency_of_the_test == 0
                         or round_idx == rounds - 1):
                     with obs.span("eval", round=round_idx):
                         stats = self.evaluate(variables)

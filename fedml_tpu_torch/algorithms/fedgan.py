@@ -19,7 +19,7 @@ one fold-kernel launch (``ops.weighted_mean``) on the card.  The params
 are one dict, the generator's leaves under ``gen.`` and the
 discriminator's under ``disc.`` (the JAX engine's ``{"gen", "disc"}``
 pair under dotted names).  The mesh variant (``make_mesh_fedgan_engine``)
-is slice 6c of the port.
+is slice 6c-ii of the port.
 """
 from __future__ import annotations
 

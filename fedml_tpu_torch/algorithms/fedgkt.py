@@ -24,7 +24,7 @@ port's optax-equivalent ``Optimizer``: the client's from the config, the
 server's SGD with momentum 0.9 and weight decay 1e-4 at the client lr by
 default (GKTServerTrainer.py:39-44).  The JAX engine vmaps the clients
 and scans the steps; here they run one after another.  The mesh variant
-(``MeshFedGKTEngine``) is slice 6c of the port.
+(``MeshFedGKTEngine``) is slice 6c-ii of the port.
 """
 from __future__ import annotations
 

@@ -37,7 +37,7 @@ Where the parity with the JAX engine is not obvious:
   to the device, so the card and the CPU see the same noise; JAX draws
   from its keys, so parity holds given JAX's uniforms.  GDAS evaluates
   the argmax one-hot architecture.
-The mesh variant (``make_mesh_fednas_engine``) belongs to slice 6c of the
+The mesh variant (``make_mesh_fednas_engine``) belongs to slice 6c-ii of the
 port.
 """
 from __future__ import annotations

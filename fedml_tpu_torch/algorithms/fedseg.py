@@ -13,7 +13,7 @@ accuracy, per-class accuracy, mIoU and FWIoU, tracked by an
 ``EvaluationMetricsKeeper``.  The trainer must be built with
 ``has_time_axis=True`` (the per-sample mask broadcasts over H, W), and
 with ``train_ignore_id=255`` for VOC's void label.  The mesh variant
-(``make_mesh_fedseg_engine``) is slice 6c of the port.
+(``make_mesh_fedseg_engine``) is slice 6c-ii of the port.
 """
 from __future__ import annotations
 

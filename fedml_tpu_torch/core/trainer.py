@@ -284,7 +284,7 @@ class ClientTrainer:
       eval_ignore_id: label id left out of the eval metrics only (<pad>).
       train_ignore_id: label id left out of the training loss and the eval
         metrics (segmentation's void label), remapped to 0 for the gather.
-      batch_axes: per-client batch splitting over a mesh axis, slice 6c of
+      batch_axes: per-client batch splitting over a mesh axis, slice 6c-ii of
         the port (raises).
     """
 
@@ -301,7 +301,7 @@ class ClientTrainer:
         if batch_axes:
             raise NotImplementedError(
                 "ClientTrainer(batch_axes=...), per-client batch splitting "
-                "over a mesh axis, is slice 6c of the port")
+                "over a mesh axis, is slice 6c-ii of the port")
         self.model = model
         self.loss_name = loss
         self.tx = make_optimizer(optimizer, lr, momentum, weight_decay)

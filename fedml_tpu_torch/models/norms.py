@@ -24,7 +24,7 @@ textbook BatchNorm gradient, computed in the statistics' dtype and
 rounded to each input's dtype.
 
 ``sync_batch_norm(sync=True)``, the cross-replica statistics, needs
-torch.distributed and arrives with slice 6c of the port; ``sync=False`` is
+torch.distributed and arrives with slice 6c-ii of the port; ``sync=False`` is
 the plain BatchNorm.
 """
 from __future__ import annotations
@@ -108,10 +108,10 @@ class BatchNorm(nn.Module):
 def sync_batch_norm(features: int, sync: bool = True, momentum: float = 0.9,
                     epsilon: float = 1e-5) -> BatchNorm:
     """The JAX package's ``sync_batch_norm``: `sync=True` (statistics
-    reduced across replicas) is slice 6c of the port and raises; the plain
+    reduced across replicas) is slice 6c-ii of the port and raises; the plain
     BatchNorm otherwise (which takes `train` per call)."""
     if sync:
         raise NotImplementedError(
             "sync_batch_norm(sync=True), cross-replica BatchNorm statistics, "
-            "needs torch.distributed: slice 6c of the port")
+            "needs torch.distributed: slice 6c-ii of the port")
     return BatchNorm(features, momentum, epsilon)

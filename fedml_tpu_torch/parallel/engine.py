@@ -1,6 +1,6 @@
-"""The chunked engines on one card: the single-device subset of
-fedml_tpu/parallel/engine.py (MeshFedAvgEngine, MeshFedProxEngine,
-MeshFedOptEngine, MeshFedNovaEngine, MeshRobustEngine).
+"""The chunked engines (port of fedml_tpu/parallel/engine.py:
+MeshFedAvgEngine, MeshFedProxEngine, MeshFedOptEngine, MeshFedNovaEngine,
+MeshRobustEngine), on one card or over a client-axis mesh of ranks.
 
 A round trains the cohort in chunks of at most `chunk` clients.  Every
 client of a chunk trains from the round's global model (cast once to the
@@ -40,14 +40,28 @@ the round in blocks (MeshRobustEngine's order statistics in two phases
 through a pinned host matrix); see MeshFedAvgEngine and
 parallel/prefetch.py.  The `_twolevel_*` programs split a round into
 per-block partials and one commit for the multi-process runner
-(parallel/multihost.py); multi-card meshes are slice 6c of the port
-(ROADMAP.md).
+(parallel/multihost.py).
+
+Over a mesh of ranks (`mesh=`, parallel/mesh.py: one process a device,
+joined by torch.distributed over gloo) the cohort is padded to a
+multiple of the client shards with zero-weight repeats of client 0
+(`pad_ids`), each rank gathers and uploads only its share, trains it
+through the chunk loop from its first GLOBAL lane, copies its sums to
+the host as the two-level carry (the unpadded trainer vector, then the
+scalar sums), and every rank gathers every rank's carry and folds them
+in rank order on the host (the two-level runner's left fold), then
+commits the same finalize and server update: one rank's result bits
+are every rank's, and a run is the same bits every time.  No float sum
+goes through an all-reduce.  The order statistics gather each rank's
+trained rows into the replicated [K, P] f32 matrix instead.  A mesh of
+one rank (the default) is the one-card engine, with no collective.
 """
 from __future__ import annotations
 
 import copy
 import logging
 import threading
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -65,6 +79,9 @@ from fedml_tpu_torch.core.trainer import ClientTrainer, client_generator
 from fedml_tpu_torch.data.federated import FederatedData
 from fedml_tpu_torch.data.quant import quantize_uint8, spec_from_minmax
 from fedml_tpu_torch.ops.aggregate import client_sqnorms, clip_fold, fold
+from fedml_tpu_torch.parallel.mesh import Mesh, client_axes, client_sharding
+from fedml_tpu_torch.parallel.multihost import (fold_block_partials,
+                                                make_local_mesh)
 from fedml_tpu_torch.parallel.prefetch import (AsyncValue, InlineFetcher,
                                                Prefetcher, upload)
 from fedml_tpu_torch.utils.config import FedConfig
@@ -80,6 +97,88 @@ def cast_local(variables: dict, dtype) -> dict:
         return variables
     return {k: v.to(dtype) if v.is_floating_point() else v
             for k, v in variables.items()}
+
+
+def pad_ids(ids: np.ndarray, n_shards: int):
+    """THE cohort-padding policy of the mesh engines (host side): pad the
+    sampled client ids to a mesh-size multiple with zero-weight repeats of
+    client 0; wmask 0 drops them from every weighted sum."""
+    ids = np.asarray(ids)
+    pad = (-len(ids)) % n_shards
+    wmask = np.concatenate([np.ones(len(ids), np.float32),
+                            np.zeros(pad, np.float32)])
+    ids = np.concatenate([ids, np.zeros(pad, ids.dtype)])
+    return ids, wmask
+
+
+def sums_to_host(trainer: ClientTrainer, sums: tuple) -> np.ndarray:
+    """Linear sums (a flat f32 vector, then 0-d scalars) as one flat f32
+    host vector: the unpadded vector, then the scalars.  The copy off the
+    card is synchronous, so no fold reads a half-copied vector."""
+    num, *scalars = sums
+    carry = torch.cat([num[:trainer.spec.n], torch.stack(
+        [s.float().reshape(()) for s in scalars])])
+    return carry.to("cpu").numpy()
+
+
+def sums_from_host(trainer: ClientTrainer, flat_sums: np.ndarray,
+                   n_scalars: int, device) -> tuple:
+    """Inverse of `sums_to_host` on `device`: the vector zero-padded to the
+    trainer's layout, each scalar a 0-d device tensor (a CPU scalar would
+    divide as a multiply by its reciprocal on the card, which is not the
+    one-card round's division)."""
+    spec = trainer.spec
+    carry = torch.from_numpy(np.array(flat_sums, np.float32)).to(device)
+    if carry.numel() != spec.n + n_scalars:
+        raise ValueError(f"a carry of {carry.numel()} elements against "
+                         f"this engine's sums {spec.n} + {n_scalars}")
+    num = torch.zeros(spec.padded, dtype=torch.float32, device=device)
+    num[:spec.n] = carry[:spec.n]
+    return (num, *(carry[spec.n + i] for i in range(n_scalars)))
+
+
+class MeshExchange:
+    """The host exchange of a mesh engine: gather host arrays along mesh
+    axes and fold sums in rank order; each gather's wall and received
+    bytes are kept per call (`walls`, `bytes`)."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.walls: list[float] = []
+        self.bytes: list[int] = []
+
+    def gather(self, array: np.ndarray, axes) -> list:
+        if len(self.mesh.axis_ranks(axes)) == 1:
+            return [array]
+        t0 = time.perf_counter()
+        with obs.span("mesh.gather", nbytes=int(array.nbytes)):
+            parts = self.mesh.all_gather(array, axes)
+        self.walls.append(time.perf_counter() - t0)
+        self.bytes.append(int(array.nbytes) * (len(parts) - 1))
+        return parts
+
+    def fold(self, array: np.ndarray, axes) -> np.ndarray:
+        """Every rank's f32 `array` along `axes`, folded left in rank order
+        on the host."""
+        parts = self.gather(array, axes)
+        return fold_block_partials(dict(enumerate(parts)), len(parts))
+
+    def fold_sums(self, trainer: ClientTrainer, sums: tuple, axes,
+                  device) -> tuple:
+        """Every rank's sums along `axes`, folded in rank order, back on
+        `device`; the sums themselves when `axes` span one rank."""
+        if len(self.mesh.axis_ranks(axes)) == 1:
+            return sums
+        return sums_from_host(trainer, self.fold(
+            sums_to_host(trainer, sums), axes), len(sums) - 1, device)
+
+    def gather_rows(self, rows: torch.Tensor, axes) -> torch.Tensor:
+        """Every rank's [k, N] rows along `axes`, stacked in rank order, on
+        the rows' device."""
+        if len(self.mesh.axis_ranks(axes)) == 1:
+            return rows
+        parts = self.gather(rows.to("cpu").numpy(), axes)
+        return torch.from_numpy(np.concatenate(parts)).to(rows.device)
 
 
 def pad_and_chunk(cohort: dict, weights: torch.Tensor, chunk_cap: int):
@@ -188,7 +287,8 @@ def chunked_weighted_train(trainer: ClientTrainer, flat: torch.Tensor,
 
 
 class MeshFedAvgEngine(FedAvgEngine):
-    """FedAvg over chunks of `chunk` clients on one card, with optional
+    """FedAvg over chunks of `chunk` clients, on one card or over a
+    client-axis mesh of ranks (`mesh`, the module docstring), with optional
     bf16 local masters (`local_dtype`) and narrower cohort storage
     (`stack_dtype`: torch.uint8 or torch.bfloat16; see the module
     docstring).  Aggregation is unchanged by either dtype: each client's
@@ -208,7 +308,13 @@ class MeshFedAvgEngine(FedAvgEngine):
 
     Its rounds count under the JAX program families: ``<stem>_streaming``
     for the round on an uploaded cohort (the port has no resident round),
-    ``<stem>_blockstream`` for the block-streamed one."""
+    ``<stem>_blockstream`` for the block-streamed one.
+
+    `mesh` (parallel/mesh.py) defaults to this process alone.  Over more
+    than one rank every rank runs the same loop; only the mesh's first
+    rank evaluates, and `exchange` keeps the host gathers' walls and
+    bytes.  `stream_block` and checkpoints across ranks are slice 6c-ii
+    of the port."""
 
     _family_stem = "fedavg"
 
@@ -216,7 +322,16 @@ class MeshFedAvgEngine(FedAvgEngine):
                  cfg: FedConfig, chunk: int | None = None, local_dtype=None,
                  stack_dtype=None, streaming: bool = False,
                  prefetch: bool = True, stream_block: Optional[int] = None,
-                 device=None):
+                 device=None, mesh: Optional[Mesh] = None):
+        self.mesh = mesh if mesh is not None else make_local_mesh()
+        self.client_axes = client_axes(self.mesh)
+        self.shard = client_sharding(self.mesh)
+        self.n_shards = self.shard.count
+        self.exchange = MeshExchange(self.mesh)
+        if stream_block is not None and self.n_shards > 1:
+            raise NotImplementedError(
+                f"stream_block over a mesh of {self.n_shards} ranks is "
+                f"slice 6c-ii of the port")
         if stream_block is not None:
             if stream_block < 1:
                 raise ValueError(f"stream_block must be >= 1, got "
@@ -350,13 +465,24 @@ class MeshFedAvgEngine(FedAvgEngine):
         self.transfer_stats.add_h2d_bytes(w.nbytes)
         return upload(torch.from_numpy(w), self.device)
 
-    def stream_cohort(self, round_idx: int):
-        """Host-side gather of the round's sampled clients from
-        `_host_shards()`, stack_dtype applied, uploaded to the engine's
-        device: ({x, y, mask} [K, B, bs, ...], weights [K] f32)."""
-        return self._stream_gather(self.sampler.sample(round_idx))
+    def _rank_ids(self, round_idx: int) -> tuple:
+        """This rank's share of the round's cohort: (ids, wmask), the cohort
+        padded to a multiple of the client shards (`pad_ids`); wmask is
+        None on a mesh of one rank (no padding)."""
+        ids = self.sampler.sample(round_idx)
+        if self.n_shards == 1:
+            return ids, None
+        ids, wmask = pad_ids(ids, self.n_shards)
+        rows = self.shard.rows(len(ids))
+        return ids[rows], wmask[rows]
 
-    def _stream_gather(self, ids):
+    def stream_cohort(self, round_idx: int):
+        """Host-side gather of this rank's share of the round's sampled
+        clients from `_host_shards()`, stack_dtype applied, uploaded to the
+        engine's device: ({x, y, mask} [K, B, bs, ...], weights [K] f32)."""
+        return self._stream_gather(*self._rank_ids(round_idx))
+
+    def _stream_gather(self, ids, wmask=None):
         """The upload half of stream_cohort, split from the sampling: this
         part runs on the prefetch thread, while the sampler (it reseeds the
         process-global numpy RNG) stays on the caller's thread."""
@@ -365,6 +491,8 @@ class MeshFedAvgEngine(FedAvgEngine):
             cohort = self._host_gather_upload(ids)
             w = np.take(np.asarray(self.data.client_num_samples, np.float32),
                         ids)
+            if wmask is not None:
+                w = w * wmask
             return cohort, self._upload_weights(w)
 
     def _local_train_stack(self) -> dict:
@@ -399,7 +527,7 @@ class MeshFedAvgEngine(FedAvgEngine):
         limit = getattr(self, "_rounds_limit", None)
         if self.prefetch and (limit is None or round_idx + 1 < limit):
             self._prefetched = (round_idx + 1, AsyncValue(
-                self._stream_gather, self.sampler.sample(round_idx + 1),
+                self._stream_gather, *self._rank_ids(round_idx + 1),
                 stats=self.transfer_stats, device=self.device))
         return (*args, round_idx)
 
@@ -434,12 +562,21 @@ class MeshFedAvgEngine(FedAvgEngine):
                              fold_fn=self._fold_fn(g), carry=sums,
                              lane0=lane0)
 
+    def _lane0(self, weights: torch.Tensor) -> int:
+        """This rank's first lane in the round's (padded) cohort: every rank
+        holds an equal share, so lane j of rank r is global lane
+        r * k + j, whatever the mesh."""
+        return self.shard.index * weights.shape[0]
+
     def _shard_sums(self, variables: dict, cohort: dict, weights: torch.Tensor,
                     round_idx: int = 0):
-        """(sum w*v as a flat f32 vector, sum w, sum w*loss) over the cohort."""
+        """(sum w*v as a flat f32 vector, sum w, sum w*loss) over the
+        cohort: this rank's share, then every rank's folded in rank order."""
         g = self._local_flat(variables)
-        return self._accumulate(g, self._zero_sums(g), cohort, weights,
-                                round_idx)
+        sums = self._accumulate(g, self._zero_sums(g), cohort, weights,
+                                round_idx, lane0=self._lane0(weights))
+        return self.exchange.fold_sums(self.trainer, sums, self.client_axes,
+                                       self.device)
 
     def _finalize_from_sums(self, variables: dict, sums):
         """(aggregated model, mean loss): divide in f32, cast each leaf back
@@ -484,6 +621,12 @@ class MeshFedAvgEngine(FedAvgEngine):
         programs (once)."""
         if getattr(self, "_twolevel_ready", False):
             return
+        if self.n_shards > 1:
+            raise ValueError(
+                f"MultihostRunner needs an engine on this process alone "
+                f"(make_local_mesh): this engine's mesh spans "
+                f"{self.n_shards} ranks, and the runner's cross-process "
+                f"tier is its HostChannel")
         if self.stream_block is not None:
             raise ValueError(
                 "MultihostRunner does not drive block-streamed rounds "
@@ -504,15 +647,6 @@ class MeshFedAvgEngine(FedAvgEngine):
             "twolevel_commit", self._twolevel_commit_impl)
         self._twolevel_ready = True
 
-    def _carry_to_host(self, sums: tuple) -> np.ndarray:
-        """The sums as one flat f32 host vector.  The copy off the card is
-        synchronous, so the host fold never reads a half-copied vector."""
-        n = self.trainer.spec.n
-        num, *scalars = sums
-        carry = torch.cat([num[:n], torch.stack(
-            [s.float().reshape(()) for s in scalars])])
-        return carry.to("cpu").numpy()
-
     def _twolevel_partial_impl(self, variables: dict, cohort: dict,
                                weights: torch.Tensor, round_idx: int,
                                lane0: int) -> np.ndarray:
@@ -520,7 +654,7 @@ class MeshFedAvgEngine(FedAvgEngine):
         residency): its lanes are lanes lane0.. of the round, so the
         clients' generators do not depend on which rank trains them."""
         g = self._local_flat(variables)
-        return self._carry_to_host(self._accumulate(
+        return sums_to_host(self.trainer, self._accumulate(
             g, self._zero_sums(g), cohort, weights, round_idx, lane0=lane0))
 
     def _twolevel_partial_resident_impl(self, variables: dict, stack: dict,
@@ -543,18 +677,9 @@ class MeshFedAvgEngine(FedAvgEngine):
         """Replicated commit from the folded flat carry: rebuild the sums
         on the device (the pad of the first sum is zero), divide, apply
         the server update; every rank runs it identically."""
-        spec = self.trainer.spec
-        carry = torch.from_numpy(np.array(flat_sums, np.float32)).to(
-            self.device)
-        n_scalars = len(self._zero_sums(carry[:0])) - 1
-        if carry.numel() != spec.n + n_scalars:
-            raise ValueError(f"two-level carry holds {carry.numel()} "
-                             f"elements, this engine's sums "
-                             f"{spec.n} + {n_scalars}")
-        num = torch.zeros(spec.padded, dtype=torch.float32,
-                          device=self.device)
-        num[:spec.n] = carry[:spec.n]
-        sums = (num, *(carry[spec.n + i] for i in range(n_scalars)))
+        n_scalars = len(self._zero_sums(torch.zeros(0))) - 1
+        sums = sums_from_host(self.trainer, flat_sums, n_scalars,
+                              self.device)
         avg, loss = self._finalize_from_sums(variables, sums)
         new_variables, server_state = self.server_update(avg, variables,
                                                          server_state)
@@ -747,7 +872,10 @@ class MeshRobustEngine(MeshFedAvgEngine):
     defense in {"krum", "multi_krum", "median", "trimmed_mean"} needs order
     statistics over the whole cohort's parameter vectors, which a weighted
     sum cannot express: the chunk loop keeps every client's trained row as
-    the [K, P] f32 matrix and the defense runs there.  With `stream_block`
+    the [K, P] f32 matrix and the defense runs there (over a mesh, each
+    rank's rows gathered in rank order onto every rank, so the matrix and
+    the defense are the one-card engine's; the cohort must divide evenly
+    over the mesh).  With `stream_block`
     the round runs in two phases instead (the matrix never on the card):
     phase 1 streams client blocks through training and lands each block's
     parameter rows in a pinned host [K, P] f32 matrix; phase 2 streams it
@@ -780,6 +908,12 @@ class MeshRobustEngine(MeshFedAvgEngine):
                     "order statistics cannot ignore padded lanes")
         self.orderstat_host_bytes = 0   # the last two-phase round's matrix
         super().__init__(trainer, data, cfg, **kw)
+        K = min(cfg.client_num_per_round, data.client_num)
+        if defense != "norm_clip" and K % self.n_shards:
+            raise ValueError(
+                f"defense {defense!r} needs the cohort ({K}) to divide "
+                f"evenly over the mesh ({self.n_shards} shards): order "
+                "statistics cannot ignore padded lanes")
         self.noise_generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed)
 
@@ -837,8 +971,12 @@ class MeshRobustEngine(MeshFedAvgEngine):
         r = self.trainer.train_len
         num, den, lsum, flats = self._chunked(
             self._local_flat(variables), cohort, weights, round_idx,
-            fold_fn=self._collections_fold(), emit_flat_params=True)
-        flats = flats[:, :r]
+            fold_fn=self._collections_fold(), emit_flat_params=True,
+            lane0=self._lane0(weights))
+        # over a mesh: the replicated [K, P] f32 matrix, rows in rank order
+        flats = self.exchange.gather_rows(flats[:, :r], self.client_axes)
+        num, den, lsum = self.exchange.fold_sums(
+            self.trainer, (num, den, lsum), self.client_axes, self.device)
         if self.defense == "krum":
             new_flat = flats[robust_ops.krum_select_flat(flats,
                                                          self.n_byzantine)]

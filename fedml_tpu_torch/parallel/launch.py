@@ -22,8 +22,12 @@ FEDML_MH_REJOIN=1, so it rejoins through the elastic channel:
 
 (CFG with "elastic": true).  Child stderr streams through line-prefixed
 (`[rank i]`); child stdout is echoed after completion in rank order.
---jax-distributed has no counterpart (the in-program mesh tier is slice
-6c of the port).
+--jax-distributed also exports FEDML_MH_JAX_COORD, the rendezvous at
+which each rank's `init_multihost` joins torch.distributed's gloo group
+(the client-axis mesh, parallel/mesh.py):
+
+    python -m fedml_tpu_torch.parallel.launch --procs 2 --jax-distributed \\
+        -- python -m fedml_tpu_torch.parallel.mesh_worker CASE.json
 """
 from __future__ import annotations
 
@@ -49,6 +53,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="with --elastic: start a dead rank other than 0 "
                          "once more with FEDML_MH_REJOIN=1 (it rejoins "
                          "through the elastic handshake)")
+    ap.add_argument("--jax-distributed", action="store_true",
+                    help="also export FEDML_MH_JAX_COORD: each rank's "
+                         "init_multihost joins torch.distributed's gloo "
+                         "group there (the name is the JAX package's, so "
+                         "one launch line drives both)")
     ap.add_argument("cmd", nargs=argparse.REMAINDER,
                     help="worker command (prefix with --)")
     args = ap.parse_args(argv)
@@ -78,7 +87,8 @@ def main(argv=None) -> int:
     try:
         outs = spawn_cluster(args.cmd, args.procs, timeout_s=args.timeout,
                              echo=True, elastic=args.elastic,
-                             respawn=args.respawn)
+                             respawn=args.respawn,
+                             jax_distributed=args.jax_distributed)
     except MultihostLaunchError as e:
         print(f"launch: {e}", file=sys.stderr)
         return 1

@@ -48,8 +48,11 @@ base + rank), chaos (a wire-fault dict), chaos_seed,
 die_rank/die_at_commit (that rank closes its channel after that many
 commits and exits rc=3), slo (bool), sparse_uplink (bool).
 
-jax_distributed and local_devices > 1 (an in-program mesh a rank) are
-slice 6c of the port; setting either raises.
+jax_distributed (bool): each rank joins torch.distributed's gloo group
+(`init_multihost`, at the launcher's FEDML_MH_JAX_COORD) before it
+builds its engine; the runner and its digests do not change.
+local_devices > 1 (several ranks behind one host channel) is slice 6c-ii
+of the port and raises.
 """
 import json
 import os
@@ -66,20 +69,17 @@ DEFAULTS = {
     "elastic": False, "hang_rank": None, "hang_at_round": None,
     "hang_s": 20.0, "hb_timeout_s": 2.0, "hb_interval_s": 0.25,
     "round_sleep_s": 0.0, "round_sleep_mode": None,
-    "serve_cluster": None,
+    "serve_cluster": None, "jax_distributed": False, "local_devices": 1,
 }
 
 
 def check_config(cfg: dict) -> None:
-    """Refuse the keys of the tier this slice does not carry, by name."""
-    if cfg.get("jax_distributed"):
-        raise NotImplementedError(
-            "mh_worker: 'jax_distributed' belongs to slice 6c of the "
-            "port, not ported yet")
+    """Refuse the keys of the tier the port does not carry yet, by name."""
     if cfg.get("local_devices", 1) != 1:
         raise NotImplementedError(
-            "mh_worker: local_devices > 1 (an in-program mesh per rank) "
-            "belongs to slice 6c of the port; a rank drives one device")
+            "mh_worker: local_devices > 1 (several ranks behind one host "
+            "channel) belongs to slice 6c-ii of the port; a rank drives "
+            "one device")
     for mode in cfg["modes"]:
         if mode not in ("streaming", "resident"):
             raise ValueError(f"unknown residency mode {mode!r}")
@@ -217,8 +217,13 @@ def main(argv=None) -> int:
                                                     HostChannel,
                                                     MultihostContext,
                                                     MultihostRunner,
+                                                    init_multihost,
                                                     variables_digest)
     ctx = MultihostContext.from_env() or MultihostContext.single()
+    if cfg["jax_distributed"] and ctx.jax_coordinator:
+        init_multihost(coordinator_address=ctx.jax_coordinator,
+                       num_processes=ctx.world, process_id=ctx.rank,
+                       required=True, timeout_s=cfg["channel_timeout_s"])
     n_blocks = cfg["n_blocks"] or ctx.world
     rejoining = (os.environ.get("FEDML_MH_REJOIN") == "1"
                  and ctx.rank != 0)

@@ -42,8 +42,13 @@ the same bits.
   by the survivors, and the round commits the bits the clean run
   commits), and the launcher's ``elastic``/``respawn`` policy.
 
-The in-program mesh tier (`init_multihost`, `make_global_mesh`, the
-hierarchical host mesh, ``jax_distributed``) is slice 6c of the port.
+* The mesh helpers (the client-axis mesh across ranks, parallel/mesh.py):
+  `init_multihost` joins this process into torch.distributed's gloo
+  group from the FEDML_MH_* env (``spawn_cluster(jax_distributed=True)``
+  exports the rendezvous under the JAX package's variable name, so one
+  launch line drives both packages); `make_global_mesh` (every rank),
+  `make_local_mesh` (this process alone) and
+  `make_hierarchical_host_mesh` (a silo row per machine).
 """
 from __future__ import annotations
 
@@ -68,12 +73,16 @@ import torch
 
 from fedml_tpu_torch import obs
 from fedml_tpu_torch.obs import cluster as _cluster
+from fedml_tpu_torch.parallel.mesh import (CLIENT_AXIS, Mesh, make_mesh,
+                                           make_mesh_2d)
+from fedml_tpu_torch.parallel.mesh import world as mesh_world
 
 log = logging.getLogger(__name__)
 
 ENV_RANK = "FEDML_MH_RANK"
 ENV_WORLD = "FEDML_MH_WORLD"
 ENV_COORD = "FEDML_MH_COORD"           # host:port of the HostChannel
+ENV_JAX_COORD = "FEDML_MH_JAX_COORD"   # host:port of the mesh's rendezvous
 
 # ---------------------------------------------------------------------------
 # process context + cluster spawning
@@ -86,6 +95,7 @@ class MultihostContext:
     rank: int
     world: int
     coordinator: str                    # "host:port" of the HostChannel
+    jax_coordinator: Optional[str] = None   # the mesh's rendezvous, when wired
 
     @classmethod
     def from_env(cls) -> Optional["MultihostContext"]:
@@ -97,7 +107,8 @@ class MultihostContext:
             raise ValueError(f"{ENV_RANK}={rank} outside world "
                              f"{world}")
         return cls(rank=rank, world=world,
-                   coordinator=os.environ.get(ENV_COORD, "localhost:0"))
+                   coordinator=os.environ.get(ENV_COORD, "localhost:0"),
+                   jax_coordinator=os.environ.get(ENV_JAX_COORD))
 
     @classmethod
     def single(cls) -> "MultihostContext":
@@ -142,7 +153,8 @@ def spawn_cluster(cmd: list[str], procs: int, *,
                   coordinator_port: Optional[int] = None,
                   elastic: bool = False,
                   respawn: bool = False,
-                  kill_grace_s: float = 5.0) -> list[str]:
+                  kill_grace_s: float = 5.0,
+                  jax_distributed: bool = False) -> list[str]:
     """Fork `procs` copies of `cmd` wired as one cluster (env
     FEDML_MH_RANK/WORLD/COORD); returns each rank's stdout, rank-ordered
     (a respawned rank's incarnations joined in order).
@@ -162,12 +174,18 @@ def spawn_cluster(cmd: list[str], procs: int, *,
     handshake (ElasticChannel).
 
     `echo` streams each child's stderr line-prefixed (`[rank i]`).  The
-    coordinator binds `coordinator_port`, or a free port when None."""
+    coordinator binds `coordinator_port`, or a free port when None.
+
+    `jax_distributed` also exports FEDML_MH_JAX_COORD, the rendezvous
+    `init_multihost` joins torch.distributed's group at: port
+    `coordinator_port` + 1 when a port is given (keep both above the
+    ephemeral range), else another free port."""
     outs, _report = spawn_cluster_report(
         cmd, procs, env=env, timeout_s=timeout_s, echo=echo,
         coordinator_host=coordinator_host,
         coordinator_port=coordinator_port, elastic=elastic,
-        respawn=respawn, kill_grace_s=kill_grace_s)
+        respawn=respawn, kill_grace_s=kill_grace_s,
+        jax_distributed=jax_distributed)
     return outs
 
 
@@ -179,7 +197,8 @@ def spawn_cluster_report(cmd: list[str], procs: int, *,
                          coordinator_port: Optional[int] = None,
                          elastic: bool = False,
                          respawn: bool = False,
-                         kill_grace_s: float = 5.0
+                         kill_grace_s: float = 5.0,
+                         jax_distributed: bool = False
                          ) -> tuple[list[str], dict]:
     """spawn_cluster plus a per-rank outcome report: ({rank stdouts},
     {"ranks": {r: {"rc", "outcome", "respawned", "incarnations",
@@ -197,6 +216,11 @@ def spawn_cluster_report(cmd: list[str], procs: int, *,
     base_env = {**os.environ, **(env or {}),
                 ENV_WORLD: str(procs), ENV_COORD: coord}
     base_env.pop("FEDML_MH_REJOIN", None)
+    base_env.pop(ENV_JAX_COORD, None)
+    if jax_distributed:
+        dist_port = (free_port() if coordinator_port is None
+                     else coordinator_port + 1)
+        base_env[ENV_JAX_COORD] = f"{coordinator_host}:{dist_port}"
     # per-rank incarnations (a respawn appends a second one)
     incarnations: list[list[subprocess.Popen]] = [[] for _ in range(procs)]
     bufs: dict[tuple[int, int], tuple[list, list]] = {}
@@ -354,6 +378,118 @@ def spawn_cluster_report(cmd: list[str], procs: int, *,
                     for g in range(len(incarnations[r])))
             for r in range(procs)]
     return outs, report
+
+
+# ---------------------------------------------------------------------------
+# the mesh helpers: torch.distributed's group and the meshes over it
+# ---------------------------------------------------------------------------
+
+def init_multihost(coordinator_address: Optional[str] = None,
+                   num_processes: Optional[int] = None,
+                   process_id: Optional[int] = None,
+                   required: bool = False,
+                   timeout_s: float = 300.0) -> None:
+    """Join this process into torch.distributed's gloo group (idempotent).
+
+    Arguments left None come from the launcher's env: the rendezvous
+    ``host:port`` from FEDML_MH_JAX_COORD (the JAX package's name for
+    it), the world and rank from FEDML_MH_WORLD / FEDML_MH_RANK.  With no
+    arguments on a single process it is a no-op, and a failure is logged,
+    not raised.  With EXPLICIT arguments, or `required=True`, a failure
+    raises: training independent replicas without a word would corrupt
+    the run.  A rank that cannot join before `timeout_s` raises too (the
+    same deadline bounds every later collective)."""
+    import datetime
+
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return
+    explicit = (required or coordinator_address is not None
+                or num_processes is not None or process_id is not None)
+    coord = coordinator_address or os.environ.get(ENV_JAX_COORD)
+    world = (num_processes if num_processes is not None
+             else int(os.environ[ENV_WORLD]) if ENV_WORLD in os.environ
+             else None)
+    rank = (process_id if process_id is not None
+            else int(os.environ[ENV_RANK]) if ENV_RANK in os.environ
+            else None)
+    try:
+        if coord is None or world is None or rank is None:
+            raise RuntimeError(
+                f"no rendezvous: {ENV_JAX_COORD}, {ENV_WORLD} and "
+                f"{ENV_RANK} name it (spawn_cluster(jax_distributed=True) "
+                f"exports them)")
+        if world == 1 and not explicit:
+            log.info("multihost: a world of one process; no group")
+            return
+        host = coord.rsplit(":", 1)[0]
+        if host in ("localhost", "127.0.0.1", "::1"):
+            # ranks of one machine: gloo's pairs over loopback, whatever
+            # the hostname resolves to
+            os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{coord}", world_size=int(world),
+            rank=int(rank), timeout=datetime.timedelta(seconds=timeout_s))
+        log.info("multihost: process %d/%d joined the gloo group at %s",
+                 rank, world, coord)
+    except Exception as e:
+        if explicit:
+            raise RuntimeError(
+                f"multi-host initialization failed for coordinator "
+                f"{coord!r}: {e}") from e
+        log.info("multihost init skipped (%s); single-process mode", e)
+
+
+def make_global_mesh(axis_name: str = CLIENT_AXIS) -> Mesh:
+    """1-D mesh over EVERY rank of the group: the cohort axis spans the
+    cluster."""
+    return make_mesh(axis_name=axis_name)
+
+
+def make_local_mesh(axis_name: str = CLIENT_AXIS) -> Mesh:
+    """1-D mesh of THIS process alone (a rank drives one device): the
+    intra-host tier of the two-level runner, which exchanges across
+    processes through its HostChannel instead.  No group, no collective."""
+    rank = mesh_world()[1]
+    return Mesh((axis_name,), np.array([rank], dtype=np.int64), rank)
+
+
+def host_mesh_layout(hosts: list, silos: Optional[int] = None
+                     ) -> tuple[list, int]:
+    """The rank order and silo count of make_hierarchical_host_mesh from
+    each rank's hostname: ranks sorted by (hostname, rank), so a silo row
+    holds one machine's ranks; `silos` defaults to the number of
+    machines.  Warns when one machine holds every silo."""
+    n = len(hosts)
+    machines = len(set(hosts))
+    silos = silos or machines
+    if n % silos:
+        raise ValueError(f"{n} ranks not divisible into {silos} silos")
+    if machines == 1 and silos > 1:
+        log.warning(
+            "make_hierarchical_host_mesh: building %d VIRTUAL silos on one "
+            "machine: every silo row shares this machine, so the "
+            "cross-silo tier rides local links, not the network between "
+            "machines.  This is the dev/test topology; launch each silo's "
+            "ranks on its own machine so the silo tier really crosses "
+            "machines.", silos)
+    return sorted(range(n), key=lambda r: (hosts[r], r)), silos
+
+
+def make_hierarchical_host_mesh(silos: Optional[int] = None) -> Mesh:
+    """2-D (silo x clients) mesh with one silo per machine by default: the
+    inner FedAvg fold stays among one machine's ranks, and only the
+    per-silo means cross machines (SURVEY.md section 2.5, hierarchical
+    aggregation).  Every rank calls it (the hostnames are gathered)."""
+    import torch.distributed as dist
+    n_world, _ = mesh_world()
+    host = socket.gethostname()
+    hosts = [host]
+    if n_world > 1:
+        hosts = [None] * n_world
+        dist.all_gather_object(hosts, host)
+    order, silos = host_mesh_layout(hosts, silos)
+    return make_mesh_2d(n_silos=silos, devices=order)
 
 
 # ---------------------------------------------------------------------------
@@ -1500,7 +1636,14 @@ class ElasticChannel:
         deadline = time.monotonic() + self.timeout_s
         while True:
             missing = [b for b in range(self.n_items) if b not in have]
-            if not missing:
+            # every live member's contribution is read before the result
+            # goes out, even when other ranks already delivered its items
+            # (an incumbent computing under the view before a rejoin ships
+            # the rejoiner's block): a member still writing a contribution
+            # larger than the socket buffers would block on it while this
+            # rank blocks writing that member the result
+            owed = [m for m in self.view.members if m not in arrivals]
+            if not missing and not owed:
                 break
             # rank 0's own outstanding items first (world 1, and the
             # re-adoption right after a view change)
@@ -1528,8 +1671,10 @@ class ElasticChannel:
                                   f"{self.hb_timeout_s:.1f}s (process "
                                   f"hung or stopped)")
             if now > deadline:
-                # whoever still owes an item at the deadline is hung
-                for m in {self.view.owner_of(b) for b in missing} - {0}:
+                # whoever still owes an item or its contribution at the
+                # deadline is hung
+                for m in ({self.view.owner_of(b) for b in missing}
+                          | set(owed)) - {0}:
                     why.setdefault(m, f"owes items at the {self.timeout_s:.0f}"
                                       f"s deadline")
             dead = set(why) & (set(self.view.members) - {0})
@@ -1910,7 +2055,14 @@ class MultihostRunner:
         from fedml_tpu_torch.parallel.carry_codec import (DEFAULT_CHUNK,
                                                           make_carry_codec)
         from fedml_tpu_torch.parallel.engine import MeshFedAvgEngine
-        if not isinstance(engine, MeshFedAvgEngine):
+        from fedml_tpu_torch.parallel.hierarchical import (
+            MeshHierarchicalEngine)
+        if (not isinstance(engine, MeshFedAvgEngine)
+                or isinstance(engine, MeshHierarchicalEngine)):
+            # the hierarchical engine's rounds are group_comm_round
+            # inner rounds per silo: folding its sums flat here would
+            # quietly compute plain FedAvg (its multi-process layout is
+            # the silo-per-machine mesh, make_hierarchical_host_mesh)
             raise ValueError(
                 f"MultihostRunner drives the flat FedAvg-family chunked "
                 f"engines, not {type(engine).__name__}")

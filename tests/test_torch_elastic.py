@@ -386,6 +386,73 @@ def test_elastic_rejoin_snapshot_and_stale_digest_rejected():
     assert any("rejoined" in e for e in out["events"])
 
 
+def _big(item: int, rnd: int) -> bytes:
+    """A 16 MB item: larger than the loopback socket buffers, so a
+    contribution nobody reads blocks its writer."""
+    return np.full(4_000_000, 100 * item + rnd, np.float32).tobytes()
+
+
+def test_elastic_reads_a_rejoiners_contrib_its_stale_incumbent_covered():
+    """After a rejoin, an incumbent that has not yet read the new view
+    computes the rejoiner's block under the old one and ships it first.
+    The coordinator then holds every item, but must still read the
+    rejoiner's own contribution before it writes the result: both
+    writing to each other with full socket buffers would stall until the
+    round's deadline (a stall phase 21 showed on the card under load)."""
+    port = free_base_port(1)
+    n_items, out = 4, {}
+    dialing = threading.Event()
+    big = lambda need, rnd: {b: _big(b, rnd) for b in need}   # noqa: E731
+
+    def exchange(ch, r, rnd):
+        allp, view = ch.exchange(rnd, big(ch.view.assigned(r), rnd),
+                                 lambda need: big(need, rnd))
+        assert all(bytes(allp[b]) == _big(b, rnd) for b in range(n_items))
+        out.setdefault(r, []).append((rnd, view.epoch))
+
+    def coord():
+        ch = _chan(tmh, 0, 3, port, n_items=n_items, timeout_s=20)
+        try:
+            ch.wait_members()
+            exchange(ch, 0, 0)
+            exchange(ch, 0, 1)            # rank 1 dies: epoch 1
+            assert dialing.wait(20)
+            time.sleep(0.5)               # its rejoin hello is pending
+            assert ch.admit_rejoins(2, lambda: b"snap", tag="t") == [1]
+            exchange(ch, 0, 2)            # epoch 2: rank 1 owns block 2
+        finally:
+            ch.close()
+
+    def mortal():
+        ch = _chan(tmh, 1, 3, port, n_items=n_items)
+        exchange(ch, 1, 0)
+        ch.close()
+
+    def incumbent():
+        ch = _chan(tmh, 2, 3, port, n_items=n_items)
+        try:
+            for rnd in range(3):
+                exchange(ch, 2, rnd)      # round 2 under epoch 1: {2, 3}
+        finally:
+            ch.close()
+
+    def rejoiner():
+        time.sleep(1.0)
+        ch = _chan(tmh, 1, 3, port, n_items=n_items, rejoin=True)
+        try:
+            dialing.set()
+            _, resume, _ = ch.rejoin_handshake()
+            time.sleep(1.0)               # the incumbent's copy lands first
+            exchange(ch, 1, resume)
+        finally:
+            ch.close()
+
+    errs = _threads([coord, mortal, incumbent, rejoiner], timeout=60)
+    assert not errs, errs
+    assert out[0][-1] == (2, 2) and out[1][-1] == (2, 2)
+    assert out[2][-1] == (2, 2)
+
+
 def test_elastic_early_contrib_matches_inline_exchange():
     port = free_base_port(1)
     n_items, res = 4, {}

@@ -404,16 +404,16 @@ def test_mh_worker_two_ranks_bitwise_one_rank(tmp_path):
 def test_mh_worker_refuses_later_slices():
     from fedml_tpu_torch.parallel import mh_worker
     base = {**mh_worker.DEFAULTS}
-    # the elastic keys and the serving cluster are ported; a hang needs
-    # the elastic channel's heartbeats
-    for key, val in (("elastic", True), ("serve_cluster", {"commits": 3})):
+    # the elastic keys, the serving cluster and jax_distributed (slice
+    # 6c-i) are ported; a hang needs the elastic channel's heartbeats
+    for key, val in (("elastic", True), ("serve_cluster", {"commits": 3}),
+                     ("jax_distributed", True)):
         mh_worker.check_config({**base, key: val})
     mh_worker.check_config({**base, "elastic": True, "hang_rank": 2})
     with pytest.raises(ValueError, match="elastic"):
         mh_worker.check_config({**base, "hang_rank": 2})
-    for key in ("jax_distributed", "local_devices"):
-        with pytest.raises(NotImplementedError, match="slice 6c"):
-            mh_worker.check_config({**base, key: 2})
+    with pytest.raises(NotImplementedError, match="slice 6c-ii"):
+        mh_worker.check_config({**base, "local_devices": 2})
     with pytest.raises(ValueError, match="residency mode"):
         mh_worker.check_config({**base, "modes": ["mesh"]})
     proc = subprocess.run([sys.executable, "-m",
