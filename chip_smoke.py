@@ -208,16 +208,28 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    tolerance of the flat mesh round of 4, and MeshGossipEngine's ring of
    2 bitwise the ring of one; launches exact per rank, s/round, the
    gathers' walls and bytes and peak device memory per rank;
-23. one JSON line of the zoo's, C.1's, the data path's and slices 7a-i's,
-   7a-ii's, 5b-i's, 5b-ii's, 4a's, 4b's, 6a's, 6b's and 6c-i's numbers,
-   one listing every TPU kernel of the JAX package with its port's
-   numbers and its launches on every path, then the last line {"ok":
-   true, "device": {...}}.
+23. slice 6c-ii, the batch axis across ranks, in one cluster of 4 ranks
+   sharing this card (the mesh worker through the launcher; 2-rank arms
+   on disjoint sub-meshes at the same time): 23a the main path on
+   make_mesh_batch(1, 2) (each step's 32 samples split 16 a rank, one
+   host fold of the gradient a step), its launches the one-device
+   round's, one digest, an f32 arm within phase 4's limits of the
+   one-device round, and both GroupNorm kernels at N = 16; 23b norm_clip
+   on make_mesh_batch(2, 2); 23c stream_block over 2 ranks against the
+   streaming round and itself, and checkpoint/resume over 2 ranks bitwise
+   the uninterrupted run; 23d the FedGKT, FedSeg, FedGAN and FedNAS mesh
+   variants and the data-parallel CentralizedTrainer (ResNet-56 with
+   BatchNorm folded over the ranks) against their one-device runs here;
+24. one JSON line of the zoo's, C.1's, the data path's and slices 7a-i's,
+   7a-ii's, 5b-i's, 5b-ii's, 4a's, 4b's, 6a's, 6b's, 6c-i's and 6c-ii's
+   numbers, one listing every TPU kernel of the JAX package with its
+   port's numbers and its launches on every path, then the last line
+   {"ok": true, "device": {...}}.
 
 It needs one card; it imports nothing of JAX or of fedml_tpu.
-``python3 chip_smoke.py --phase 19`` (or ``--phase 20``, ``--phase 21``
-or ``--phase 22``) builds the kernels and runs that phase alone (a
-quicker check of that slice; it prints no kernel line).
+``python3 chip_smoke.py --phase 19`` (or ``--phase 20``, ``--phase 21``,
+``--phase 22`` or ``--phase 23``) builds the kernels and runs that phase
+alone (a quicker check of that slice; it prints no kernel line).
 """
 from __future__ import annotations
 
@@ -345,6 +357,8 @@ BATCH, SAMPLES, BATCHES = 32, 390, 13
 MAIN_CLIENTS, MAIN_CHUNK, MAIN_ROUNDS = 8, 2, 3
 R56_ROUNDS = 2                 # phase 11 (cut from 3 to hold the script's time)
 R56_PROFILED = 1               # phase 11's profiled clients (cut from 2 likewise)
+PROFILED_BATCHES = 4           # batches of phases 11 and 14's profiled rounds
+#                                (cut from 13 to hold the script's time)
 SIDE_CLIENTS = 4               # phases 7 and 9
 BN_RANGE = "fedml_batch_norm"  # the profiled BatchNorm forwards' range
 # the TPU kernel each port kernel replaces: (the pl.pallas_call that
@@ -1503,7 +1517,8 @@ def phase_resnet56_path(gen: torch.Generator) -> dict:
     against its plain version at [2, 860,160]; a round whose global
     statistics must equal the plain weighted mean of the clients' trained
     statistics rows (within 1e-6 of sum_k |w_k v_k| / sum(w), computed in
-    f64 on the host); and a profiled round of R56_PROFILED client(s)."""
+    f64 on the host); and a profiled round of R56_PROFILED client(s),
+    PROFILED_BATCHES batches each."""
     torch.backends.cudnn.allow_tf32 = True
     data = synthetic_data(MAIN_CLIENTS, SAMPLES, seed=5)
     cfg = FedConfig(model="resnet56", dataset="cifar10",
@@ -1589,7 +1604,7 @@ def phase_resnet56_path(gen: torch.Generator) -> dict:
           f"abs err {err:.3e} (limit 1e-6 of sum|w v| / sum w)")
     # the profile reads a round of R56_PROFILED client(s): a whole round's
     # trace (~300,000 events) takes minutes to read
-    sub = {k: v[:R56_PROFILED] for k, v in cohort.items()}
+    sub = {k: v[:R56_PROFILED, :PROFILED_BATCHES] for k, v in cohort.items()}
     sub_round = lambda: engine.round_fn_streaming(variables, (), sub,
                                                   weights[:R56_PROFILED])
     sub_round()
@@ -2273,7 +2288,8 @@ def phase_gkt_path() -> dict:
     batches of 32, client SGD at lr 0.1, the server's SGD with momentum
     0.9 and wd 1e-4; GKT_ROUNDS rounds, then one evaluation; exact GroupNorm
     launch counts; each phase's share of the round; then a round of
-    GKT_PROFILED of the clients, timed and under the profiler."""
+    GKT_PROFILED of the clients (PROFILED_BATCHES batches each), timed and
+    under the profiler."""
     data = synthetic_data(MAIN_CLIENTS, SAMPLES, seed=0)
     cfg = FedConfig(dataset="cifar10", client_num_in_total=MAIN_CLIENTS,
                     client_num_per_round=MAIN_CLIENTS, epochs=1,
@@ -2348,13 +2364,15 @@ def phase_gkt_path() -> dict:
           f"rounds 2-{GKT_ROUNDS}; client phase {share['client']:.1%}, server "
           f"phase {share['server']:.1%} of the round ({card_line()})")
     print(f"[fedgkt path] launches {counts} == expected")
-    # the busy share from a round of 1 of the 8 clients (the same steps per
-    # client; a whole round's trace takes minutes of host time to read)
+    # the busy share from a round of 1 of the 8 clients, PROFILED_BATCHES
+    # of its batches (the same steps per client; a whole round's trace
+    # takes minutes of host time to read)
     for name in totals:
         delattr(engine, name)                      # the untimed methods again
-    sub = {k: v[:GKT_PROFILED] for k, v in shards.items()}
-    sub_round = lambda: engine.train_round(flats[:GKT_PROFILED], sp, opt,
-                                           slog[:GKT_PROFILED], sub)
+    sub = {k: v[:GKT_PROFILED, :PROFILED_BATCHES] for k, v in shards.items()}
+    sub_round = lambda: engine.train_round(
+        flats[:GKT_PROFILED], sp, opt,
+        slog[:GKT_PROFILED, :PROFILED_BATCHES], sub)
     sub_round()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2447,7 +2465,7 @@ NAS_MODES = ("first_order", "unrolled", "gdas")
 NAS_FULL = dict(C=16, layers=8, steps=4, multiplier=4)      # the published
 NAS_MICRO = dict(C=4, layers=1, steps=2, multiplier=2)      # the tests' space
 NAS_PARAMS, RETRAIN_C, RETRAIN_LAYERS = 1_987_194, 36, 20
-NAS_CLIENTS, NAS_BATCHES, NAS_LR = 4, 4, 0.025
+NAS_CLIENTS, NAS_BATCHES, NAS_LR = 4, 2, 0.025   # batches cut from 4
 # GroupNorm launches (forward, backward) of one local-search step, a train
 # and a validation batch, by mode.  Full depth: 705 layers a forward; the
 # w step runs all 705 backward, the first-order alpha step the 629 whose
@@ -2714,7 +2732,7 @@ def phase_fednas_path() -> dict:
     """The slice's path: FedNAS at the published DARTS widths
     (DartsSearchNetwork C 16, 8 cells, 4 steps), f32, on NAS_CLIENTS
     CIFAR-10-shaped clients of NAS_BATCHES batches of 32 (the interleaved
-    split: 2 train and 2 validation batches each), the published
+    split: a train and a validation batch each), the published
     optimizers (w: clip 5, wd 3e-4, SGD lr 0.025 momentum 0.9; alphas:
     Adam 3e-4, b1 0.5, wd 1e-3): NAS_PATH_ROUNDS (1 first-order round on 2
     of the clients, 1 exact second-order round on 1, 1 GDAS round on 2),
@@ -5843,8 +5861,8 @@ def mesh_case(tmp: Path, name: str, data_paths: dict, arms: list) -> Path:
     return path
 
 
-def mesh_launch(path: Path, procs: int) -> dict:
-    """One phase-22 cluster through ``python -m
+def mesh_launch(path: Path, procs: int, tag: str = "22") -> dict:
+    """One phase-22 (or `tag`) cluster through ``python -m
     fedml_tpu_torch.parallel.launch --jax-distributed``: each rank's JSON
     line, by rank.  Any rank's failure fails the phase."""
     root = str(Path(__file__).resolve().parent)
@@ -5863,8 +5881,8 @@ def mesh_launch(path: Path, procs: int) -> dict:
         if m:
             docs[int(m.group(1))] = json.loads(m.group(2))
     if proc.returncode != 0 or sorted(docs) != list(range(procs)):
-        raise AssertionError(f"22: the {procs}-rank mesh cluster failed: rc "
-                             f"{proc.returncode}\n{proc.stderr[-4000:]}")
+        raise AssertionError(f"{tag}: the {procs}-rank mesh cluster failed: "
+                             f"rc {proc.returncode}\n{proc.stderr[-4000:]}")
     return dict(docs=docs, wall_s=time.perf_counter() - t0)
 
 
@@ -6083,6 +6101,519 @@ def phase_slice6c_i(slice6a: Optional[dict] = None) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 23: slice 6c-ii, the batch axis across ranks
+# ---------------------------------------------------------------------------
+
+BX_CLIENTS = 2                 # 23a: the batch-split main path's clients
+BX_BATCHES = 4                 # 23a's f32 arm, 23b, 23c: batches a client
+BX_STREAM = dict(clients=8, block=4)     # 23c: the block-streamed cohort
+BX_CKPT = dict(clients=4, batches=2, rounds=4, resume_after=1)
+BX_GKT = dict(clients=4, batches=2)      # 23d: FedGKT at full width
+BX_CENTRAL_BATCHES = 2         # 23d: ResNet-56 steps of 32 (16 a rank)
+BX_STREAM_REL = 1e-6           # 23c: block stream against the streaming round
+# 23d: the client-split variants against their one-device runs on the
+# card at their CPU tests' tolerances (tests/test_torch_mesh_algorithms.py);
+# FedGKT's server phase splits every step's batch, so its f32 sums regroup
+# each step: held to phase 4's limits (the update within 1e-3 of its norm,
+# 1e-2 in any leaf); ResNet-56's f32 BatchNorm step is ill-conditioned at
+# init (f32 and f64 runs on the CPU differ by ~12 % of the update in two
+# steps), so the centralized mesh run is held to the exact (f64, CPU)
+# run: no further from it than twice the one-device f32 run, or 1e-3
+BX_TOL = {"d_seg": dict(rtol=2e-4, atol=2e-5),
+          "d_gan": dict(rtol=0.1, atol=0.01),
+          "d_nas": dict(rtol=3e-4, atol=3e-5)}
+BX_LO, BX_HI = [0, 1], [2, 3]  # the 2-rank sub-meshes of the 4-rank world
+
+
+def gn_half_batch(gen: torch.Generator) -> list:
+    """Both GroupNorm kernels at the main path's stage shapes with the
+    batch split over 2 ranks (N = 16), bf16 x and bf16 gamma/beta as the
+    main path holds them, against their plain versions (gn_check's
+    tolerances), each with its device time beside its bound."""
+    recs = []
+    for shape in GN_STAGES:
+        shape = (shape[0] // 2,) + tuple(shape[1:])
+        N, H, W, C = shape
+        x, dy, g16, b16 = stage_inputs(shape, gen)
+        err_f, err_b = gn_check(x, dy, g16, b16, f"{shape} bf16, N=16")
+        _, mean, rstd = gn_forward_plain(x, g16, b16, GROUPS, FLAX_EPS)
+        elems, stats = x.numel(), 2 * N * GROUPS * 4
+        rec = dict(
+            shape=list(shape), groups=GROUPS, max_abs_err=[err_f, err_b],
+            fwd_ms=cuda_ms(lambda: gn_forward(x, g16, b16, GROUPS, FLAX_EPS)),
+            bwd_ms=cuda_ms(lambda: gn_backward(x, dy, g16, mean, rstd,
+                                               GROUPS)),
+            fwd_plain_ms=cuda_ms(lambda: gn_forward_plain(
+                x, g16, b16, GROUPS, FLAX_EPS)),
+            bwd_plain_ms=cuda_ms(lambda: gn_backward_plain(
+                x, dy, g16, mean, rstd, GROUPS)),
+            fwd_bound=bound_ms(2 * elems * 2 + 2 * C * 2 + stats, 8 * elems),
+            bwd_bound=bound_ms(3 * elems * 2 + C * 2 + stats + 2 * C * 2,
+                               12 * elems))
+        recs.append(rec)
+        print(f"[23] GroupNorm {list(shape)} bf16 G={GROUPS}: max abs err y "
+              f"{err_f:.3e}, dx {err_b:.3e}; forward {rec['fwd_ms'] * 1e3:.2f}"
+              f" us (plain {rec['fwd_plain_ms'] * 1e3:.2f}, bound "
+              f"{rec['fwd_bound'][0] * 1e3:.2f}), backward "
+              f"{rec['bwd_ms'] * 1e3:.2f} us (plain "
+              f"{rec['bwd_plain_ms'] * 1e3:.2f}, bound "
+              f"{rec['bwd_bound'][0] * 1e3:.2f}) ({card_line()})")
+    return recs
+
+
+def bx_expected(steps: int, evals: int, wsum: int = 0, sqnorm: int = 0,
+                clip_agg: int = 0) -> dict:
+    """One rank's ResNet-18-GN launches: `steps` training steps, `evals`
+    evaluations of the 2 eval batches, and the chunk folds' kernels."""
+    return {"gn_forward": 20 * (steps + 2 * evals), "gn_backward": 20 * steps,
+            "wsum": wsum, "sqnorm": sqnorm, "clip_agg": clip_agg}
+
+
+def bx_inputs(tmp: Path) -> tuple[dict, dict]:
+    """Phase 23's data and initial weights, pickled and torch.saved for
+    the ranks: (paths by key, the objects by key)."""
+    trainer, _, _ = main_recipe()
+    gw = lambda: torch.Generator().manual_seed(0)      # noqa: E731
+    data = {
+        "a": synthetic_data(BX_CLIENTS, SAMPLES, seed=0),
+        "a4": synthetic_data(BX_CLIENTS, BX_BATCHES * BATCH, seed=1),
+        "b": synthetic_data(4, BX_BATCHES * BATCH, seed=2),
+        "c": synthetic_data(BX_STREAM["clients"], BX_BATCHES * BATCH, seed=3),
+        "ck": synthetic_data(BX_CKPT["clients"], BX_CKPT["batches"] * BATCH,
+                             seed=4),
+        "gkt": synthetic_data(BX_GKT["clients"], BX_GKT["batches"] * BATCH,
+                              seed=5),
+        "seg": load_data("pascal_voc", client_num_in_total=4, batch_size=8,
+                         seed=0),
+        "gan": zoo_data("mnist", 2, BATCH, BATCH, seed=15),
+        "nas": synthetic_data(NAS_CLIENTS, NAS_BATCHES * BATCH, seed=0)}
+    cifar = synthetic_data(2, BX_CENTRAL_BATCHES * BATCH // 2, seed=6)
+    data["central"] = dataclasses.replace(cifar, train_global={
+        k: v.reshape((-1,) + v.shape[2:])
+        for k, v in cifar.client_shards.items()})
+    weights = {
+        "main": trainer.init(gw(), "cpu"),
+        "gkt": (FlatModel(ResNetClientGKT()).init(gw(), "cpu"),
+                FlatModel(ResNetServerGKT()).init(gw(), "cpu")),
+        "seg": ClientTrainer(create_model("segnet", 21)).init(gw(), "cpu"),
+        "gan": FedGANEngine(Generator(), Discriminator(), data["gan"],
+                            FedConfig(), device="cpu").init_params(gw()),
+        "nas": nas_engine(data["nas"], "first_order", device="cpu",
+                          lr=NAS_LR).init_state(gw()),
+        "central": ClientTrainer(create_model("resnet56", 10)).init(gw(),
+                                                                    "cpu")}
+    paths = {}
+    for key, d in data.items():
+        paths[key] = str(tmp / f"bx_{key}.pkl")
+        with open(paths[key], "wb") as f:
+            pickle.dump(d, f)
+    for key, w in weights.items():
+        paths[f"w_{key}"] = str(tmp / f"bx_w_{key}.pt")
+        torch.save(w, paths[f"w_{key}"])
+    return paths, {"data": data, "weights": weights}
+
+
+def bx_case(tmp: Path, paths: dict) -> Path:
+    """Phase 23's mesh worker case: 23b on all 4 ranks, then 23a, the
+    block stream and the FedGKT and centralized arms on ranks 0-1 while
+    the checkpoint and the FedSeg, FedGAN and FedNAS arms run on ranks 2-3
+    (disjoint sub-meshes run at the same time)."""
+    _, _, cfg = main_recipe()
+    base = {k: getattr(cfg, k) for k in (
+        "model", "dataset", "epochs", "batch_size", "lr",
+        "frequency_of_the_test")}
+    def n(c):
+        return {"client_num_in_total": c, "client_num_per_round": c}
+    bf16 = dict(chunk=MAIN_CHUNK, local_dtype="bfloat16", streaming=True)
+    lo = {"kind": "1d", "devices": BX_LO}
+    hi = {"kind": "1d", "devices": BX_HI}
+    split = {"kind": "batch", "n_clients": 1, "n_batch": 2, "devices": BX_LO}
+    f32 = {"lr": cfg.lr, "train_dtype": "float32"}
+    ck = dict(engine="fedopt", cfg={**n(BX_CKPT["clients"]),
+                                    "server_optimizer": "adam",
+                                    "server_lr": 0.05}, mesh=hi,
+              data=paths["ck"], engine_kw=bf16)
+    ck_dir = str(tmp / "bx_ckpt")
+    nas = nas_engine(synthetic_data(1, BATCH, seed=0), "first_order",
+                     device="cpu", lr=NAS_LR).cfg
+    arms = [
+        dict(tag="b_clip", engine="robust", rounds=1, data=paths["b"],
+             cfg={**n(4), "stddev": 0.0},
+             mesh={"kind": "batch", "n_clients": 2, "n_batch": 2},
+             engine_kw={**bf16, "defense": "norm_clip"}),
+        dict(tag="a_bf16", engine="fedavg", rounds=1, data=paths["a"],
+             cfg=n(BX_CLIENTS), mesh=split, engine_kw=bf16),
+        dict(tag="a_f32", engine="fedavg", rounds=1, data=paths["a4"],
+             cfg=n(BX_CLIENTS), mesh=split, trainer=f32, save=True,
+             engine_kw={"chunk": MAIN_CHUNK, "streaming": True}),
+        *[dict(tag=tag, engine="fedavg", rounds=1, data=paths["c"],
+               cfg=n(BX_STREAM["clients"]), mesh=lo, save=True,
+               engine_kw={**bf16, **kw})
+          for tag, kw in (("c_block", {"stream_block": BX_STREAM["block"]}),
+                          ("c_block_again",
+                           {"stream_block": BX_STREAM["block"]}),
+                          ("c_stream", {}))],
+        dict(tag="d_gkt", engine="fedgkt", rounds=1, data=paths["gkt"],
+             weights=paths["w_gkt"], save=True, mesh=lo,
+             cfg={**n(BX_GKT["clients"]), "lr": 0.05},
+             gkt={"client": {"factory": "fedml_tpu_torch.models.resnet_gkt:"
+                                        "ResNetClientGKT"},
+                  "server": {"factory": "fedml_tpu_torch.models.resnet_gkt:"
+                                        "ResNetServerGKT"}}),
+        dict(tag="d_central", engine="centralized", rounds=1,
+             data=paths["central"], weights=paths["w_central"], save=True,
+             mesh=lo, cfg={**base, **n(2)},
+             model={"name": "resnet56", "output_dim": 10}, trainer=f32),
+        {**ck, "tag": "c_ckpt_full", "rounds": BX_CKPT["rounds"],
+         "save": True},
+        {**ck, "tag": "c_ckpt_first", "rounds": BX_CKPT["resume_after"] + 1,
+         "ckpt": {"dir": ck_dir, "every": 1}},
+        {**ck, "tag": "c_ckpt_resumed", "rounds": BX_CKPT["rounds"],
+         "save": True, "ckpt": {"dir": ck_dir, "every": 1, "resume": True}},
+        dict(tag="d_seg", engine="fedseg", rounds=1, data=paths["seg"],
+             weights=paths["w_seg"], save=True, mesh=hi,
+             cfg={**n(4), "batch_size": 8, "lr": 0.05,
+                  "train_ignore_id": 255},
+             model={"name": "segnet", "output_dim": 21},
+             trainer={"lr": 0.05, "has_time_axis": True,
+                      "train_ignore_id": 255, "train_dtype": "float32"}),
+        dict(tag="d_gan", engine="fedgan", rounds=1, data=paths["gan"],
+             weights=paths["w_gan"], save=True, mesh=hi,
+             cfg={**n(2), "lr": 0.001}, gan={"out_dim": 784}),
+        dict(tag="d_nas", engine="fednas", rounds=1, data=paths["nas"],
+             weights=paths["w_nas"], save=True, mesh=hi,
+             cfg={k: getattr(nas, k) for k in base if k not in (
+                 "model", "dataset")} | n(NAS_CLIENTS),
+             engine_kw={**NAS_FULL, "num_classes": 10})]
+    case = dict(data=paths["a"], weights=paths["w_main"], out=str(tmp),
+                deterministic=True, tf32=False, timeout_s=MESH_TIMEOUT_S,
+                model={"name": "resnet18_gn", "output_dim": 10},
+                trainer={"lr": cfg.lr, "train_dtype": "bfloat16"},
+                cfg={**base, **n(BX_CLIENTS)}, arms=arms)
+    path = tmp / "bx.json"
+    path.write_text(json.dumps(case))
+    return path
+
+
+def bx_one_card(inputs: dict) -> dict:
+    """The one-device runs on this card that phase 23's ranks are held
+    against (cuDNN deterministic, TF32 off): 23a's two rounds (their
+    launches and the f32 model), and every 23d algorithm from the same
+    weights."""
+    f32_off()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data, w = inputs["data"], inputs["weights"]
+    trainer, _, cfg = main_recipe()
+    cuda = lambda t: {k: v.cuda() for k, v in t.items()}     # noqa: E731
+    out = {}
+
+    def timed(tag, fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        v = fn()
+        torch.cuda.synchronize()
+        out[tag] = dict(variables={k: t.detach().cpu() for k, t in v.items()},
+                        launches=launch_counts(),
+                        wall_s=time.perf_counter() - t0)
+
+    def fcfg(n, **kw):
+        return FedConfig(**{**{k: getattr(cfg, k) for k in (
+            "model", "dataset", "epochs", "batch_size", "lr",
+            "frequency_of_the_test")}, "client_num_in_total": n,
+            "client_num_per_round": n, **kw})
+
+    def body():
+        timed("a_bf16", lambda: MeshFedAvgEngine(
+            trainer, data["a"], fcfg(BX_CLIENTS), chunk=MAIN_CHUNK,
+            local_dtype=torch.bfloat16, streaming=True).run(
+                variables=cuda(w["main"]), rounds=1))
+        timed("a_f32", lambda: MeshFedAvgEngine(
+            ClientTrainer(create_model("resnet18_gn", 10), lr=cfg.lr),
+            data["a4"], fcfg(BX_CLIENTS), chunk=MAIN_CHUNK,
+            streaming=True).run(variables=cuda(w["main"]), rounds=1))
+        gkt = FedGKTEngine(ResNetClientGKT(), ResNetServerGKT(), data["gkt"],
+                           fcfg(BX_GKT["clients"], lr=0.05))
+
+        def run_gkt():
+            cps, sp = gkt.run(rounds=1,
+                              params=tuple(cuda(t) for t in w["gkt"]))
+            return {**{f"client{i}.{k}": v for i, cp in enumerate(cps)
+                       for k, v in cp.items()},
+                    **{f"server.{k}": v for k, v in sp.items()}}
+        timed("d_gkt", run_gkt)
+        timed("d_central", lambda: CentralizedTrainer(
+            ClientTrainer(create_model("resnet56", 10), lr=cfg.lr),
+            data["central"], fcfg(2)).run(epochs=1,
+                                          variables=cuda(w["central"])))
+        seg_tr = ClientTrainer(create_model("segnet", 21), lr=0.05,
+                               has_time_axis=True, train_ignore_id=255)
+        timed("d_seg", lambda: FedSegEngine(
+            seg_tr, data["seg"], fcfg(4, batch_size=8, lr=0.05,
+                                      train_ignore_id=255)).run(
+                variables=cuda(w["seg"]), rounds=1))
+        timed("d_gan", lambda: FedGANEngine(
+            Generator(), Discriminator(), data["gan"],
+            fcfg(2, lr=0.001)).run(rounds=1, params=cuda(w["gan"])))
+        nas = nas_engine(data["nas"], "first_order", lr=NAS_LR)
+
+        def run_nas():
+            p, a = nas.run(rounds=1, params=cuda(w["nas"][0]),
+                           alphas=cuda(w["nas"][1]))
+            return {**p, **{f"alpha.{k}": v for k, v in a.items()}}
+        timed("d_nas", run_nas)
+
+    deterministic(body)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    # the centralized run's exact yardstick: f64 on the CPU
+    t0 = time.perf_counter()
+    v = CentralizedTrainer(
+        ClientTrainer(create_model("resnet56", 10).double(), lr=cfg.lr),
+        data["central"], fcfg(2), device="cpu").run(
+            epochs=1, variables={k: t.double() for k, t in
+                                 w["central"].items()})
+    out["d_central_f64"] = dict(variables=v, wall_s=time.perf_counter() - t0)
+    return out
+
+
+def bx_close(tag: str, got: dict, want: dict, rtol: float, atol: float):
+    """(every leaf within rtol/atol, the worst |got - want| beyond atol +
+    rtol |want| as a multiple of it, the max abs difference)."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"23 {tag}: leaves differ: {sorted(got)[:4]} "
+                             f"against {sorted(want)[:4]}")
+    worst = max_abs = 0.0
+    for k in want:
+        d = (got[k].double() - want[k].double()).abs()
+        lim = atol + rtol * want[k].double().abs()
+        worst = max(worst, float((d / lim).max()))
+        max_abs = max(max_abs, float(d.max()))
+    return worst <= 1.0, worst, max_abs
+
+
+def bx_rel(a: dict, b: dict) -> float:
+    """||a - b|| / ||b|| over the whole model."""
+    num = sum(float((a[k].double() - b[k].double()).square().sum())
+              for k in b)
+    den = sum(float(b[k].double().square().sum()) for k in b)
+    return math.sqrt(num / max(den, 1e-30))
+
+
+def phase_slice6c_ii(gen: torch.Generator) -> dict:
+    """Phase 23: the batch axis across ranks on the card, in ONE spawned
+    cluster of 4 ranks sharing this card (the mesh worker through the
+    launcher), against this process's one-device runs of the same work.
+
+    23a: the main path (ResNet-18-GN at full width, bf16 compute and
+    masters, chunk 2) on make_mesh_batch(1, 2): 2 ranks of 16 samples a
+    step, 2 clients of 13 batches, 1 round; both ranks one digest;
+    launches per rank equal to the one-device round's (rank 1 less the
+    evaluation's forwards); the per-step fold's walls and bytes; an f32
+    arm at 4 batches within phase 4's limits of the one-device f32 round
+    (the update within 1e-3 of its norm); and both GroupNorm kernels
+    against their plain versions at N = 16 (gn_half_batch).  23b: 4 ranks
+    on make_mesh_batch(2, 2), norm_clip at 4 batches: one digest, one
+    squared-distance and one clipped-fold launch a rank.  23c:
+    stream_block over 2 ranks (8 clients in blocks of 4, 4 batches)
+    within 1e-6 relative of the 2-rank streaming round, a second run
+    bitwise the first, at most two blocks' share resident a rank; then
+    FedOpt (adam) over 2 ranks, 4 rounds, and a fresh engine resuming
+    after round 1 from the first rank's checkpoint: bitwise the
+    uninterrupted run on both ranks.  23d: FedGKT (full width, 4 clients
+    of 2 batches, 1 round), FedSeg, FedGAN and a first-order FedNAS search
+    round at their phase-14/15 shapes (1 round each), and
+    CentralizedTrainer(mesh=) on ResNet-56 (2 steps of 32, BatchNorm
+    folded over the ranks), each at 2 ranks against its one-device run
+    here (BX_TOL's comment says at what tolerance)."""
+    t0 = time.perf_counter()
+    seconds = {}
+    gn16 = gn_half_batch(gen)
+    seconds["gn at N=16"] = time.perf_counter() - t0
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_bx_"))
+    paths, inputs = bx_inputs(tmp)
+    case = bx_case(tmp, paths)
+    runs, errs = {}, []
+
+    def cluster():
+        try:
+            t1 = time.perf_counter()
+            runs["cluster"] = mesh_launch(case, 4, tag="23")
+            seconds["cluster"] = time.perf_counter() - t1
+        except Exception as e:       # re-raised below, after the join
+            errs.append(e)
+
+    th = threading.Thread(target=cluster)
+    th.start()
+    t1 = time.perf_counter()
+    ref = bx_one_card(inputs)
+    seconds["one-device references"] = time.perf_counter() - t1
+    th.join()
+    if errs:
+        raise errs[0]
+    docs = runs["cluster"]["docs"]
+    arm = lambda tag, r: docs[r]["arms"][tag]                # noqa: E731
+    saved = lambda tag, r: torch.load(tmp / f"{tag}.rank{r}.pt")  # noqa: E731
+    checks, bad, launches = {}, [], {}
+    groups = {"b_clip": [0, 1, 2, 3], **{t: BX_LO for t in (
+        "a_bf16", "a_f32", "c_block", "c_block_again", "c_stream", "d_gkt",
+        "d_central")}, **{t: BX_HI for t in (
+            "c_ckpt_full", "c_ckpt_first", "c_ckpt_resumed", "d_seg",
+            "d_gan", "d_nas")}}
+    for tag, ranks in groups.items():
+        recs = [arm(tag, r) for r in ranks]
+        checks[f"{tag}: one digest on ranks {ranks}"] = (
+            len({r["digest"] for r in recs}) == 1
+            and all(r["finite"] for r in recs))
+        for r, rec in zip(ranks, recs):
+            launches[f"{tag} r{r}"] = rec["launches"]
+    # launches exact per rank; 23a's equal the one-device round's
+    steps_a, steps_a4 = BX_CLIENTS * BATCHES, BX_CLIENTS * BX_BATCHES
+    want = {
+        "a_bf16": lambda r: bx_expected(steps_a, r == 0, wsum=1),
+        "a_f32": lambda r: bx_expected(steps_a4, r == 0, wsum=1),
+        "b_clip": lambda r: bx_expected(2 * BX_BATCHES, r == 0, sqnorm=1,
+                                        clip_agg=1),
+        "c_block": lambda r: bx_expected(4 * BX_BATCHES, r == 0, wsum=2),
+        "c_block_again": lambda r: bx_expected(4 * BX_BATCHES, r == 0,
+                                               wsum=2),
+        "c_stream": lambda r: bx_expected(4 * BX_BATCHES, r == 0, wsum=2),
+        # evaluations: the first round and the last (rank 2 evaluates)
+        "c_ckpt_full": lambda r: bx_expected(
+            2 * BX_CKPT["batches"] * BX_CKPT["rounds"], 2 * (r == 2),
+            wsum=BX_CKPT["rounds"]),
+        "c_ckpt_first": lambda r: bx_expected(
+            2 * BX_CKPT["batches"] * 2, 2 * (r == 2), wsum=2),
+        "c_ckpt_resumed": lambda r: bx_expected(
+            2 * BX_CKPT["batches"] * 2, r == 2, wsum=2)}
+    for tag, fn in want.items():
+        for r in groups[tag]:
+            if arm(tag, r)["launches"] != fn(r):
+                bad.append(f"{tag} rank {r}: {arm(tag, r)['launches']} != "
+                           f"{fn(r)}")
+    one = ref["a_bf16"]["launches"]
+    checks["23a: rank 0's launches == the one-device round's"] = \
+        arm("a_bf16", 0)["launches"] == one
+    # one fold a step, and one of a client's batch counts before its steps
+    checks["23a: the batch split ran (one fold a step on each rank)"] = all(
+        len(arm("a_bf16", r)["batch_fold_walls"]) == steps_a + BX_CLIENTS
+        for r in BX_LO)
+    a32 = saved("a_f32", 0)
+    w0 = inputs["weights"]["main"]
+    dist, worst = update_distance("23a f32", w0, a32, w0,
+                                  ref["a_f32"]["variables"])
+    checks["23a f32: within phase 4's limits of the one-device round"] = (
+        dist <= 1e-3 and worst[0][1] <= 1e-2)
+    # 23c
+    blk, stream = saved("c_block", 0), saved("c_stream", 0)
+    rel = bx_rel(blk, stream)
+    checks[f"23c: block stream within {BX_STREAM_REL} of the streaming "
+           "round"] = rel <= BX_STREAM_REL
+    checks["23c: a second block-streamed run is bitwise the first"] = (
+        same_model(saved("c_block_again", 1), blk)
+        and arm("c_block_again", 0)["digest"] == arm("c_block", 0)["digest"])
+    per_client = sum(np.asarray(v)[0].nbytes for v in
+                     inputs["data"]["c"].client_shards.values())
+    share = BX_STREAM["block"] // len(BX_LO) * per_client
+    peaks = [arm("c_block", r)["peak_block_bytes"] for r in BX_LO]
+    checks["23c: at most two blocks' share resident a rank"] = all(
+        0 < p <= 2 * share for p in peaks)
+    checks["23c: the resumed run is bitwise the uninterrupted one"] = (
+        {arm("c_ckpt_resumed", r)["digest"] for r in BX_HI}
+        == {arm("c_ckpt_full", r)["digest"] for r in BX_HI}
+        and len(arm("c_ckpt_resumed", 2)["round_walls"])
+        == BX_CKPT["rounds"] - BX_CKPT["resume_after"] - 1)
+    # 23d
+    d_rec = {}
+    gkt0 = inputs["weights"]["gkt"]
+    gkt_init = {**{f"client{i}.{k}": v for i in range(BX_GKT["clients"])
+                   for k, v in gkt0[0].items()},
+                **{f"server.{k}": v for k, v in gkt0[1].items()}}
+    gd, gw_ = update_distance("23d d_gkt", gkt_init, saved("d_gkt", 0),
+                              gkt_init, ref["d_gkt"]["variables"])
+    checks["23d d_gkt: within phase 4's limits of the one-device run"] = (
+        gd <= 1e-3 and gw_[0][1] <= 1e-2)
+    c0 = {k: v.double() for k, v in inputs["weights"]["central"].items()}
+    exact = ref["d_central_f64"]["variables"]
+    d_mesh, _ = update_distance("23d d_central", c0, saved("d_central", 0),
+                                c0, exact)
+    d_one, _ = update_distance("23d d_central", c0,
+                               ref["d_central"]["variables"], c0, exact)
+    checks["23d d_central: no further from f64 than 2x one device or 1e-3"] \
+        = d_mesh <= max(2 * d_one, 1e-3)
+    d_rec["d_gkt"] = dict(update_distance=gd, worst_leaf=list(gw_[0]))
+    d_rec["d_central"] = dict(from_f64=d_mesh, one_device_from_f64=d_one,
+                              f64_cpu_s=ref["d_central_f64"]["wall_s"])
+    print(f"[23] d_gkt: 2 ranks against one device: update distance "
+          f"{gd:.3e} (limit 1e-3), worst leaf {gw_[0][0]} {gw_[0][1]:.3e} "
+          f"(limit 1e-2); d_central: 2 ranks {d_mesh:.3e} from the f64 "
+          f"CPU run, one device {d_one:.3e} (limit max(2x, 1e-3)); f64 "
+          f"run {ref['d_central_f64']['wall_s']:.1f} s")
+    for tag in ("d_gkt", "d_central"):
+        d_rec[tag].update(one_device_s=ref[tag]["wall_s"],
+                          ranks_s=[arm(tag, r)["arm_s"] for r in BX_LO],
+                          one_device_launches=ref[tag]["launches"])
+    for tag, tol in BX_TOL.items():
+        r0 = BX_HI[0]
+        ok, worst_x, max_abs = bx_close(tag, saved(tag, r0),
+                                        ref[tag]["variables"], **tol)
+        checks[f"23d {tag}: within {tol} of the one-device run"] = ok
+        d_rec[tag] = dict(within=ok, worst_over_limit=worst_x,
+                          max_abs=max_abs, one_device_s=ref[tag]["wall_s"],
+                          ranks_s=[arm(tag, r)["arm_s"]
+                                   for r in groups[tag]],
+                          one_device_launches=ref[tag]["launches"])
+        print(f"[23] {tag}: 2 ranks against one device: worst |diff| "
+              f"{worst_x:.3f} of the limit {tol}, max abs {max_abs:.3e}; "
+              f"ranks {d_rec[tag]['ranks_s']} s, one device "
+              f"{ref[tag]['wall_s']:.2f} s; launches rank {r0} "
+              f"{arm(tag, r0)['launches']}, one device "
+              f"{ref[tag]['launches']}")
+    for r in (0, 1, 2, 3):
+        for tag in groups:
+            if r not in groups[tag]:
+                continue
+            rec = arm(tag, r)
+            fw, fb = rec["batch_fold_walls"], rec["batch_fold_bytes"]
+            print(f"[23] {tag}, rank {r}: s/round "
+                  + ", ".join(f"{w:.3f}" for w in rec["round_walls"])
+                  + f"; arm {rec['arm_s']:.2f} s; {len(rec['gather_walls'])} "
+                  f"gathers ({sum(rec['gather_bytes'])} B received); "
+                  f"{len(fw)} per-step folds over 'batch', wall median "
+                  f"{statistics.median(fw) if fw else 0.0:.4f} s, sum "
+                  f"{sum(fw):.2f} s, {max(fb, default=0)} B received a "
+                  f"fold; peak device memory {rec['peak_bytes'] / 2**30:.3f}"
+                  f" GiB; launches {rec['launches']}; digest "
+                  f"{rec['digest']}")
+    print(f"[23] 23a one-device round: launches {one}, "
+          f"{ref['a_bf16']['wall_s']:.2f} s; f32 arm update distance "
+          f"{dist:.3e} (limit 1e-3), worst leaf {worst[0][0]} "
+          f"{worst[0][1]:.3e}; 23c block stream against streaming "
+          f"{rel:.3e} relative; peak block bytes {peaks} (two shares "
+          f"{2 * share})")
+    print(f"[23] checks: {checks}; launches exact: {not bad} "
+          f"({card_line()})")
+    if bad or not all(checks.values()):
+        raise AssertionError(f"23: {bad} "
+                             f"{[k for k, v in checks.items() if not v]}")
+    seconds["phase"] = time.perf_counter() - t0
+    print(f"[slice 6c-ii] phase 23 took {seconds['phase']:.1f} s: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+          + f" ({card_line()})")
+    fold = {r: arm("a_bf16", r) for r in BX_LO}
+    return dict(checks=checks, launches=launches, seconds=seconds,
+                gn_half_batch=gn16, algorithms=d_rec,
+                main_fold={r: dict(walls=f["batch_fold_walls"],
+                                   bytes=f["batch_fold_bytes"],
+                                   round_walls=f["round_walls"])
+                           for r, f in fold.items()},
+                f32_update_distance=dist, block_vs_stream=rel,
+                peak_block_bytes=peaks,
+                digests={tag: arm(tag, groups[tag][0])["digest"]
+                         for tag in groups})
+
+
 def phase21_paths(rec: dict) -> dict:
     """Phase 21's paths and their launch counts (each zeroed in its
     process just before its run)."""
@@ -6103,7 +6634,8 @@ def phase20_paths(rec: dict) -> dict:
 def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
                 counts: dict, robust_counts: dict, resnet56: dict,
                 paths: dict, gn_slice7a: list, gn_slice7a_ii: list,
-                messaging_fold_rec: dict, async_folds: dict) -> dict:
+                messaging_fold_rec: dict, async_folds: dict,
+                gn_half: list) -> dict:
     """One entry per ported kernel.  GroupNorm's numbers are per training
     step: its 20 launches, five at each stage shape, summed, with bf16
     gamma/beta (ms_f32_gamma: with f32 gamma; layer_ms_per_step: the
@@ -6114,7 +6646,9 @@ def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
     for the two robust kernels; ``launches_by_path`` gives every path's
     count (each zeroed just before its path ran), and the GroupNorm
     entries carry phase 14's and phase 15's shapes (f32 device time and
-    bound a call), and the fold's entry its finalize form at the messaging
+    bound a call) and phase 23's batch-split shapes (N = 16, bf16, device
+    and plain time and bound a call), and the fold's entry its finalize
+    form at the messaging
     server's [8, P] bf16 rows.  The async server's arrival fold ([1, P]
     f32, accumulate) rides the fold's entry, its screened fold (the
     squared distance and the clipped fold at [1, P] f32) the two robust
@@ -6186,9 +6720,12 @@ def kernel_line(gn_fwd: dict, gn_bwd: dict, fold_rec: dict, robust: dict,
         if e["name"].startswith("gn_"):
             d = "fwd" if e["name"] == "gn_forward" else "bwd"
             for key, recs in (("slice7a_shapes", gn_slice7a),
-                              ("slice7a_ii_shapes", gn_slice7a_ii)):
+                              ("slice7a_ii_shapes", gn_slice7a_ii),
+                              ("slice6c_ii_shapes", gn_half)):
                 e[key] = [dict(shape=r["shape"], groups=r["groups"],
-                               ms=r[f"{d}_ms"], bound_ms=r[f"{d}_bound"][0])
+                               ms=r[f"{d}_ms"], bound_ms=r[f"{d}_bound"][0],
+                               **({"plain_ms": r[f"{d}_plain_ms"]}
+                                  if f"{d}_plain_ms" in r else {}))
                           for r in recs]
     return {"kernels": entries, "still_to_port": STILL_TO_PORT}
 
@@ -6232,6 +6769,9 @@ def main() -> int:
         print(json.dumps({"slice6c_i": phase_slice6c_i()}, default=str))
         return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if sys.argv[1:] == ["--phase", "23"]:
+        print(json.dumps({"slice6c_ii": phase_slice6c_ii(gen)}, default=str))
+        return 0
     seconds = {}
 
     def clock(name, fn, *args):
@@ -6263,14 +6803,15 @@ def main() -> int:
     slice6a = clock("20 slice 6a", phase_slice6a)
     slice6b = clock("21 slice 6b", phase_slice6b)
     slice6c_i = clock("22 slice 6c-i", phase_slice6c_i, slice6a)
+    slice6c_ii = clock("23 slice 6c-ii", phase_slice6c_ii, gen)
     print(json.dumps({"zoo": zoo, "resnet56_path": {
         k: v for k, v in resnet56.items() if k != "fold"},
         "word_lstm": word_lstm, "c1": c1, "data_path": data_path,
         "slice7a": slice7a, "slice7a_ii": slice7a_ii,
         "slice5b_i": slice5b_i, "slice5b_ii": slice5b_ii,
         "slice4a": slice4a, "slice4b": slice4b, "slice6a": slice6a,
-        "slice6b": slice6b, "slice6c_i": slice6c_i, "seconds": seconds},
-        default=str))
+        "slice6b": slice6b, "slice6c_i": slice6c_i,
+        "slice6c_ii": slice6c_ii, "seconds": seconds}, default=str))
     print("[timing] seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {sum(seconds.values()):.1f} ({card})")
@@ -6288,13 +6829,16 @@ def main() -> int:
              "async defended": slice4a["defended"]["launches"],
              "async messaging": slice4a["messaging"]["launches"],
              **phase19_paths(slice4b), **phase20_paths(slice6a),
-             **phase21_paths(slice6b), **slice6c_i["launches"]}
+             **phase21_paths(slice6b), **slice6c_i["launches"],
+             **{f"batch axis {k}": v
+                for k, v in slice6c_ii["launches"].items()}}
     print(json.dumps(kernel_line(gn_fwd, gn_bwd, fold_rec, robust_rec, counts,
                                  robust_counts, resnet56, paths,
                                  slice7a["gn_shapes"],
                                  slice7a_ii["gn_shapes"],
                                  slice5b_i["messaging_path"]["fold"],
-                                 slice4a["stream_vs_drain"])))
+                                 slice4a["stream_vs_drain"],
+                                 slice6c_ii["gn_half_batch"])))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,7 @@ import logging
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from fedml_tpu_torch import obs
@@ -138,6 +139,17 @@ class FedAvgEngine:
         if state and "noise_generator" in state:
             self.noise_generator.set_state(state["noise_generator"])
 
+    def _latest_round(self, ckpt) -> Optional[int]:
+        """The round to resume from: over a mesh of ranks the first rank's
+        reading, which every rank takes from one gather, so no rank reads
+        the directory while the first rank may still be writing it."""
+        if self.mesh is None or self.mesh.size == 1:
+            return ckpt.latest_round()
+        mine = ckpt.latest_round() if self.mesh.is_first else None
+        first = self.mesh.all_gather(
+            np.array([-1 if mine is None else mine], np.int64))[0]
+        return None if int(first[0]) < 0 else int(first[0])
+
     def run(self, variables: Optional[dict] = None,
             rounds: Optional[int] = None, ckpt=None, ckpt_every: int = 0,
             resume: bool = False) -> dict:
@@ -147,20 +159,21 @@ class FedAvgEngine:
         utils.checkpoint.FedCheckpointManager saved every `ckpt_every`
         rounds; with `resume` the run continues from its latest round,
         bitwise as the uninterrupted run (the sampler reseeds per round,
-        each client's generator is keyed on (seed, round, lane))."""
-        if ckpt is not None and self.mesh is not None and self.mesh.size > 1:
-            raise NotImplementedError(
-                "checkpoint and resume across the ranks of a mesh is slice "
-                "6c-ii of the port")
+        each client's generator is keyed on (seed, round, lane)).  Over a
+        mesh of ranks every rank restores from `ckpt` and the first rank
+        alone writes it (the ranks commit the same bits), so a fresh
+        cluster that resumes continues the uninterrupted run bitwise."""
         cfg = self.cfg
         variables = variables if variables is not None else self.init_variables()
         server_state = self.server_init(variables)
         rounds = rounds if rounds is not None else cfg.comm_round
         self._rounds_limit = rounds      # bounds the streaming prefetch
         start = 0
-        if ckpt is not None and resume and ckpt.latest_round() is not None:
+        latest = self._latest_round(ckpt) if ckpt is not None and resume \
+            else None
+        if latest is not None:
             extra = self._resume_state()
-            out = ckpt.restore(variables, server_state,
+            out = ckpt.restore(variables, server_state, round_idx=latest,
                                extra_template=extra)
             start, variables, server_state = out[:3]
             self._load_resume_state(out[3] if extra is not None else None)
@@ -190,8 +203,8 @@ class FedAvgEngine:
                     log.info("round %d: %s", round_idx, stats)
                     if obs.enabled():       # live and peak device memory
                         obs.sample_device_memory()
-                if ckpt is not None and ckpt_every and \
-                        (round_idx + 1) % ckpt_every == 0:
+                if ckpt is not None and ckpt_every and self._evaluates() \
+                        and (round_idx + 1) % ckpt_every == 0:
                     with obs.span("checkpoint", round=round_idx):
                         ckpt.save(round_idx, variables, server_state,
                                   extra_state=self._resume_state())

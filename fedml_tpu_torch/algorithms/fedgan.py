@@ -18,8 +18,17 @@ The clients run one after another; the mean of (G, D) over the cohort is
 one fold-kernel launch (``ops.weighted_mean``) on the card.  The params
 are one dict, the generator's leaves under ``gen.`` and the
 discriminator's under ``disc.`` (the JAX engine's ``{"gen", "disc"}``
-pair under dotted names).  The mesh variant (``make_mesh_fedgan_engine``)
-is slice 6c-ii of the port.
+pair under dotted names).
+
+The mesh variant (``make_mesh_fedgan_engine``, fedgan.py:152-229) splits
+the cohort over a client mesh of ranks, padded with zero-weight repeats
+of client 0 (``pad_ids``); each rank trains its lanes in chunks, folds
+each chunk's [G | D] rows into one f32 sum with the fold kernel, and the
+ranks' [sum w*[G | D], sum w, sum w*d_loss, sum w*g_loss, sum wmask]
+carries fold left in rank order on the host, so both nets and both
+losses cross ranks in ONE fold.  A lane's z comes from the host generator
+of its GLOBAL lane index, as in the one-card round, so the mesh trains
+the one-card round's clients on the one-card round's z.
 """
 from __future__ import annotations
 
@@ -34,7 +43,7 @@ from fedml_tpu_torch.core.sampling import ClientSampler
 from fedml_tpu_torch.core.trainer import (client_generator, make_optimizer,
                                           sigmoid_binary_cross_entropy)
 from fedml_tpu_torch.data.federated import FederatedData
-from fedml_tpu_torch.ops.aggregate import weighted_mean
+from fedml_tpu_torch.ops.aggregate import fold, weighted_mean
 from fedml_tpu_torch.utils.config import FedConfig
 from fedml_tpu_torch.utils.device import resolve_device
 
@@ -150,6 +159,11 @@ class FedGANEngine:
 
     round_fn = _round
 
+    def _round_args(self, round_idx: int) -> tuple:
+        cohort, _ = self.data.cohort(self.sampler.sample(round_idx),
+                                     self.device)
+        return cohort, round_idx
+
     def run(self, rounds: Optional[int] = None,
             params: Optional[dict] = None) -> dict:
         cfg = self.cfg
@@ -157,9 +171,7 @@ class FedGANEngine:
         rounds = rounds if rounds is not None else cfg.comm_round
         for round_idx in range(rounds):
             t0 = time.time()
-            cohort, _ = self.data.cohort(self.sampler.sample(round_idx),
-                                         self.device)
-            params, m = self.round_fn(params, cohort, round_idx)
+            params, m = self.round_fn(params, *self._round_args(round_idx))
             stats = {"round": round_idx, "d_loss": float(m["d_loss"]),
                      "g_loss": float(m["g_loss"]),
                      "round_time": time.time() - t0}
@@ -173,3 +185,70 @@ class FedGANEngine:
         generator = generator or torch.Generator().manual_seed(0)
         z = torch.randn(n, self.latent_dim, generator=generator).to(self.device)
         return self.gen(self._split(params)[0], z)
+
+
+def make_mesh_fedgan_engine(generator, discriminator, data: FederatedData,
+                            cfg: FedConfig, latent_dim: int = 64, mesh=None,
+                            chunk: Optional[int] = None, device=None):
+    """Mesh FedGAN (the module docstring): the cohort of (G, D) local
+    adversarial trainings split over the client axes of `mesh` (this
+    process alone by default); both nets average in one rank-order fold.
+    A factory keeps parallel/ out of this module's imports for one-device
+    users."""
+    from fedml_tpu_torch.parallel.engine import MeshExchange, pad_ids
+    from fedml_tpu_torch.parallel.mesh import client_axes, client_sharding
+    from fedml_tpu_torch.parallel.multihost import make_local_mesh
+
+    class MeshFedGANEngine(FedGANEngine):
+        def __init__(self):
+            super().__init__(generator, discriminator, data, cfg,
+                             latent_dim=latent_dim, device=device)
+            self.mesh = mesh if mesh is not None else make_local_mesh()
+            self.client_axes = client_axes(self.mesh)
+            self.shard = client_sharding(self.mesh)
+            self.exchange = MeshExchange(self.mesh)
+            self.chunk = chunk or 8
+
+        def _round_args(self, round_idx: int) -> tuple:
+            ids, wmask = pad_ids(self.sampler.sample(round_idx),
+                                 self.shard.count)
+            rows = self.shard.rows(len(ids))
+            cohort, _ = self.data.cohort(ids[rows], self.device)
+            return (cohort, torch.from_numpy(wmask[rows]).to(self.device),
+                    round_idx)
+
+        def _mesh_round(self, params: dict, cohort: dict,
+                        wmask: torch.Tensor, round_idx: int):
+            g0, d0 = self._split(params)
+            n_g = g0.numel()
+            k = wmask.shape[0]
+            lane0 = self.shard.index * k
+            num = torch.zeros(n_g + d0.numel(), dtype=torch.float32,
+                              device=self.device)
+            zero = torch.zeros((), dtype=torch.float32, device=self.device)
+            den, dls, gls = zero, zero, zero
+            for c0 in range(0, k, self.chunk):
+                rows, ws = [], []
+                for j in range(c0, min(c0 + self.chunk, k)):
+                    g, d, dl, gl, n = self._local_train(
+                        g0, d0, {key: t[j] for key, t in cohort.items()},
+                        self._draw(round_idx, lane0 + j))
+                    rows.append(torch.cat([g, d]).float())
+                    ws.append(n.float() * wmask[j])
+                    dls = dls + dl * wmask[j]
+                    gls = gls + gl * wmask[j]
+                w = torch.stack(ws).contiguous()
+                fold(num, torch.stack(rows), w)
+                den = den + w.sum()
+            carry = torch.cat([num, torch.stack(
+                [den, dls, gls, wmask.float().sum()])]).to("cpu").numpy()
+            tot = torch.from_numpy(self.exchange.fold(
+                carry, self.client_axes)).to(self.device)
+            den, dls, gls, cnt = (tot[-4 + i] for i in range(4))
+            new = tot[:-4] / den
+            return (self._join(new[:n_g], new[n_g:]),
+                    {"d_loss": dls / cnt, "g_loss": gls / cnt})
+
+        round_fn = _mesh_round
+
+    return MeshFedGANEngine()

@@ -23,8 +23,21 @@ The two nets are flat vectors (``core/flatmodel.py``) stepped by the
 port's optax-equivalent ``Optimizer``: the client's from the config, the
 server's SGD with momentum 0.9 and weight decay 1e-4 at the client lr by
 default (GKTServerTrainer.py:39-44).  The JAX engine vmaps the clients
-and scans the steps; here they run one after another.  The mesh variant
-(``MeshFedGKTEngine``) is slice 6c-ii of the port.
+and scans the steps; here they run one after another.
+
+``MeshFedGKTEngine`` (fedgkt.py:229-313) runs a round over a mesh of
+ranks on two axes, one a phase: the client phase splits the clients over
+the ranks (the stack padded with zero-mask clients, ``pad_cohort``), and
+the server phase splits each distillation step's BATCH over them (the
+reference's one classic-DP use, ``nn.DataParallel`` on the GKT server,
+GKTServerTrainer.py:27-29): the batch axis is padded with mask-0 samples
+to a multiple of the ranks, every rank's loss is its rows' share c_l /
+max(c_g, 1) of the unsplit batch's, and ONE host fold of [gradient |
+loss] a step in rank order gives every rank the same update.  Between
+the phases every rank gathers the client phase's features and logits
+(JAX's in-program all-to-all) and slices its batch rows; each rank
+computes the next round's server logits for its own clients.  ``run``
+returns the real clients only.
 """
 from __future__ import annotations
 
@@ -32,6 +45,7 @@ import logging
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -249,3 +263,157 @@ class FedGKTEngine:
                                         shard["mask"][b])
             correct, count = correct + c, count + n
         return {"test_acc": float(correct) / max(float(count), 1.0)}
+
+
+class MeshFedGKTEngine(FedGKTEngine):
+    """FedGKT over a mesh of ranks (the module docstring); `mesh` defaults
+    to this process alone, where every fold is the identity."""
+
+    def __init__(self, client_model, server_model, data: FederatedData,
+                 cfg: FedConfig, mesh=None, **kw):
+        from fedml_tpu_torch.parallel.engine import MeshExchange
+        from fedml_tpu_torch.parallel.mesh import pad_cohort
+        from fedml_tpu_torch.parallel.multihost import make_local_mesh
+        super().__init__(client_model, server_model, data, cfg, **kw)
+        self.mesh = mesh if mesh is not None else make_local_mesh()
+        self.axes = tuple(self.mesh.axis_names)
+        self.n = self.mesh.size
+        self.index = self.mesh.index(self.axes)
+        self.exchange = MeshExchange(self.mesh)
+        self._real_clients = data.client_num
+        shards = {k: np.asarray(v) for k, v in data.client_shards.items()}
+        w = np.asarray(data.client_num_samples, np.float32)
+        # the stack padded with zero-mask clients (a no-op local phase and
+        # frozen server steps), and each batch padded with mask-0 samples
+        shards, w = pad_cohort(shards, w, self.n)
+        pad_bs = (-shards["mask"].shape[2]) % self.n
+
+        def pad2(a):
+            width = [(0, 0)] * a.ndim
+            width[2] = (0, pad_bs)
+            return np.pad(a, width)
+
+        self._host = {k: pad2(v) for k, v in shards.items()}
+        self._weights = w
+        C, bs = self._host["mask"].shape[0], self._host["mask"].shape[2]
+        self._clients = slice(self.index * C // self.n,
+                              (self.index + 1) * C // self.n)
+        self._rows = slice(self.index * bs // self.n,
+                           (self.index + 1) * bs // self.n)
+
+    def _server_phase_split(self, sp: torch.Tensor, opt_state: dict,
+                            f_s, c_s, y_s, m_s, m_full):
+        """`server_epochs` over the K x B stream of this rank's batch rows
+        (f_s, c_s, y_s, m_s [K*B, bs/n, ...]); `m_full` [K*B, bs] is every
+        rank's mask, so c_g needs no exchange.  Returns (server vector,
+        optimizer state, mean epoch loss)."""
+        c_g = m_full.float().sum(dim=1)
+        real = (c_g > 0).float()
+        epoch_losses = []
+        for _ in range(self.server_epochs):
+            losses = []
+            for i in range(f_s.shape[0]):
+                c_l = m_s[i].float().sum()
+
+                def loss_fn(q, i=i, c_l=c_l):
+                    return self._server_loss(q, f_s[i], c_s[i], y_s[i],
+                                             m_s[i]) * c_l / torch.clamp(
+                        c_g[i], min=1.0)
+
+                leaf = sp.detach().requires_grad_()
+                loss = loss_fn(leaf)
+                (grad,) = torch.autograd.grad(loss, leaf)
+                host = torch.cat([grad.float(), loss.detach().float()
+                                  .reshape(1)]).to("cpu").numpy()
+                tot = torch.from_numpy(self.exchange.fold(
+                    host, self.axes)).to(sp.device)
+                grad, loss = tot[:-1].to(grad.dtype), tot[-1]
+                updates, new_state = self.server_tx.update(grad, opt_state,
+                                                           sp)
+                has = real[i] > 0
+                sp = torch.where(has, sp + updates, sp)
+                opt_state = self.server_tx.select(has, new_state, opt_state)
+                losses.append(loss)
+            epoch_losses.append((torch.stack(losses) * real).sum()
+                                / torch.clamp(real.sum(), min=1.0))
+        return sp, opt_state, torch.stack(epoch_losses).mean()
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's `t` (one shape on every rank) concatenated along
+        axis 0 in rank order, on t's device."""
+        parts = self.exchange.gather(t.detach().to("cpu").numpy(), self.axes)
+        return torch.from_numpy(np.concatenate(parts)).to(t.device)
+
+    def train_round_mesh(self, flats: list, sp: torch.Tensor,
+                         server_opt: dict, server_logits: torch.Tensor,
+                         shards: dict, full_mask: torch.Tensor):
+        """One round: this rank's clients (`shards`, server_logits [Cr, B,
+        bs, classes]), then the batch-split server phase over every
+        client; returns (client vectors, server vector, optimizer state,
+        this rank's clients' server logits, every client's loss, server
+        loss)."""
+        Cr = shards["mask"].shape[0]
+        new_flats, feats, logits, losses = [], [], [], []
+        for c in range(Cr):
+            p, f, lg, loss = self._client_phase(
+                flats[c], {k: v[c] for k, v in shards.items()},
+                server_logits[c])
+            new_flats.append(p)
+            feats.append(f)
+            logits.append(lg)
+            losses.append(loss)
+        # the upload: every client's features and logits on every rank
+        feats = self._gather(torch.stack(feats))        # [C, B, bs, ...]
+        logits = self._gather(torch.stack(logits))
+        losses = self._gather(torch.stack(losses))
+        C, B = feats.shape[:2]
+        fl = lambda a: a.reshape((C * B,) + a.shape[2:])
+        ys = torch.as_tensor(self._host["y"]).to(self.device)
+        sp, server_opt, s_loss = self._server_phase_split(
+            sp, server_opt, fl(feats[:, :, self._rows]),
+            fl(logits[:, :, self._rows]), fl(ys[:, :, self._rows]),
+            fl(full_mask[:, :, self._rows]), fl(full_mask))
+        with torch.no_grad():      # the download: this rank's clients
+            mine = feats[self._clients]
+            slog = torch.stack([torch.stack([self.server(sp, mine[c, b])
+                                             for b in range(B)])
+                                for c in range(Cr)])
+        return new_flats, sp, server_opt, slog, losses, s_loss
+
+    def run(self, rounds: Optional[int] = None, params=None):
+        """Returns (every real client's params, the server's params), the
+        same on every rank; the mesh's first rank evaluates."""
+        cfg = self.cfg
+        cp0, sp0 = params if params is not None else self.init_params()
+        mine = to_device({k: v[self._clients] for k, v in self._host.items()},
+                         self.device)
+        full_mask = torch.as_tensor(self._host["mask"]).to(self.device)
+        Cr, B, bs = mine["mask"].shape[:3]
+        flats = [self.client.flatten(cp0)] * Cr
+        sp = self.server.flatten(sp0)
+        server_opt = self.server_tx.init(sp)
+        server_logits = torch.zeros(Cr, B, bs, self.data.class_num,
+                                    device=self.device)
+        real = torch.as_tensor(self._weights > 0, device=self.device)
+        rounds = rounds if rounds is not None else cfg.comm_round
+        for round_idx in range(rounds):
+            t0 = time.time()
+            flats, sp, server_opt, server_logits, losses, s_loss = \
+                self.train_round_mesh(flats, sp, server_opt, server_logits,
+                                      mine, full_mask)
+            if self.mesh.is_first and (
+                    round_idx % cfg.frequency_of_the_test == 0
+                    or round_idx == rounds - 1):
+                stats = self.evaluate(self.client.unflatten(flats[0]),
+                                      self.server.unflatten(sp))
+                stats.update(round=round_idx,
+                             client_loss=float(
+                                 (losses * real).sum()
+                                 / torch.clamp(real.sum(), min=1)),
+                             server_loss=float(s_loss),
+                             round_time=time.time() - t0)
+                self.metrics_history.append(stats)
+                log.info("gkt round %d: %s", round_idx, stats)
+        every = self._gather(torch.stack(flats))[:self._real_clients]
+        return ([self.client.unflatten(f) for f in every],
+                self.server.unflatten(sp))

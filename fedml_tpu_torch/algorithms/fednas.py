@@ -37,8 +37,16 @@ Where the parity with the JAX engine is not obvious:
   to the device, so the card and the CPU see the same noise; JAX draws
   from its keys, so parity holds given JAX's uniforms.  GDAS evaluates
   the argmax one-hot architecture.
-The mesh variant (``make_mesh_fednas_engine``) belongs to slice 6c-ii of the
-port.
+
+The mesh variant (``make_mesh_fednas_engine``, fednas.py:261-346) splits
+the cohort's bilevel local searches over a client mesh of ranks, padded
+with zero-weight repeats of client 0 (``pad_ids``): each rank folds its
+lanes' [w | alphas] rows into one f32 sum with the fold kernel, chunk by
+chunk, and the ranks' [sum n*[w | alphas], sum n, sum n*loss] carries
+fold left in rank order on the host, so both trees and the loss cross
+ranks in ONE fold.  A lane's generator (its GDAS noise) is keyed on its
+GLOBAL lane index, as in the one-card round.  ``make_train_engine(mesh=)``
+is ``MeshFedAvgEngine`` over the retrain net.
 """
 from __future__ import annotations
 
@@ -62,7 +70,7 @@ from fedml_tpu_torch.models.darts import (PRIMITIVES, DartsNetwork,
                                           DartsSearchNetwork, derive_genotype,
                                           gumbel_uniform, init_alphas,
                                           num_edges, st_gumbel_softmax)
-from fedml_tpu_torch.ops.aggregate import weighted_mean_flat
+from fedml_tpu_torch.ops.aggregate import fold, weighted_mean_flat
 from fedml_tpu_torch.utils.config import FedConfig
 from fedml_tpu_torch.utils.device import resolve_device, to_device
 
@@ -294,13 +302,79 @@ class FedNASSearchEngine:
                                multiplier=self.multiplier)
 
 
+def make_mesh_fednas_engine(data: FederatedData, cfg: FedConfig, mesh=None,
+                            chunk: Optional[int] = None, **nas_kw):
+    """Mesh FedNAS search (the module docstring): the cohort's bilevel
+    local searches split over the client axes of `mesh` (this process
+    alone by default); w and the alphas average in one rank-order fold.
+    A factory keeps parallel/ out of this module's imports for one-device
+    users."""
+    from fedml_tpu_torch.parallel.engine import MeshExchange, pad_ids
+    from fedml_tpu_torch.parallel.mesh import client_axes, client_sharding
+    from fedml_tpu_torch.parallel.multihost import make_local_mesh
+
+    class MeshFedNASSearchEngine(FedNASSearchEngine):
+        def __init__(self):
+            super().__init__(data, cfg, **nas_kw)
+            self.mesh = mesh if mesh is not None else make_local_mesh()
+            self.client_axes = client_axes(self.mesh)
+            self.shard = client_sharding(self.mesh)
+            self.exchange = MeshExchange(self.mesh)
+            self.chunk = chunk or 4
+
+        def _round_args(self, round_idx: int) -> tuple:
+            ids, wmask = pad_ids(self.sampler.sample(round_idx),
+                                 self.shard.count)
+            rows = self.shard.rows(len(ids))
+            cohort, _ = self.data.cohort(ids[rows], self.device)
+            return (cohort, torch.from_numpy(wmask[rows]).to(self.device),
+                    round_idx)
+
+        def round_fn(self, p: torch.Tensor, a: torch.Tensor, cohort: dict,
+                     wmask: torch.Tensor, round_idx: int = 0):
+            k = wmask.shape[0]
+            lane0 = self.shard.index * k
+            num = torch.zeros(p.numel() + a.numel(), dtype=torch.float32,
+                              device=self.device)
+            den = torch.zeros((), dtype=torch.float32, device=self.device)
+            lsum = torch.zeros_like(den)
+            for c0 in range(0, k, self.chunk):
+                rows, ws = [], []
+                for j in range(c0, min(c0 + self.chunk, k)):
+                    gen = client_generator(self.cfg.seed, round_idx,
+                                           lane0 + j, "cpu")
+                    pi, ai, loss, n = self._local_search(
+                        p, a, {key: v[j] for key, v in cohort.items()},
+                        self.cfg.epochs, gen)
+                    rows.append(torch.cat([pi, ai]).float())
+                    ws.append(n.float() * wmask[j])
+                    lsum = lsum + loss * ws[-1]
+                w = torch.stack(ws).contiguous()
+                fold(num, torch.stack(rows), w)
+                den = den + w.sum()
+            carry = torch.cat([num, torch.stack([den, lsum])])
+            tot = torch.from_numpy(self.exchange.fold(
+                carry.to("cpu").numpy(), self.client_axes)).to(self.device)
+            den = torch.clamp(tot[-2], min=1.0)
+            mean = tot[:-2] / den
+            return (mean[:p.numel()].to(p.dtype), mean[p.numel():].to(a.dtype),
+                    {"train_loss": tot[-1] / den})
+
+    return MeshFedNASSearchEngine()
+
+
 def make_train_engine(genotype, data: FederatedData, cfg: FedConfig,
-                      C: int = 36, layers: int = 20, device=None,
+                      C: int = 36, layers: int = 20, device=None, mesh=None,
                       **kw) -> FedAvgEngine:
     """The train phase: FedAvg over the derived DartsNetwork (the
     reference's post-search stage, CI-script-fednas.sh), with SGD at the
-    config's lr, momentum 0.9 and weight decay 3e-4."""
+    config's lr, momentum 0.9 and weight decay 3e-4; with `mesh`, the
+    chunked ``MeshFedAvgEngine`` over it (fednas.py:349-362)."""
     model = DartsNetwork(num_classes=data.class_num, genotype=genotype, C=C,
                          layers=layers)
     trainer = ClientTrainer(model, lr=cfg.lr, momentum=0.9, weight_decay=3e-4)
+    if mesh is not None:
+        from fedml_tpu_torch.parallel.engine import MeshFedAvgEngine
+        return MeshFedAvgEngine(trainer, data, cfg, mesh=mesh, device=device,
+                                **kw)
     return FedAvgEngine(trainer, data, cfg, device=device, **kw)

@@ -17,13 +17,22 @@ import torch
 
 from fedml_tpu_torch.algorithms.fedavg import FedAvgEngine
 from fedml_tpu_torch.ops.aggregate import shift_toward
+from fedml_tpu_torch.utils import axes as mesh_axes
 
 
-def fednova_tau(shard: dict, epochs: int) -> torch.Tensor:
+def fednova_tau(shard: dict, epochs: int, batch_axes=()) -> torch.Tensor:
     """tau = local steps that saw real data: non-empty batches x epochs.
     ``shard["mask"]`` is one client's [B, bs], or [..., B, bs] for a stack
-    of clients (one tau each)."""
-    counts = shard["mask"].sum(dim=-1)
+    of clients (one tau each).  Under a batch split (`batch_axes`, bound
+    by the mesh engine) a step counts when the batch has samples on ANY
+    rank, as the trainer's global empty-batch guard: the per-batch counts
+    fold over the axes first (fednova.py:22-33)."""
+    counts = shard["mask"].float().sum(dim=-1)
+    if batch_axes:
+        env = mesh_axes.lookup(batch_axes)
+        if env.size(batch_axes) > 1:
+            counts = torch.from_numpy(env.fold(
+                counts.to("cpu").numpy(), batch_axes)).to(counts.device)
     return (counts > 0).to(torch.float32).sum(dim=-1) * epochs
 
 

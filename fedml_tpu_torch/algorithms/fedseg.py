@@ -13,7 +13,10 @@ accuracy, per-class accuracy, mIoU and FWIoU, tracked by an
 ``EvaluationMetricsKeeper``.  The trainer must be built with
 ``has_time_axis=True`` (the per-sample mask broadcasts over H, W), and
 with ``train_ignore_id=255`` for VOC's void label.  The mesh variant
-(``make_mesh_fedseg_engine``) is slice 6c-ii of the port.
+(``make_mesh_fedseg_engine``) is ``SegEvalMixin`` over
+``MeshFedAvgEngine`` (fedseg.py:74-87): the round is the mesh engine's,
+over a client mesh of ranks or a batch axis alike, and the mesh's first
+rank evaluates through the same int64 confusion matrix.
 """
 from __future__ import annotations
 
@@ -76,3 +79,18 @@ class FedSegEngine(SegEvalMixin, FedAvgEngine):
     def __init__(self, trainer, data, cfg, device=None):
         super().__init__(trainer, data, cfg, device=device)
         self._init_seg_eval()
+
+
+def make_mesh_fedseg_engine(trainer, data, cfg, mesh=None, **kw):
+    """Mesh FedSeg: the training round IS MeshFedAvgEngine's (the fedseg
+    aggregation is FedAvg, FedSegAggregator.py:1-240); only evaluation
+    differs, supplied by SegEvalMixin.  A factory keeps parallel/ out of
+    this module's imports for one-device users."""
+    from fedml_tpu_torch.parallel.engine import MeshFedAvgEngine
+
+    class MeshFedSegEngine(SegEvalMixin, MeshFedAvgEngine):
+        def __init__(self, trainer, data, cfg, **kw2):
+            super().__init__(trainer, data, cfg, **kw2)
+            self._init_seg_eval()
+
+    return MeshFedSegEngine(trainer, data, cfg, mesh=mesh, **kw)

@@ -48,6 +48,23 @@ Parity with the JAX trainer, where it is not obvious:
 * FedProx: with ``prox_mu`` > 0 and the round's global vector passed as
   ``global_params``, the loss gains (mu/2) * ||p - g||^2 over the
   parameters (trainer.py:298-308).
+* ``batch_axes`` (trainer.py:173-223, 291-326, 396-411): each step's
+  batch is this rank's share of the client's batch, split over the ranks
+  of those mesh axes (a mesh engine binds them, ``utils/axes.py``), and
+  every step's gradient becomes the unsplit batch's.  Before a client's
+  first step one host fold gives each batch's global valid count c_g and
+  real-sample count (the loss's count and the raw mask's); the shard's
+  masked loss is scaled by c_l / max(c_g, 1) and the prox term divided
+  by the axis size; after the backward ONE fold over the axes carries
+  [gradient | loss | collections] in f32, left in mesh order: the
+  gradient is rounded once to its dtype (JAX's CPU psum of bf16 on 2 and
+  4 shards rounds the same way: tests/test_torch_batch_axis.py), the
+  loss summed, the collections averaged (JAX's pmean).  The empty-batch
+  guard, the epoch-loss weights and the returned sample count are the
+  global ones.  Every rank of a group applies the same folded update, so
+  the client's vector stays one set of bits along the axes.  On an axis
+  of one rank nothing is folded or scaled: the step is the unsplit one,
+  bitwise.
 """
 from __future__ import annotations
 
@@ -61,6 +78,7 @@ from torch import nn
 from torch.func import functional_call
 
 from fedml_tpu_torch import obs
+from fedml_tpu_torch.utils import axes as mesh_axes
 from fedml_tpu_torch.models import init_params
 from fedml_tpu_torch.models.layers import in_dtype
 from fedml_tpu_torch.ops.aggregate import spec_of, unflatten_to_tree
@@ -252,11 +270,18 @@ def make_optimizer(name: str, lr, momentum: float = 0.0,
 
 
 def client_generator(seed: int, round_idx: int, client: int,
-                     device) -> torch.Generator:
+                     device, batch_shard: Optional[int] = None
+                     ) -> torch.Generator:
     """The dropout and augmentation generator of one client in one round,
     on `device`, seeded from (seed, round, client) through numpy's
-    SeedSequence."""
-    s = np.random.SeedSequence([seed, round_idx, client]).generate_state(1)[0]
+    SeedSequence; a batch-split client's shards key it on their index too
+    (`batch_shard`), so their draws differ as JAX's fold_in of the axis
+    index makes them."""
+    # shard b keys on b + 1: SeedSequence reads its words as one integer,
+    # so a trailing 0 would be the unsplit client's key
+    key = [seed, round_idx, client] + ([] if batch_shard is None
+                                       else [batch_shard + 1])
+    s = np.random.SeedSequence(key).generate_state(1)[0]
     return torch.Generator(device=device).manual_seed(int(s))
 
 
@@ -284,8 +309,9 @@ class ClientTrainer:
       eval_ignore_id: label id left out of the eval metrics only (<pad>).
       train_ignore_id: label id left out of the training loss and the eval
         metrics (segmentation's void label), remapped to 0 for the gather.
-      batch_axes: per-client batch splitting over a mesh axis, slice 6c-ii of
-        the port (raises).
+      batch_axes: mesh axis names that split each step's batch over
+        ranks (the module docstring); the mesh engines set it on a copy
+        when their mesh has a "batch" axis.
     """
 
     def __init__(self, model: nn.Module, loss: str = "ce",
@@ -298,10 +324,7 @@ class ClientTrainer:
                  batch_axes: tuple = ()):
         if loss not in LOSSES:
             raise ValueError(f"unknown loss {loss!r}")
-        if batch_axes:
-            raise NotImplementedError(
-                "ClientTrainer(batch_axes=...), per-client batch splitting "
-                "over a mesh axis, is slice 6c-ii of the port")
+        self.batch_axes = tuple(batch_axes)
         self.model = model
         self.loss_name = loss
         self.tx = make_optimizer(optimizer, lr, momentum, weight_decay)
@@ -367,7 +390,10 @@ class ClientTrainer:
 
     def _loss(self, p: torch.Tensor, stats: Optional[torch.Tensor],
               batch: dict, global_params: Optional[torch.Tensor],
-              generator: Optional[torch.Generator]) -> torch.Tensor:
+              generator: Optional[torch.Generator],
+              split: Optional[tuple] = None) -> torch.Tensor:
+        """The step's loss; `split` (c_l, c_g, axis size) scales a batch
+        shard's share of it (the module docstring)."""
         x, y, mask = batch["x"], batch["y"], batch["mask"]
         half = self.train_dtype != torch.float32
         variables = unflatten_to_tree(p, self.param_spec,
@@ -385,29 +411,94 @@ class ClientTrainer:
             logits = logits.float()      # the loss in f32
         y, mask = self._masks(y, mask, (self.train_ignore_id,))
         loss = LOSSES[self.loss_name](logits, y, mask)
+        if split is not None:
+            c_l, c_g, _ = split
+            loss = loss * c_l / torch.clamp(c_g, min=1.0)
         if self.prox_mu > 0.0 and global_params is not None:
-            loss = loss + 0.5 * self.prox_mu * (
+            prox = 0.5 * self.prox_mu * (
                 p - global_params[:p.shape[0]]).square().sum()
+            if split is not None:      # counted once by the fold
+                prox = prox / split[2]
+            loss = loss + prox
         return loss
+
+    # -- the batch split ----------------------------------------------------
+    def batch_split_env(self):
+        """The bound environment of `batch_axes` when they span more than
+        one rank, else None (no split: the unsplit step)."""
+        if not self.batch_axes:
+            return None
+        env = mesh_axes.lookup(self.batch_axes)
+        return env if env.size(self.batch_axes) > 1 else None
+
+    def global_counts(self, shard: dict, env) -> torch.Tensor:
+        """[B, 2] f32 on the shard's device: each batch's valid count as
+        the loss counts it (c_g) and its real samples, folded over the
+        batch axes (one host fold a client)."""
+        cl = torch.stack([self._loss_count(shard["y"][b], shard["mask"][b])
+                          for b in range(shard["mask"].shape[0])])
+        local = torch.stack([cl, shard["mask"].float().sum(
+            dim=tuple(range(1, shard["mask"].dim())))], dim=1)
+        folded = env.fold(local.to("cpu").numpy(), self.batch_axes)
+        return torch.from_numpy(folded).to(shard["mask"].device)
+
+    def _loss_count(self, y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """c_l: the valid elements the training loss averages over."""
+        return self._masks(y, mask, (self.train_ignore_id,))[1].float().sum()
+
+    def _fold_step(self, env, grad: torch.Tensor, loss: torch.Tensor,
+                   stats: Optional[torch.Tensor]):
+        """ONE fold of [gradient | loss | collections] over the batch
+        axes, in f32: (gradient in its dtype, summed loss, averaged
+        collections in their dtype)."""
+        parts = [grad.float(), loss.float().reshape(1)]
+        if stats is not None:
+            parts.append(stats.float())
+        host = torch.cat(parts).to("cpu").numpy()
+        out = torch.from_numpy(env.fold(host, self.batch_axes)).to(
+            grad.device)
+        g = out[:grad.numel()].to(grad.dtype)
+        total = out[grad.numel()]
+        if stats is None:
+            return g, total, None
+        n = float(env.size(self.batch_axes))
+        return g, total, (out[grad.numel() + 1:] / n).to(stats.dtype)
 
     # -- one step -----------------------------------------------------------
     def train_step(self, flat: torch.Tensor, batch: dict,
                    opt_state: Optional[dict] = None,
                    global_params: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   counts: Optional[torch.Tensor] = None):
         """(new flat, new optimizer state, loss) after one step on `batch`;
         with no real sample in the batch the loss is 0 and the vector and
         the optimizer state (but a schedule's count) are unchanged.
-        `opt_state` None starts from a fresh state."""
+        `opt_state` None starts from a fresh state.  Under a batch split
+        `counts` is the batch's row of `global_counts` (computed here when
+        None)."""
         if opt_state is None:
             opt_state = self.init_opt(flat)
         n_p, n = self.n_params, self.spec.n
         p = flat[:self.train_len].detach()
         stats = flat[n_p:n].clone() if self.n_stats else None
         leaf = p.detach().requires_grad_()
-        loss = self._loss(leaf, stats, batch, global_params, generator)
+        env = self.batch_split_env()
+        split = None
+        if env is not None:
+            if counts is None:
+                counts = self.global_counts(
+                    {k: v[None] for k, v in batch.items()}, env)[0]
+            split = (self._loss_count(batch["y"], batch["mask"]), counts[0],
+                     float(env.size(self.batch_axes)))
+        loss = self._loss(leaf, stats, batch, global_params, generator,
+                          split)
         (grad,) = torch.autograd.grad(loss, leaf)
-        has_data = batch["mask"].sum() > 0
+        if env is None:
+            has_data = batch["mask"].sum() > 0
+        else:
+            grad, loss, stats = self._fold_step(env, grad, loss.detach(),
+                                                stats)
+            has_data = counts[1] > 0
         updates, new_state = self.tx.update(grad, opt_state, p)
         new = p + updates * has_data.to(p.dtype)
         if self.n_stats:
@@ -427,6 +518,9 @@ class ClientTrainer:
         round's global flat vector, read by the FedProx term; `generator`
         feeds augmentation and dropout."""
         n_batches = shard["mask"].shape[0]
+        env = self.batch_split_env()
+        # a batch split: every batch's global counts, one fold a client
+        glob = self.global_counts(shard, env) if env is not None else None
         # the JAX trainer's span of this name fires once a trace (its body
         # runs under jit); in eager PyTorch it fires once a call, and
         # times the host's enqueue of the client's steps
@@ -438,14 +532,18 @@ class ClientTrainer:
                 for b in range(n_batches):
                     batch = {k: v[b] for k, v in shard.items()}
                     flat, opt_state, loss = self.train_step(
-                        flat, batch, opt_state, global_params, generator)
+                        flat, batch, opt_state, global_params, generator,
+                        None if glob is None else glob[b])
                     losses.append(loss)
-                    counts.append(batch["mask"].sum())
+                    counts.append(batch["mask"].sum() if glob is None
+                                  else glob[b, 1].to(batch["mask"].dtype))
                 losses, counts = torch.stack(losses), torch.stack(counts)
                 # sample-weighted epoch loss: padding batches add nothing
                 epoch_losses.append((losses * counts).sum()
                                     / torch.clamp(counts.sum(), min=1.0))
-        return flat, torch.stack(epoch_losses).mean(), shard["mask"].sum()
+        n = shard["mask"].sum() if glob is None else glob[:, 1].sum().to(
+            shard["mask"].dtype)
+        return flat, torch.stack(epoch_losses).mean(), n
 
     # -- eval ---------------------------------------------------------------
     @torch.no_grad()

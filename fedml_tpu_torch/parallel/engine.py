@@ -55,6 +55,21 @@ are every rank's, and a run is the same bits every time.  No float sum
 goes through an all-reduce.  The order statistics gather each rank's
 trained rows into the replicated [K, P] f32 matrix instead.  A mesh of
 one rank (the default) is the one-card engine, with no collective.
+
+A mesh with a "batch" axis (``make_mesh_batch``) also splits every
+client's per-step batch over the ranks of that axis (engine.py:366-385):
+each rank uploads only its rows of every batch (``_batch_rows``), the
+trainer (a copy, with ``batch_axes``) folds each step's gradient over the
+batch group, and every rank of a batch group trains the same client
+lanes to the same bits.  The cohort pads over the client axes only, and
+each batch column of the mesh folds the round's sums over its own client
+group: the columns hold the same bits, so no client shard is counted
+twice (a column's fold is batch index 0's fold, on every column).  A
+model with collections (BatchNorm statistics) is refused under a batch
+axis unless ``allow_batch_stats=True`` says its BatchNorm is
+``sync_batch_norm(axis_name="batch")``.  The round runs with the mesh's
+axes bound (``utils/axes.py``), which the trainer's fold and the
+synchronized BatchNorm read.
 """
 from __future__ import annotations
 
@@ -79,11 +94,13 @@ from fedml_tpu_torch.core.trainer import ClientTrainer, client_generator
 from fedml_tpu_torch.data.federated import FederatedData
 from fedml_tpu_torch.data.quant import quantize_uint8, spec_from_minmax
 from fedml_tpu_torch.ops.aggregate import client_sqnorms, clip_fold, fold
-from fedml_tpu_torch.parallel.mesh import Mesh, client_axes, client_sharding
+from fedml_tpu_torch.parallel.mesh import (BATCH_AXIS, Mesh, batch_sharding,
+                                           client_axes, client_sharding)
 from fedml_tpu_torch.parallel.multihost import (fold_block_partials,
                                                 make_local_mesh)
 from fedml_tpu_torch.parallel.prefetch import (AsyncValue, InlineFetcher,
                                                Prefetcher, upload)
+from fedml_tpu_torch.utils import axes as mesh_axes
 from fedml_tpu_torch.utils.config import FedConfig
 from fedml_tpu_torch.utils.profiling import TransferOverlapStats
 
@@ -139,13 +156,15 @@ def sums_from_host(trainer: ClientTrainer, flat_sums: np.ndarray,
 
 class MeshExchange:
     """The host exchange of a mesh engine: gather host arrays along mesh
-    axes and fold sums in rank order; each gather's wall and received
-    bytes are kept per call (`walls`, `bytes`)."""
+    axes and fold sums in rank order; each gather's wall, received bytes
+    and axes are kept per call (`walls`, `bytes`, `axes`: the per-step
+    gradient folds are the ("batch",) entries)."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
         self.walls: list[float] = []
         self.bytes: list[int] = []
+        self.axes: list[tuple] = []
 
     def gather(self, array: np.ndarray, axes) -> list:
         if len(self.mesh.axis_ranks(axes)) == 1:
@@ -155,7 +174,14 @@ class MeshExchange:
             parts = self.mesh.all_gather(array, axes)
         self.walls.append(time.perf_counter() - t0)
         self.bytes.append(int(array.nbytes) * (len(parts) - 1))
+        self.axes.append(tuple(axes))
         return parts
+
+    def log(self, axes) -> tuple:
+        """(walls, bytes) of the gathers along exactly `axes`."""
+        axes = tuple(axes)
+        keep = [i for i, a in enumerate(self.axes) if a == axes]
+        return ([self.walls[i] for i in keep], [self.bytes[i] for i in keep])
 
     def fold(self, array: np.ndarray, axes) -> np.ndarray:
         """Every rank's f32 `array` along `axes`, folded left in rank order
@@ -235,18 +261,20 @@ def chunked_weighted_train(trainer: ClientTrainer, flat: torch.Tensor,
                            emit_flat_params: bool = False, seed: int = 0,
                            round_idx: int = 0,
                            restore_x: Optional[Callable] = None,
-                           carry: Optional[tuple] = None, lane0: int = 0):
+                           carry: Optional[tuple] = None, lane0: int = 0,
+                           batch_shard: Optional[int] = None):
     """Train the cohort chunk by chunk from the round's flat vector `flat`
     (in the local dtype), folding each chunk's trained [chunk, P] lanes
     into the flat f32 carry with ``fold_fn(num, lanes, w, chunk_shards)``.
     Lane i trains with ``client_generator(seed, round_idx, lane0 + i)``
-    for dropout and augmentation.  `restore_x` maps each chunk's shards before
-    its clients train (the engine's dequantize of a uint8 stack, engine.py
-    :236-237), so what it makes is O(chunk).  Returns (num [P] f32,
-    den = sum w, lsum = sum w*loss), continuing from `carry` (a (num, den,
-    lsum) triple, folded into in place) when given: a block-streamed round
-    carries one accumulator across its blocks, lane0 being the block's
-    first lane in the cohort.
+    for dropout and augmentation (keyed on `batch_shard` too when each
+    client's batch is split over ranks).  `restore_x` maps each chunk's
+    shards before its clients train (the engine's dequantize of a uint8
+    stack, engine.py:236-237), so what it makes is O(chunk).  Returns
+    (num [P] f32, den = sum w, lsum = sum w*loss), continuing from `carry`
+    (a (num, den, lsum) triple, folded into in place) when given: a
+    block-streamed round carries one accumulator across its blocks, lane0
+    being the block's first lane in the cohort.
 
     With `emit_flat_params` it also returns the [K, P] f32 matrix of
     trained rows, chunk-pad lanes dropped (engine.py:1339), for the
@@ -270,7 +298,7 @@ def chunked_weighted_train(trainer: ClientTrainer, flat: torch.Tensor,
                 global_params=global_params,
                 generator=client_generator(seed, round_idx,
                                            lane0 + c * weights.shape[1] + j,
-                                           flat.device))
+                                           flat.device, batch_shard))
             lanes.append(v)
             losses.append(loss)
         lanes = torch.stack(lanes)
@@ -312,9 +340,15 @@ class MeshFedAvgEngine(FedAvgEngine):
 
     `mesh` (parallel/mesh.py) defaults to this process alone.  Over more
     than one rank every rank runs the same loop; only the mesh's first
-    rank evaluates, and `exchange` keeps the host gathers' walls and
-    bytes.  `stream_block` and checkpoints across ranks are slice 6c-ii
-    of the port."""
+    rank evaluates and writes checkpoints (every rank restores), and
+    `exchange` keeps the host gathers' walls and bytes.  With
+    `stream_block` over ranks each block splits evenly over the client
+    shards (the block must be a multiple of them): every rank streams its
+    share of every block through its producer thread into one
+    accumulator, and the sums fold once at the end of the round, so a
+    rank holds O(2 * stream_block / shards) clients on its device.  A
+    "batch" mesh axis splits each client's batch (the module docstring;
+    `allow_batch_stats`)."""
 
     _family_stem = "fedavg"
 
@@ -322,20 +356,39 @@ class MeshFedAvgEngine(FedAvgEngine):
                  cfg: FedConfig, chunk: int | None = None, local_dtype=None,
                  stack_dtype=None, streaming: bool = False,
                  prefetch: bool = True, stream_block: Optional[int] = None,
-                 device=None, mesh: Optional[Mesh] = None):
+                 device=None, mesh: Optional[Mesh] = None,
+                 allow_batch_stats: bool = False):
         self.mesh = mesh if mesh is not None else make_local_mesh()
         self.client_axes = client_axes(self.mesh)
         self.shard = client_sharding(self.mesh)
         self.n_shards = self.shard.count
         self.exchange = MeshExchange(self.mesh)
-        if stream_block is not None and self.n_shards > 1:
-            raise NotImplementedError(
-                f"stream_block over a mesh of {self.n_shards} ranks is "
-                f"slice 6c-ii of the port")
+        self.allow_batch_stats = allow_batch_stats
+        # the "batch" axis: each client's per-step batch over its ranks
+        self.batch_axes = tuple(a for a in self.mesh.axis_names
+                                if a == BATCH_AXIS)
+        self.batch_shard = batch_sharding(self.mesh)
+        if self.batch_axes:
+            nb = self.mesh.shape[BATCH_AXIS]
+            bs = int(np.shape(data.client_shards["mask"])[2])
+            if bs % nb:
+                raise ValueError(
+                    f"batch mesh axis ({nb}) must divide the per-step "
+                    f"batch size ({bs})")
+            if trainer.batch_axes != self.batch_axes:
+                # never mutate the caller's trainer: another engine may
+                # share it
+                trainer = copy.copy(trainer)
+                trainer.batch_axes = self.batch_axes
         if stream_block is not None:
             if stream_block < 1:
                 raise ValueError(f"stream_block must be >= 1, got "
                                  f"{stream_block}")
+            if stream_block % self.n_shards:
+                raise ValueError(
+                    f"stream_block ({stream_block}) must be a multiple of "
+                    f"the mesh's client shards ({self.n_shards}): every "
+                    f"rank streams an equal share of each block")
             streaming = True
         self.streaming = streaming
         self.prefetch = prefetch
@@ -454,11 +507,21 @@ class MeshFedAvgEngine(FedAvgEngine):
         uploads): slice the host arrays (the uint8 view when quantized),
         apply stack_dtype, copy to the device (pinned and asynchronous on
         the card); every byte counts in transfer_stats."""
-        host = self._cast_stack_x({k: np.take(np.asarray(v), ids, axis=0)
-                                   for k, v in self._host_shards().items()})
+        host = self._cast_stack_x({k: self._batch_rows(
+            np.take(np.asarray(v), ids, axis=0))
+            for k, v in self._host_shards().items()})
         self.transfer_stats.add_h2d_bytes(
             sum(v.numel() * v.element_size() for v in host.values()))
         return {k: upload(v, self.device) for k, v in host.items()}
+
+    def _batch_rows(self, a: np.ndarray) -> np.ndarray:
+        """This rank's rows of every per-step batch (axis 2) of a gathered
+        stack leaf under a "batch" axis (stack_leaf_sharding); the leaf
+        itself otherwise."""
+        if self.batch_shard is None or a.ndim < 3:
+            return a
+        return np.ascontiguousarray(a[:, :, self.batch_shard.rows(
+            a.shape[2])])
 
     def _upload_weights(self, w: np.ndarray) -> torch.Tensor:
         w = np.ascontiguousarray(w, np.float32)
@@ -539,11 +602,30 @@ class MeshFedAvgEngine(FedAvgEngine):
     def _chunked(self, flat: torch.Tensor, cohort: dict,
                  weights: torch.Tensor, round_idx: int, **kw):
         """chunked_weighted_train with the engine's epochs, chunk, seed and
-        dequantize."""
-        return chunked_weighted_train(
-            self.trainer, flat, cohort, weights, self.cfg.epochs,
-            chunk_cap=self.chunk, seed=self.cfg.seed, round_idx=round_idx,
-            restore_x=self._restore_chunk_x, **kw)
+        dequantize, under the mesh's bound axes; a client split over batch
+        ranks keys its generator on its batch index."""
+        split = self.batch_shard is not None and self.batch_shard.count > 1
+        with mesh_axes.bound(self.exchange):
+            return chunked_weighted_train(
+                self.trainer, flat, cohort, weights, self.cfg.epochs,
+                chunk_cap=self.chunk, seed=self.cfg.seed,
+                round_idx=round_idx, restore_x=self._restore_chunk_x,
+                batch_shard=self.batch_shard.index if split else None, **kw)
+
+    def run(self, variables: Optional[dict] = None, *args, **kw) -> dict:
+        """FedAvgEngine.run, after refusing a model with collections under
+        a batch axis unless `allow_batch_stats` (engine.py:976-985)."""
+        if self.batch_axes and not self.allow_batch_stats \
+                and self.trainer.n_stats:
+            raise ValueError(
+                f"model carries a stats collection "
+                f"({list(self.trainer.stat_names)[:4]}...) and the mesh "
+                "has a 'batch' axis: plain BatchNorm would normalize by "
+                "shard-local statistics.  Use per-sample normalization "
+                "(GroupNorm/LayerNorm), or sync_batch_norm(axis_name="
+                "'batch') (models/norms.py) and pass "
+                "allow_batch_stats=True")
+        return super().run(variables, *args, **kw)
 
     def _fold_fn(self, g: torch.Tensor) -> Callable:
         """The chunk fold of this engine's linear sums (g: the round's model
@@ -621,11 +703,11 @@ class MeshFedAvgEngine(FedAvgEngine):
         programs (once)."""
         if getattr(self, "_twolevel_ready", False):
             return
-        if self.n_shards > 1:
+        if self.mesh.size > 1:
             raise ValueError(
                 f"MultihostRunner needs an engine on this process alone "
                 f"(make_local_mesh): this engine's mesh spans "
-                f"{self.n_shards} ranks, and the runner's cross-process "
+                f"{self.mesh.size} ranks, and the runner's cross-process "
                 f"tier is its HostChannel")
         if self.stream_block is not None:
             raise ValueError(
@@ -733,6 +815,13 @@ class MeshFedAvgEngine(FedAvgEngine):
         return cls(produce, spans, stats=self.transfer_stats,
                    device=self.device)
 
+    def _rank_spans(self, spans: list) -> list:
+        """This rank's share of every block span: the i-th of the client
+        shards' equal parts (the whole span on one rank)."""
+        n, i = self.n_shards, self.shard.index
+        return [(s + i * (e - s) // n, s + (i + 1) * (e - s) // n)
+                for s, e in spans]
+
     def _round_blockstream(self, variables: dict, server_state,
                            round_idx: int = 0):
         """Block-streamed round: `stream_block`-client blocks cross to the
@@ -740,12 +829,16 @@ class MeshFedAvgEngine(FedAvgEngine):
         finalize divides and applies the server update.  Lane i of the
         cohort trains with the same generator as in the streaming round,
         and with the block a multiple of the chunk the same lanes fold in
-        the same order, so the round is the streaming round's bitwise
-        (pad lanes add +-0).  A retired block's references are dropped
-        before the next get(): at most two blocks are resident."""
+        the same order, so on one rank the round is the streaming round's
+        bitwise (pad lanes add +-0).  Over a mesh each rank streams its
+        share of every block (`_rank_spans`) and the sums fold across
+        ranks once, after the last block.  A retired block's references
+        are dropped before the next get(): at most two blocks are
+        resident."""
         ids = self.sampler.sample(round_idx)
         ids, wmask, spans = self._pad_to_block(
             ids, np.ones(len(ids), np.float32))
+        spans = self._rank_spans(spans)
         w_all = np.take(np.asarray(self.data.client_num_samples, np.float32),
                         ids) * wmask
         self.transfer_stats.round_start()
@@ -762,6 +855,8 @@ class MeshFedAvgEngine(FedAvgEngine):
                                                     round_idx, lane0=s)
                         self._retire_block(block)
                         del block, w
+                sums = self.exchange.fold_sums(self.trainer, sums,
+                                               self.client_axes, self.device)
                 with obs.span("round.block_finalize"):
                     avg, loss = self._finalize_from_sums(variables, sums)
                     new_variables, server_state = self.server_update(
@@ -821,11 +916,16 @@ class MeshFedNovaEngine(MeshFedAvgEngine):
 
     _family_stem = "fednova"
 
+    def _tau(self, shards: dict) -> torch.Tensor:
+        """fednova_tau over the bound batch axes (a step counts when the
+        unsplit batch has data)."""
+        return fednova_tau(shards, self.cfg.epochs, self.batch_axes)
+
     def _fold_fn(self, g: torch.Tensor) -> Callable:
-        epochs, r = self.cfg.epochs, self.trainer.train_len
+        r = self.trainer.train_len
 
         def nova_fold(num, lanes, w, chunk_shards):
-            tau = fednova_tau(chunk_shards, epochs)
+            tau = self._tau(chunk_shards)
             clip_fold(num[:r], lanes[:, :r], g[:r],
                       (-w / torch.clamp(tau, min=1.0)).contiguous(), 0.0)
             fold_collections(self.trainer, num, lanes, w)
@@ -842,8 +942,9 @@ class MeshFedNovaEngine(MeshFedAvgEngine):
         dsum, den, lsum = self._chunked(g, cohort, weights, round_idx,
                                         fold_fn=self._fold_fn(g),
                                         carry=(dsum, den, lsum), lane0=lane0)
-        tsum = tsum + (weights.float()
-                       * fednova_tau(cohort, self.cfg.epochs)).sum()
+        with mesh_axes.bound(self.exchange):
+            tau = self._tau(cohort)
+        tsum = tsum + (weights.float() * tau).sum()
         return dsum, den, tsum, lsum
 
     def _finalize_from_sums(self, variables: dict, sums):
@@ -908,6 +1009,19 @@ class MeshRobustEngine(MeshFedAvgEngine):
                     "order statistics cannot ignore padded lanes")
         self.orderstat_host_bytes = 0   # the last two-phase round's matrix
         super().__init__(trainer, data, cfg, **kw)
+        if defense != "norm_clip" and self.batch_axes:
+            # a batch group's ranks hold the same client rows: the gathered
+            # matrix would repeat them
+            raise ValueError(f"defense {defense!r} does not support a "
+                             f"'batch' mesh axis (norm_clip does)")
+        if defense != "norm_clip" and stream_block is not None \
+                and self.mesh.size > 1:
+            raise ValueError(
+                f"defense {defense!r} with stream_block over a mesh of "
+                f"{self.mesh.size} ranks: the two-phase order statistics "
+                "stream the whole [K, P] matrix through one host; run the "
+                "resident order statistics over the mesh (no "
+                "stream_block), or stream on one rank")
         K = min(cfg.client_num_per_round, data.client_num)
         if defense != "norm_clip" and K % self.n_shards:
             raise ValueError(

@@ -12,11 +12,14 @@ Axis conventions, as in JAX:
 
   "clients"  the federated data-parallel axis (the cohort dimension K);
   "silo"     the cross-silo tier of hierarchical FL (2-D meshes);
-  "batch"    per-client sample parallelism: slice 6c-ii of the port.
+  "batch"    per-client sample parallelism: each client's per-step
+             batch split over the ranks of this axis, the gradient
+             folded once a step (core/trainer.py ``batch_axes``).
 
 Rank order is JAX's device order: rank r of a 1-D mesh holds the rows
-that ``NamedSharding(mesh, P("clients"))`` places on device r, and on a
-(silo, clients) mesh rank s * per_silo + c sits at grid cell (s, c).
+that ``NamedSharding(mesh, P("clients"))`` places on device r, on a
+(silo, clients) mesh rank s * per_silo + c sits at grid cell (s, c), and
+on a (clients, batch) mesh rank c * n_batch + b at (c, b).
 
 Float exchanges go through the host: `Mesh.all_gather` gathers host
 arrays (CPU tensors under gloo) from every rank of an axis group and
@@ -24,7 +27,9 @@ returns them in mesh-coordinate order; callers fold them in that order
 (multihost.py::fold_block_partials), so every rank commits the same bits
 and no float sum goes through an all-reduce, whose order the backend
 picks.  A mesh of one rank needs no process group and launches no
-collective.  `pvary_tree` has no counterpart: it is a JAX type-system
+collective.  A mesh over a subset of the world (`devices`) is built by
+every rank (group creation is collective over the world) and is None on
+the ranks outside it.  `pvary_tree` has no counterpart: it is a JAX type-system
 device.
 """
 from __future__ import annotations
@@ -150,11 +155,13 @@ def _axis_keys(axis_names: tuple) -> list:
     return keys
 
 
-def _build(axis_names: tuple, grid: np.ndarray) -> Mesh:
+def _build(axis_names: tuple, grid: np.ndarray) -> Optional[Mesh]:
     """The mesh over `grid` with its process groups.  Every rank of the
     world calls it with the same grid (group creation is collective over
     the world, in one order); groups of one rank are not created, and a
-    mesh of one rank creates none."""
+    mesh of one rank creates none.  A rank outside the grid (a mesh over
+    a subset of the world, `devices`) joins the group creation and gets
+    None."""
     n_world, rank = world()
     grid = np.asarray(grid, dtype=np.int64)
     if len(set(grid.reshape(-1).tolist())) != grid.size:
@@ -182,6 +189,8 @@ def _build(axis_names: tuple, grid: np.ndarray) -> Mesh:
                     pg = dist.new_group(members)
                 if rank in members:
                     groups[key] = pg
+    if rank not in grid:
+        return None
     return Mesh(axis_names, grid, rank, groups)
 
 
@@ -222,11 +231,21 @@ def make_mesh_2d(n_silos: int, per_silo: Optional[int] = None,
 
 def make_mesh_batch(n_client_shards: int, n_batch: int,
                     devices: Optional[Sequence[int]] = None) -> Mesh:
-    """The (clients x batch) mesh of JAX's per-client sample parallelism:
-    slice 6c-ii of the port."""
-    raise NotImplementedError(
-        "make_mesh_batch, the 'batch' mesh axis (each client's per-step "
-        "batch split over devices), is slice 6c-ii of the port")
+    """2-D (clients x batch) mesh: the cohort splits over the first axis
+    and each client's per-step batch over the second (the layout for more
+    ranks than clients); rank c * n_batch + b of `devices` sits at (c,
+    b), and the "batch" group of a rank is its row."""
+    n_world, _ = world()
+    devs = list(devices) if devices is not None else list(range(n_world))
+    if n_client_shards < 1 or n_batch < 1 \
+            or n_client_shards * n_batch > len(devs):
+        raise ValueError(
+            f"make_mesh_batch({n_client_shards}, {n_batch}): {len(devs)} "
+            f"rank(s) cannot form a {n_client_shards} x {n_batch} grid (one "
+            f"process a device)")
+    grid = np.array(devs[:n_client_shards * n_batch],
+                    dtype=np.int64).reshape(n_client_shards, n_batch)
+    return _build((CLIENT_AXIS, BATCH_AXIS), grid)
 
 
 def client_axes(mesh: Mesh) -> tuple:
@@ -259,16 +278,57 @@ def client_sharding(mesh: Mesh) -> RowSharding:
                        int(np.prod([mesh.shape[a] for a in axes])))
 
 
-def stack_leaf_sharding(mesh: Mesh, leaf) -> RowSharding:
+@dataclasses.dataclass(frozen=True)
+class StackSharding:
+    """This rank's share of a stack leaf: the leading (client) axis by
+    `clients`, and axis 2 (the per-step samples) by `batch` when the mesh
+    splits it (None: whole)."""
+    clients: RowSharding
+    batch: Optional[RowSharding] = None
+
+    def rows(self, n: int) -> slice:
+        """This rank's range of the leading (client) axis."""
+        return self.clients.rows(n)
+
+    def take(self, a):
+        a = a[self.clients.rows(len(a))]
+        if self.batch is not None:
+            a = a[:, :, self.batch.rows(a.shape[2])]
+        return a
+
+
+def batch_sharding(mesh: Mesh) -> Optional[RowSharding]:
+    """This rank's share of a per-step batch over the "batch" axis (None
+    without one)."""
+    if BATCH_AXIS not in mesh.axis_names:
+        return None
+    return RowSharding(mesh.index((BATCH_AXIS,)), mesh.shape[BATCH_AXIS])
+
+
+def _splits_batch(mesh: Mesh, leaf) -> bool:
+    """Whether a stack leaf's per-step sample axis (axis 2) splits over
+    the "batch" axis: it exists, the leaf has one, and the axis divides
+    it (JAX replicates a leaf it does not divide; the engines refuse such
+    a batch instead)."""
+    return (BATCH_AXIS in mesh.axis_names and np.ndim(leaf) >= 3
+            and np.shape(leaf)[2] % mesh.shape[BATCH_AXIS] == 0)
+
+
+def stack_leaf_sharding(mesh: Mesh, leaf) -> StackSharding:
     """Per-leaf sharding of a client data stack {x, y, mask}[C, B, bs,
-    ...]: the client dim over the client axes (the "batch" axis, which
-    would also split axis 2, is slice 6c-ii)."""
-    return client_sharding(mesh)
+    ...]: the client dim over the client axes and, when the mesh has a
+    "batch" axis, the per-step sample dim (axis 2) over it, so each rank
+    uploads only its rows of every batch.  Weight [C] leaves split over
+    the clients alone."""
+    return StackSharding(client_sharding(mesh),
+                         batch_sharding(mesh) if _splits_batch(mesh, leaf)
+                         else None)
 
 
 def stack_leaf_spec(mesh: Mesh, leaf) -> tuple:
-    """The partition spec matching stack_leaf_sharding: the leading axis
-    over the client axes."""
+    """The partition spec matching stack_leaf_sharding."""
+    if _splits_batch(mesh, leaf):
+        return (client_axes(mesh), None, BATCH_AXIS)
     return (client_axes(mesh),)
 
 
@@ -277,22 +337,23 @@ def replicated_sharding(mesh: Mesh) -> RowSharding:
 
 
 def _share(mesh: Mesh, tree: dict, device) -> dict:
-    sh = client_sharding(mesh)
     dev = resolve_device(device)
-    return {k: torch.as_tensor(np.asarray(v)[sh.rows(len(v))]).to(dev)
-            for k, v in tree.items()}
+    return {k: torch.as_tensor(np.ascontiguousarray(
+        stack_leaf_sharding(mesh, v).take(np.asarray(v)))).to(dev)
+        for k, v in tree.items()}
 
 
 def shard_stack(mesh: Mesh, stack: dict, device=None) -> dict:
-    """This rank's rows of a client data stack, on `device` (the card
-    unless named)."""
+    """This rank's share of a client data stack (stack_leaf_sharding), on
+    `device` (the card unless named)."""
     return _share(mesh, stack, device)
 
 
 def shard_cohort(mesh: Mesh, cohort: dict, device=None) -> dict:
     """This rank's share of a host cohort {x, y, mask}[K, ...] (and
-    weights [K]).  K must divide evenly: callers pad with zero-weight
-    clients otherwise (pad_cohort)."""
+    weights [K]), leaf by leaf as stack_leaf_sharding splits it.  K must
+    divide evenly: callers pad with zero-weight clients otherwise
+    (pad_cohort)."""
     return _share(mesh, cohort, device)
 
 

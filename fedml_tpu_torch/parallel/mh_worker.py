@@ -51,7 +51,7 @@ commits and exits rc=3), slo (bool), sparse_uplink (bool).
 jax_distributed (bool): each rank joins torch.distributed's gloo group
 (`init_multihost`, at the launcher's FEDML_MH_JAX_COORD) before it
 builds its engine; the runner and its digests do not change.
-local_devices > 1 (several ranks behind one host channel) is slice 6c-ii
+local_devices > 1 (several ranks behind one host channel) is slice 6c-iii
 of the port and raises.
 """
 import json
@@ -78,7 +78,7 @@ def check_config(cfg: dict) -> None:
     if cfg.get("local_devices", 1) != 1:
         raise NotImplementedError(
             "mh_worker: local_devices > 1 (several ranks behind one host "
-            "channel) belongs to slice 6c-ii of the port; a rank drives "
+            "channel) belongs to slice 6c-iii of the port; a rank drives "
             "one device")
     for mode in cfg["modes"]:
         if mode not in ("streaming", "resident"):

@@ -1209,6 +1209,9 @@ class ElasticChannel:
         self._hb_last: dict[int, float] = {}
         self._suspect: dict[int, str] = {}
         self._pending_rejoin: list[tuple[int, socket.socket]] = []
+        # a later round's contributions read while a result was being
+        # sent (_send_draining), handed to that round's exchange
+        self._early_frames: list[tuple] = []
         host, port = ctx.coordinator.rsplit(":", 1)
         self._host, self._port = host, int(port)
         _cluster.set_role(ctx.rank, ctx.world, elastic=True)
@@ -1633,6 +1636,31 @@ class ElasticChannel:
         # barrier ledger: rank 0 arrives with its own parts in hand, each
         # member at its first accepted CONTRIB of this round
         arrivals: dict[int, float] = {self.ctx.rank: time.monotonic()}
+
+        def take(m, mtype, hdr, payload):
+            """One frame from member m's data link."""
+            if mtype != "contrib":
+                return
+            if int(hdr.get("round", -1)) != round_idx:
+                log.warning("elastic: dropping stale contrib for "
+                            "round %s from rank %d (at round %d)",
+                            hdr.get("round"), m, round_idx)
+                return
+            arrivals.setdefault(m, time.monotonic())
+            blocks = [int(b) for b in hdr.get("blocks", [])]
+            if self._item_nbytes is None and blocks:
+                self._item_nbytes = len(payload) // len(blocks)
+            sz = self._item_nbytes or 0
+            if sz * len(blocks) != len(payload):
+                with self._lock:
+                    self._suspect.setdefault(
+                        m, f"contrib size mismatch ({len(payload)} "
+                           f"bytes for {len(blocks)} items of {sz})")
+                return
+            for j, b in enumerate(blocks):
+                if 0 <= b < self.n_items and b not in have:
+                    have[b] = payload[j * sz:(j + 1) * sz]
+
         deadline = time.monotonic() + self.timeout_s
         while True:
             missing = [b for b in range(self.n_items) if b not in have]
@@ -1688,6 +1716,11 @@ class ElasticChannel:
                 # into evictions of healthy ranks
                 deadline = max(deadline, time.monotonic() + self.timeout_s)
                 continue
+            with self._lock:
+                early, self._early_frames = self._early_frames, []
+            for m, mtype, hdr, payload in early:
+                if m in self.view.members:
+                    take(m, mtype, hdr, payload)
             rl: list = []
             waitable = [s for m, s in socks.items()
                         if m in self.view.members]
@@ -1710,27 +1743,7 @@ class ElasticChannel:
                     with self._lock:
                         self._suspect.setdefault(m, "data link failed")
                     continue
-                if mtype != "contrib":
-                    continue
-                if int(hdr.get("round", -1)) != round_idx:
-                    log.warning("elastic: dropping stale contrib for "
-                                "round %s from rank %d (at round %d)",
-                                hdr.get("round"), m, round_idx)
-                    continue
-                arrivals.setdefault(m, time.monotonic())
-                blocks = [int(b) for b in hdr.get("blocks", [])]
-                if self._item_nbytes is None and blocks:
-                    self._item_nbytes = len(payload) // len(blocks)
-                sz = self._item_nbytes or 0
-                if sz * len(blocks) != len(payload):
-                    with self._lock:
-                        self._suspect.setdefault(
-                            m, f"contrib size mismatch ({len(payload)} "
-                               f"bytes for {len(blocks)} items of {sz})")
-                    continue
-                for j, b in enumerate(blocks):
-                    if 0 <= b < self.n_items and b not in have:
-                        have[b] = payload[j * sz:(j + 1) * sz]
+                take(m, mtype, hdr, payload)
         _cluster.note_barrier("exchange", round_idx, round_idx, arrivals)
         # broadcast the complete payload set in item order
         blob = [have[b] for b in range(self.n_items)]
@@ -1741,15 +1754,54 @@ class ElasticChannel:
             if m == 0 or m not in socks:
                 continue
             try:
-                socks[m].settimeout(self.timeout_s)
-                self._send(socks[m], "result",
-                           {"epoch": view.epoch, "round": round_idx,
-                            "members": list(view.members)},
-                           blob)
+                self._send_draining(socks[m], m, round_idx, "result",
+                                    {"epoch": view.epoch, "round": round_idx,
+                                     "members": list(view.members)},
+                                    blob)
             except (socket.timeout, OSError):
                 with self._lock:
                     self._suspect.setdefault(m, "result send failed")
         return have, view
+
+    def _send_draining(self, sock, m: int, round_idx: int, mtype, header,
+                       payload) -> None:
+        """Send on member m's data link while a helper thread reads what
+        the member still writes there: the rest of an overlapped
+        contribution (a frame a block) whose items other ranks already
+        delivered, which is dropped.  Without it, a result larger than the
+        socket buffers and such a frame block each other until the send's
+        deadline (ROADMAP C.19).  The member may read the whole result
+        and ship its next round's first frame before the helper stops:
+        such a later round's frame is kept for that round's exchange."""
+        stop = threading.Event()
+
+        def drain():
+            while True:
+                try:
+                    rl, _, _ = select.select([sock], [], [], 0.01)
+                except (OSError, ValueError):
+                    return
+                if not rl:
+                    if stop.is_set():
+                        return
+                    continue
+                try:
+                    frame = self._recv(sock)
+                except (socket.timeout, ConnectionError, OSError,
+                        ValueError):
+                    return
+                if int(frame[1].get("round", -1)) > round_idx:
+                    with self._lock:
+                        self._early_frames.append((m, *frame))
+
+        sock.settimeout(self.timeout_s)
+        t = threading.Thread(target=drain, name="elastic-drain", daemon=True)
+        t.start()
+        try:
+            self._send(sock, mtype, header, payload)
+        finally:
+            stop.set()
+            t.join()
 
     def _exchange_worker(self, round_idx, parts, compute,
                          pre_sent: tuple = ()):

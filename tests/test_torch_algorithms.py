@@ -208,10 +208,18 @@ def test_centralized_epoch_matches_jax():
 
 
 def test_centralized_mesh_is_slice_6():
-    with pytest.raises(NotImplementedError, match="slice 6c"):
-        CentralizedTrainer(ClientTrainer(create_model("lr", 10)),
-                           _mnist(load_data), _cfg(FedConfig), mesh=object(),
-                           device="cpu")
+    # slice 6c-ii ported the data-parallel trainer: on a mesh of one rank
+    # it folds nothing and is the one-device trainer, bitwise
+    from fedml_tpu_torch.parallel.mesh import make_mesh
+    v0 = ClientTrainer(create_model("lr", 10)).init(
+        torch.Generator().manual_seed(0), "cpu")
+    runs = [CentralizedTrainer(ClientTrainer(create_model("lr", 10), lr=0.1),
+                               _mnist(load_data), _cfg(FedConfig), mesh=mesh,
+                               device="cpu").run(epochs=2,
+                                                 variables=dict(v0))
+            for mesh in (None, make_mesh(1))]
+    for k in runs[0]:
+        assert torch.equal(runs[0][k], runs[1][k]), k
 
 
 # ---------------------------------------------------------------------------

@@ -454,16 +454,16 @@ def test_async_messaging_secure_rounds_commit():
 
 def test_entry_points_refuse_what_waits_for_slice_6_and_default_to_cuda(
         monkeypatch, tmp_path):
-    """What still waits for the multi-process slice names its part, 6c
-    (the data-parallel centralized trainer), and the host-sharded serve
-    simulation (slice 6b, ported) names the channel it needs;
+    """The data-parallel centralized trainer (slice 6c-ii, ported) takes
+    only a mesh of ranks, and the host-sharded serve simulation (slice
+    6b, ported) names the channel it needs;
     saving to disk now works (an empty checkpoint directory resumes
     nothing); the entry points and the building blocks that hold state
     default to the card and raise without one."""
     with pytest.raises(ValueError, match="HostChannel"):
         run_serve_sim(100, commits=3, buffer_k=4, partition=(0, 2),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6c"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         CentralizedTrainer(ClientTrainer(create_model("lr", 10)),
                            _data(tfed, 2), _cfg(FedConfig, 2),
                            mesh=object(), device="cpu")

@@ -453,6 +453,85 @@ def test_elastic_reads_a_rejoiners_contrib_its_stale_incumbent_covered():
     assert out[2][-1] == (2, 2)
 
 
+def test_elastic_rejoin_under_overlap_reads_every_frame_before_result():
+    """ROADMAP C.19's open case: the overlapped exchange ships a frame a
+    block.  After a rejoin the rejoiner owns two blocks and pushes them
+    one frame each; the stale incumbent already covered the second, so
+    rank 0 holds every item after the rejoiner's FIRST frame.  Writing
+    the 6 x 16 MB result then, while the rejoiner still writes its second
+    16 MB frame, would stall both on full socket buffers until the
+    result send's deadline; the round must finish well inside it."""
+    port = free_base_port(1)
+    n_items, out, timeout_s = 6, {}, 20.0
+    dialing = threading.Event()
+    big = lambda need, rnd: {b: _big(b, rnd) for b in need}   # noqa: E731
+
+    def check(allp, rnd):
+        assert all(bytes(allp[b]) == _big(b, rnd) for b in range(n_items))
+
+    def overlapped(ch, r, rnd):
+        h = ch.contrib_begin(rnd)
+        for b in ch.view.assigned(r):
+            ch.contrib_push(h, b, _big(b, rnd))
+        allp, view = ch.exchange(rnd, {}, lambda need: big(need, rnd),
+                                 pending=h)
+        check(allp, rnd)
+        out.setdefault(r, []).append((rnd, view.epoch))
+
+    def serial(ch, r, rnd):
+        allp, view = ch.exchange(rnd, big(ch.view.assigned(r), rnd),
+                                 lambda need: big(need, rnd))
+        check(allp, rnd)
+        out.setdefault(r, []).append((rnd, view.epoch))
+
+    def coord():
+        ch = _chan(tmh, 0, 3, port, n_items=n_items, timeout_s=timeout_s)
+        try:
+            ch.wait_members()
+            serial(ch, 0, 0)
+            serial(ch, 0, 1)              # rank 1 dies: epoch 1
+            assert dialing.wait(20)
+            time.sleep(0.5)               # its rejoin hello is pending
+            assert ch.admit_rejoins(2, lambda: b"snap", tag="t") == [1]
+            t0 = time.monotonic()
+            serial(ch, 0, 2)              # epoch 2: rank 1 owns {2, 3}
+            out["round2_s"] = time.monotonic() - t0
+        finally:
+            ch.close()
+
+    def mortal():
+        ch = _chan(tmh, 1, 3, port, n_items=n_items, timeout_s=timeout_s)
+        serial(ch, 1, 0)
+        ch.close()
+
+    def incumbent():
+        ch = _chan(tmh, 2, 3, port, n_items=n_items, timeout_s=timeout_s)
+        try:
+            serial(ch, 2, 0)
+            serial(ch, 2, 1)
+            overlapped(ch, 2, 2)          # under epoch 1: blocks {3, 4, 5}
+        finally:
+            ch.close()
+
+    def rejoiner():
+        time.sleep(1.0)
+        ch = _chan(tmh, 1, 3, port, n_items=n_items, timeout_s=timeout_s,
+                   rejoin=True)
+        try:
+            dialing.set()
+            _, resume, _ = ch.rejoin_handshake()
+            time.sleep(1.0)               # the incumbent's copy lands first
+            overlapped(ch, 1, resume)
+        finally:
+            ch.close()
+
+    errs = _threads([coord, mortal, incumbent, rejoiner], timeout=60)
+    assert not errs, errs
+    assert out[0][-1] == (2, 2) and out[1][-1] == (2, 2)
+    assert out[2][-1] == (2, 2)
+    assert out["round2_s"] < timeout_s / 2
+
+
 def test_elastic_early_contrib_matches_inline_exchange():
     port = free_base_port(1)
     n_items, res = 4, {}

@@ -8,16 +8,18 @@ package's parallel/mesh.py on the 8 forced CPU devices:
   `stack_leaf_sharding` give device r, on 1-D meshes of 1, 2, 4 and 8
   and on 2 x 2 and 2 x 4 meshes; `client_axes` matches; the hierarchical
   engine's `sample_inner_rounds` is JAX's draws bitwise;
-* `make_mesh_batch` refuses, naming slice 6c-ii; the mesh helpers behave
-  on a single process (the counterpart of tests/test_parallel.py:496),
-  and the host layout warns about virtual silos;
+* `make_mesh_batch` lays ranks out as JAX's (clients x batch) grid and
+  refuses a grid larger than the world; the mesh helpers behave on a
+  single process (the counterpart of tests/test_parallel.py:496), and
+  the host layout warns about virtual silos;
 * a mesh of one rank is bitwise the one-card engine for FedAvg,
   FedNova, norm_clip and median (ResNet-18-GN at num_filters 4, 2
   rounds), and launches no collective;
-* what waits refuses by name: MultihostRunner refuses
-  MeshHierarchicalEngine and an engine whose mesh spans ranks;
-  `stream_block` and checkpoints over more than one rank, and mh_worker's
-  `local_devices` > 1, name slice 6c-ii.
+* the refusals: MultihostRunner refuses MeshHierarchicalEngine and an
+  engine whose mesh spans ranks; `stream_block` over ranks needs a block
+  that splits over the client shards (the two-phase order statistics
+  refuse a mesh of ranks), and mh_worker's `local_devices` > 1 names
+  slice 6c-iii.
 """
 import logging
 
@@ -180,8 +182,16 @@ def test_sample_inner_rounds_bitwise_jax():
 # ---------------------------------------------------------------------------
 
 def test_make_mesh_batch_refuses_naming_6c_ii():
-    with pytest.raises(NotImplementedError, match="slice 6c-ii"):
+    # make_mesh_batch is ported: it refuses only a grid the world cannot
+    # hold, and a layout's cells are JAX's device order
+    with pytest.raises(ValueError, match="2 x 2 grid"):
         tmesh.make_mesh_batch(2, 2)
+    one = tmesh.make_mesh_batch(1, 1)
+    assert one.axis_names == ("clients", "batch") and one.size == 1
+    lay = tmesh.Mesh.layout(("clients", "batch"), (2, 2), 3)
+    assert lay.coords == {"clients": 1, "batch": 1}
+    assert tmesh.client_sharding(lay).rows(4) == slice(2, 4)
+    assert tmesh.batch_sharding(lay).rows(8) == slice(4, 8)
     with pytest.raises(ValueError, match="one process a device"):
         tmesh.make_mesh(2)
 
@@ -263,12 +273,17 @@ def test_mesh_of_one_rank_is_the_one_card_engine_bitwise(name):
 
 def test_what_waits_for_6c_ii_and_the_runner_refuse_by_name():
     two = tmesh.Mesh.layout(("clients",), (2,), 0)
-    with pytest.raises(NotImplementedError, match="slice 6c-ii"):
-        _engine("MeshFedAvgEngine", mesh=two, stream_block=2)
+    # stream_block over ranks: a block splits evenly over the shards
+    with pytest.raises(ValueError, match="multiple of the mesh's client"):
+        _engine("MeshFedAvgEngine", mesh=two, stream_block=3)
+    blk = _engine("MeshFedAvgEngine", mesh=tmesh.Mesh.layout(
+        ("clients",), (2,), 1), stream_block=4)
+    assert blk._rank_spans([(0, 4), (4, 8)]) == [(2, 4), (6, 8)]
+    with pytest.raises(ValueError, match="two-phase order statistics"):
+        _engine("MeshRobustEngine", mesh=two, defense="median",
+                stream_block=2)
     eng = _engine("MeshFedAvgEngine", mesh=two)
     assert eng.n_shards == 2 and eng.shard.rows(8) == slice(0, 4)
-    with pytest.raises(NotImplementedError, match="slice 6c-ii"):
-        eng.run(rounds=1, ckpt=object())
     with pytest.raises(ValueError, match="make_local_mesh"):
         tmh.MultihostRunner(eng, tmh.MultihostContext.single())
     with pytest.raises(ValueError, match="divide evenly over the mesh"):
@@ -289,5 +304,5 @@ def test_what_waits_for_6c_ii_and_the_runner_refuse_by_name():
                          mesh=tmesh.make_mesh_2d(1, 1), device="cpu")
     base = {**mh_worker.DEFAULTS}
     mh_worker.check_config({**base, "jax_distributed": True})
-    with pytest.raises(NotImplementedError, match="slice 6c-ii"):
+    with pytest.raises(NotImplementedError, match="slice 6c-iii"):
         mh_worker.check_config({**base, "local_devices": 2})

@@ -412,7 +412,7 @@ def test_mh_worker_refuses_later_slices():
     mh_worker.check_config({**base, "elastic": True, "hang_rank": 2})
     with pytest.raises(ValueError, match="elastic"):
         mh_worker.check_config({**base, "hang_rank": 2})
-    with pytest.raises(NotImplementedError, match="slice 6c-ii"):
+    with pytest.raises(NotImplementedError, match="slice 6c-iii"):
         mh_worker.check_config({**base, "local_devices": 2})
     with pytest.raises(ValueError, match="residency mode"):
         mh_worker.check_config({**base, "modes": ["mesh"]})

@@ -259,7 +259,7 @@ def test_multi_process_serving_and_mesh_refuse_by_name():
     assert rep["elastic"]["lanes"] == [0] and rep["elastic"]["epoch"] == 0
     with pytest.raises(ValueError, match="warmup_commits"):
         run_serve_sim(100, commits=2, warmup_commits=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6c"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         CentralizedTrainer(ClientTrainer(create_model("lr", 10)),
                            _data(tfed), FedConfig(), mesh=object(),
                            device="cpu")

@@ -471,8 +471,15 @@ def test_trainer_raises_for_what_later_slices_bring():
     # augmentation came with slice 3b (tests/test_torch_augment.py)
     aug = lambda generator, x: x
     assert ClientTrainer(model, augment=aug).augment is aug
-    with pytest.raises(NotImplementedError, match="slice 6c"):
-        ClientTrainer(model, batch_axes=("batch",))
+    # batch_axes came with slice 6c-ii: a step outside a bound mesh
+    # raises as JAX's unbound axis name does
+    tr = ClientTrainer(model, batch_axes=("batch",))
+    assert tr.batch_axes == ("batch",)
+    batch = {"x": torch.zeros(2, 12), "y": torch.zeros(2, dtype=torch.long),
+             "mask": torch.ones(2)}
+    with pytest.raises(NameError, match="unbound axis name"):
+        tr.train_step(tr.flatten(tr.init(torch.Generator().manual_seed(0),
+                                         "cpu")), batch)
     with pytest.raises(ValueError, match="unknown loss"):
         ClientTrainer(model, loss="hinge")
 

@@ -320,9 +320,14 @@ def test_batchnorm_is_flaxs_not_torchs():
 
 
 def test_sync_batch_norm_waits_for_slice_6():
+    # the synchronized form came with slice 6c-ii: it is BatchNorm bound
+    # to a mesh axis, and training outside a bound mesh raises
     assert isinstance(sync_batch_norm(4, sync=False), BatchNorm)
-    with pytest.raises(NotImplementedError, match="slice 6c"):
-        sync_batch_norm(4)
+    assert sync_batch_norm(4, sync=False).axis_name is None
+    bn = sync_batch_norm(4)
+    assert isinstance(bn, BatchNorm) and bn.axis_name == "clients"
+    with pytest.raises(NameError, match="unbound axis name"):
+        bn(torch.zeros(2, 4, 3, 3), train=True)
 
 
 def test_dropout_keeps_its_share_scaled_by_one_over_keep():
