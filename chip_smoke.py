@@ -166,7 +166,8 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
 20. slice 6a, the two-level multi-process runtime, in real processes
    sharing this one card through the port's launcher (the script starts
    itself as each rank, ``chip_smoke.py --rank20 CONFIG``): the main path
-   through MultihostRunner (2 blocks of 4 clients, 2 rounds an arm) at 1
+   at 4 batches a client (MH_BATCHES, as 22a and 24a) through
+   MultihostRunner (2 blocks of 4 clients, 2 rounds an arm) at 1
    rank and at 2 ranks, streaming and resident, the f32 exchange serial
    and overlapped, then norm_clip with weak-DP noise; every FedAvg arm
    commits one digest, norm_clip another, launches exact per rank, each
@@ -199,8 +200,8 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    --jax-distributed -- python -m fedml_tpu_torch.parallel.mesh_worker``
    (each rank joins torch.distributed's gloo group; the floats cross
    ranks through the host and fold in rank order): 22a at 2 ranks, the
-   main path through MeshFedAvgEngine(mesh=make_mesh(2)) (2 rounds,
-   streaming) and norm_clip with weak-DP noise (2 rounds), whose digests
+   main path at MH_BATCHES through MeshFedAvgEngine(mesh=make_mesh(2))
+   (2 rounds, streaming) and norm_clip with weak-DP noise (2 rounds), whose digests
    are phase 20's 1-rank two-block digests, and one median round bitwise
    this process's one-card round; a mesh of one
    rank bitwise the one-card engine here; 22b at 8 clients of 4 batches:
@@ -220,16 +221,33 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    the uninterrupted run; 23d the FedGKT, FedSeg, FedGAN and FedNAS mesh
    variants and the data-parallel CentralizedTrainer (ResNet-56 with
    BatchNorm folded over the ranks) against their one-device runs here;
-24. one JSON line of the zoo's, C.1's, the data path's and slices 7a-i's,
-   7a-ii's, 5b-i's, 5b-ii's, 4a's, 4b's, 6a's, 6b's, 6c-i's and 6c-ii's
-   numbers, one listing every TPU kernel of the JAX package with its
-   port's numbers and its launches on every path, then the last line
-   {"ok": true, "device": {...}}.
+24. slices 6c-iii and 7b: 24a the main path through MultihostRunner
+   with two ranks behind each host-channel member (``chip_smoke.py
+   --rank24 CONFIG`` through the port's launcher; each member's first
+   rank starts its second; MH_BATCHES), 1 member x 2 ranks and 2
+   members x 2 ranks (4 processes on this card), FedAvg and norm_clip with weak-DP noise, 2
+   rounds of 2 blocks of 4 clients: one digest an algorithm over every
+   rank of both runs, launches exact per rank (the member's first rank
+   evaluating), the committed models within LG_TOL of phase 20's 1-rank
+   two-block run (a block's lanes fold in another order); 24b the CLI
+   in process (``fedml_tpu_torch.cli.main``) on the main path's model at
+   full width, bf16, ``--mesh --streaming --cohort_chunk 2``, 4 clients
+   of 4 batches, 2 rounds: its summary has test_acc, its final model
+   (from its checkpoint) is bitwise the engine built by hand from the
+   same recipe, launches exact, then ``--algorithm fedavg_robust
+   --defense norm_clip``; 24c the CLI's own cluster (``--multihost_procs
+   2 --mesh --agg_blocks 2``) and the one-process ``--mesh --agg_blocks
+   2`` log the same summary;
+25. one JSON line of the zoo's, C.1's, the data path's and slices 7a-i's,
+   7a-ii's, 5b-i's, 5b-ii's, 4a's, 4b's, 6a's, 6b's, 6c-i's, 6c-ii's,
+   6c-iii's and 7b's numbers, one listing every TPU kernel of the JAX
+   package with its port's numbers and its launches on every path, then
+   the last line {"ok": true, "device": {...}}.
 
 It needs one card; it imports nothing of JAX or of fedml_tpu.
-``python3 chip_smoke.py --phase 19`` (or ``--phase 20``, ``--phase 21``,
-``--phase 22`` or ``--phase 23``) builds the kernels and runs that phase
-alone (a quicker check of that slice; it prints no kernel line).
+``python3 chip_smoke.py --phase 19`` (or ``--phase 20`` ... ``--phase
+24``) builds the kernels and runs that phase alone (a quicker check of
+that slice; it prints no kernel line).
 """
 from __future__ import annotations
 
@@ -339,6 +357,8 @@ from fedml_tpu_torch.parallel.multihost import (DeadRankError,
                                                 ElasticRunner, HostChannel,
                                                 MultihostContext,
                                                 MultihostRunner,
+                                                join_local_group,
+                                                make_local_mesh,
                                                 spawn_cluster,
                                                 variables_digest)
 from fedml_tpu_torch.scale import ArrivalConfig, run_serve_sim
@@ -4307,10 +4327,10 @@ def deterministic(fn):
         torch.backends.cudnn.deterministic = before
 
 
-def main_recipe():
+def main_recipe(samples: int = SAMPLES):
     """Phase 5's data, config and trainer (8 clients x 13 batches of 32,
-    ResNet-18-GN at full width, bf16 compute)."""
-    data = synthetic_data(MAIN_CLIENTS, SAMPLES, seed=0)
+    or `samples` a client; ResNet-18-GN at full width, bf16 compute)."""
+    data = synthetic_data(MAIN_CLIENTS, samples, seed=0)
     cfg = FedConfig(model="resnet18_gn", dataset="cifar10",
                     client_num_in_total=MAIN_CLIENTS,
                     client_num_per_round=MAIN_CLIENTS, epochs=1,
@@ -4940,6 +4960,11 @@ def phase_slice4b() -> dict:
 
 MH_BLOCKS = 2                  # 20a-20b: blocks of 4 clients
 MH_ROUNDS = 2                  # rounds an arm; rank 0 evaluates after each
+# the main path's depth on the multi-process paths that compare with each
+# other (20a, 22a, 24a): 4 batches a client (cut from 13 to hold the
+# script's time once phase 24 joined it)
+MH_BATCHES = 4
+MH_SAMPLES = MH_BATCHES * BATCH
 MH_ARMS = (("streaming", False), ("streaming", True), ("resident", False),
            ("resident", True))  # (residency, overlapped exchange)
 MH_TIMEOUT_S = 420.0
@@ -4957,7 +4982,7 @@ def rank20_main(cfg_path: str) -> int:
     with open(cfg_path) as f:
         spec = json.load(f)
     ctx = MultihostContext.from_env()
-    trainer, data, cfg = main_recipe()
+    trainer, data, cfg = main_recipe(MH_SAMPLES)
     torch.backends.cudnn.deterministic = True
     channel = HostChannel(ctx, timeout_s=MH_TIMEOUT_S)
     out = {"rank": ctx.rank, "world": ctx.world, "arms": {}}
@@ -4984,6 +5009,11 @@ def rank20_main(cfg_path: str) -> int:
             wall = time.perf_counter() - t0
             counts = launch_counts()
             rep = runner.report(warmup_rounds=1)
+            if spec.get("dump") and ctx.world == 1 and arm["tag"] in (
+                    "streaming serial", "norm_clip"):
+                # phase 24's reference: the 1-rank two-block models
+                torch.save({k: t.to("cpu") for k, t in v.items()},
+                           Path(spec["dump"]) / f"{arm['engine']}.pt")
             out["arms"][arm["tag"]] = dict(
                 digest=variables_digest(v), launches=counts, wall_s=wall,
                 round_walls=runner.round_walls,
@@ -5019,10 +5049,10 @@ def spawn_json(cmd: list, procs: int) -> list:
 
 def twolevel_expected(blocks: int, evals: int, norm_clip: bool) -> dict:
     """One rank's launches over MH_ROUNDS rounds of `blocks` blocks of 4
-    clients (13 steps a client, 20 GroupNorm layers), `evals`
+    clients (MH_BATCHES steps a client, 20 GroupNorm layers), `evals`
     evaluations: the fold kernel twice a block (chunk 2), or norm_clip's
     two kernels twice a block."""
-    steps = MH_ROUNDS * blocks * (MAIN_CLIENTS // MH_BLOCKS) * BATCHES
+    steps = MH_ROUNDS * blocks * (MAIN_CLIENTS // MH_BLOCKS) * MH_BATCHES
     folds = MH_ROUNDS * blocks * (MAIN_CLIENTS // MH_BLOCKS) // MAIN_CHUNK
     return {"gn_forward": 20 * (steps + 2 * evals), "gn_backward": 20 * steps,
             "wsum": 0 if norm_clip else folds,
@@ -5031,7 +5061,7 @@ def twolevel_expected(blocks: int, evals: int, norm_clip: bool) -> dict:
 
 
 def twolevel_main_path() -> dict:
-    """20a-20b: the main path's recipe (8 clients of 13 batches, bf16
+    """20a-20b: the main path's recipe (8 clients of MH_BATCHES batches, bf16
     masters, chunk 2) through MultihostRunner with 2 blocks of 4, in real
     processes on this one card through the port's launcher: 1 rank (both
     blocks) and 2 ranks (a block each, sharing the card), streaming and
@@ -5046,7 +5076,7 @@ def twolevel_main_path() -> dict:
                      residency="streaming", overlap=False))
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mh_"))
     cfg_path = tmp / "arms.json"
-    cfg_path.write_text(json.dumps({"arms": arms}))
+    cfg_path.write_text(json.dumps({"arms": arms, "dump": str(tmp)}))
     cmd = [sys.executable, str(Path(__file__).resolve()), "--rank20",
            str(cfg_path)]
     docs, seconds, errs = {}, {}, []
@@ -5104,7 +5134,7 @@ def twolevel_main_path() -> dict:
           + f" ({card_line()})")
     if bad:
         raise AssertionError(f"20a: the arms did not commit one model: {bad}")
-    return dict(docs=docs, cluster_s=seconds,
+    return dict(docs=docs, cluster_s=seconds, dump=str(tmp),
                 channel_s={d["rank"]: d["channel_allgather_s"]
                            for d in docs[2]},
                 launches={f"{p} rank(s), rank {d['rank']}":
@@ -5906,7 +5936,7 @@ def mesh_one_card(data_paths: dict) -> dict:
     """The parent's references on this card (cuDNN deterministic): phase
     5's MeshFedAvgEngine round with no mesh and on a mesh of one rank; the
     one-card median round; the gossip ring of one rank at 22b's depth."""
-    trainer, data, cfg = main_recipe()
+    trainer, data, cfg = main_recipe(MH_SAMPLES)
     kw = dict(chunk=MAIN_CHUNK, local_dtype=torch.bfloat16, streaming=True)
     out = {}
 
@@ -5941,7 +5971,7 @@ def mesh_one_card(data_paths: dict) -> dict:
 def mesh_main_path(ref_digests: Optional[dict]) -> dict:
     """22a and 22b: the mesh worker's clusters on this card, started
     through the launcher at once with the parent's one-card references.
-    22a (2 ranks, phase 5's 8 clients of 13 batches, chunk 2, bf16
+    22a (2 ranks, phase 5's 8 clients at MH_BATCHES batches, chunk 2, bf16
     masters, streaming): MeshFedAvgEngine and norm_clip with weak-DP noise
     2 rounds each, whose digests are phase 20's 1-rank two-block runs'
     (`ref_digests` by engine; run here when None), one median round
@@ -5950,7 +5980,7 @@ def mesh_main_path(ref_digests: Optional[dict]) -> dict:
     MeshHierarchicalEngine on 2 x 2 with one inner round, within f32
     tolerance of the flat mesh round of 4.  Launches exact per rank."""
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
-    trainer, data, cfg = main_recipe()
+    trainer, data, cfg = main_recipe(MH_SAMPLES)
     small = synthetic_data(MAIN_CLIENTS, MESH_SMALL_BATCHES * BATCH, seed=2)
     data_paths = {"main": str(tmp / "main.pkl"), "small": str(tmp / "small.pkl")}
     for key, d in (("main", data), ("small", small)):
@@ -6035,11 +6065,11 @@ def mesh_main_path(ref_digests: Optional[dict]) -> dict:
     # launches exact per rank (rank 0 evaluates after the first and last
     # round)
     want = {
-        "fedavg": lambda r: mesh_expected(4, BATCHES, MESH_ROUNDS,
+        "fedavg": lambda r: mesh_expected(4, MH_BATCHES, MESH_ROUNDS,
                                           2 * (r == 0), "wsum"),
-        "norm_clip": lambda r: mesh_expected(4, BATCHES, MESH_ROUNDS,
+        "norm_clip": lambda r: mesh_expected(4, MH_BATCHES, MESH_ROUNDS,
                                              2 * (r == 0), "norm_clip"),
-        "median": lambda r: mesh_expected(4, BATCHES, 1, r == 0, None),
+        "median": lambda r: mesh_expected(4, MH_BATCHES, 1, r == 0, None),
         "gossip": lambda r: mesh_expected(4, MESH_SMALL_BATCHES, 1, r == 0,
                                           None),
         "hierarchical": lambda r: mesh_expected(2, MESH_SMALL_BATCHES, 1,
@@ -6614,6 +6644,429 @@ def phase_slice6c_ii(gen: torch.Generator) -> dict:
                          for tag in groups})
 
 
+# ---------------------------------------------------------------------------
+# phase 24: slices 6c-iii and 7b, local groups and the entry points
+# ---------------------------------------------------------------------------
+
+LG_LOCAL = 2                   # 24a: ranks behind each host-channel member
+# 24a: the committed models against phase 20's 1-rank two-block run, as
+# update_distance (the L2 distance of the two updates relative to the
+# reference update's norm): each block's lanes now fold as two per-rank
+# sums (one chunk each) added on the host, where phase 20 folds the
+# block's two chunks into one device accumulator; the f32 difference of
+# round 0 flips a few bf16 local masters in round 1
+LG_TOL = 5e-2
+CLI_ARGS = ["--model", "resnet18_gn", "--dataset", "cifar10",
+            "--client_num_in_total", "4", "--client_num_per_round", "4",
+            "--comm_round", "2", "--batch_size", "32",
+            "--max_batches_per_client", "4", "--partition_method", "homo",
+            "--synthetic_scale", "0.02", "--lr", "0.1",
+            "--train_dtype", "bfloat16", "--local_dtype", "bfloat16",
+            "--mesh", "--streaming", "--cohort_chunk", "2",
+            "--frequency_of_the_test", "100", "--no_local_test_eval"]
+CLI_LR_ARGS = ["--algorithm", "fedavg", "--dataset", "mnist", "--model",
+               "lr", "--synthetic_scale", "0.001", "--client_num_in_total",
+               "8", "--client_num_per_round", "8", "--comm_round", "2",
+               "--batch_size", "4", "--lr", "0.1", "--frequency_of_the_test",
+               "1", "--mesh", "--agg_blocks", "2"]
+
+
+def rank24_main(cfg_path: str) -> int:
+    """One rank of phase 24a, started as ``chip_smoke.py --rank24 CONFIG``
+    by the launcher (each member's first rank) or by its member's first
+    rank (the second): the main path's recipe through MultihostRunner on
+    the member's local mesh, FedAvg then norm_clip over one HostChannel
+    (the first rank's), cuDNN deterministic, launches counted from zero
+    just before each run; the member's first rank prints one JSON line
+    with its second rank's under "local_ranks"."""
+    with open(cfg_path) as f:
+        spec = json.load(f)
+    ctx, local = join_local_group(
+        LG_LOCAL, [sys.executable, str(Path(__file__).resolve()), "--rank24",
+                   cfg_path], timeout_s=4 * MH_TIMEOUT_S)
+    leads = ctx.local_rank == 0
+    channel = None
+    try:
+        trainer, data, cfg = main_recipe(MH_SAMPLES)
+        torch.backends.cudnn.deterministic = True
+        if leads:
+            channel = HostChannel(ctx, timeout_s=MH_TIMEOUT_S)
+        mesh = make_local_mesh()
+        out = {"rank": ctx.rank, "local_rank": ctx.local_rank,
+               "world": ctx.world, "group": mesh.size, "arms": {}}
+        v0 = None
+        for arm in ("fedavg", "norm_clip"):
+            kw = dict(chunk=MAIN_CHUNK, local_dtype=torch.bfloat16,
+                      streaming=True, mesh=mesh)
+            eng = (MeshRobustEngine(trainer, data, dataclasses.replace(
+                cfg, stddev=1e-3), defense="norm_clip", **kw)
+                if arm == "norm_clip"
+                else MeshFedAvgEngine(trainer, data, cfg, **kw))
+            if v0 is None:
+                v0 = eng.init_variables()
+            runner = MultihostRunner(eng, ctx, n_blocks=MH_BLOCKS,
+                                     channel=channel, timeout_s=MH_TIMEOUT_S)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            v = runner.run(variables=dict(v0), rounds=MH_ROUNDS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            if spec.get("dump") and ctx.rank == 0 and leads:
+                torch.save({k: t.to("cpu") for k, t in v.items()},
+                           Path(spec["dump"]) / f"{arm}.pt")
+            folds, fold_bytes = eng.exchange.log(eng.client_axes)
+            out["arms"][arm] = dict(
+                digest=variables_digest(v), launches=counts, wall_s=wall,
+                round_walls=runner.round_walls,
+                exchange_walls=runner.exchange_walls,
+                group_fold_walls=folds, group_fold_bytes=fold_bytes,
+                carry_received=runner.carry_bytes,
+                finite=all(bool(torch.isfinite(t).all()) for t in v.values()))
+        if local.procs:
+            out["local_ranks"] = [json.loads(o.strip().splitlines()[-1])
+                                  for o in local.collect(MH_TIMEOUT_S)]
+        print(json.dumps(out), flush=True)
+    except BaseException:
+        local.kill()
+        raise
+    finally:
+        if channel is not None:
+            channel.close()
+    return 0
+
+
+def free_port_base(n: int) -> int:
+    """A port p with p .. p + n - 1 free now, above the usual ephemeral
+    range (the host channel, the launcher's + 1, a local group's + 2 +
+    member)."""
+    import random
+    rng = random.Random()
+    for _ in range(200):
+        base = rng.randrange(61000, 65000 - n)
+        socks = []
+        try:
+            for i in range(n):
+                sk = socket.socket()
+                socks.append(sk)
+                sk.bind(("127.0.0.1", base + i))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sk in socks:
+                sk.close()
+    raise RuntimeError("no free port range")
+
+
+def lg_expected(blocks: int, evals: int, norm_clip: bool) -> dict:
+    """One rank's launches over MH_ROUNDS rounds: `blocks` blocks of 4
+    clients a round, this rank training 4 / LG_LOCAL of each (MH_BATCHES
+    steps a client, 20 GroupNorm layers, one chunk of 2: one fold), and
+    `evals` evaluations (2 batches each)."""
+    lanes = MAIN_CLIENTS // MH_BLOCKS // LG_LOCAL
+    steps = MH_ROUNDS * blocks * lanes * MH_BATCHES
+    folds = MH_ROUNDS * blocks * (-(-lanes // MAIN_CHUNK))
+    return {"gn_forward": 20 * (steps + 2 * evals), "gn_backward": 20 * steps,
+            "wsum": 0 if norm_clip else folds,
+            "sqnorm": folds if norm_clip else 0,
+            "clip_agg": folds if norm_clip else 0}
+
+
+def local_group_main_path(ref_dir: Optional[str]) -> dict:
+    """24a: 1 member x 2 ranks and 2 members x 2 ranks through the port's
+    launcher (`--procs` counts members), against phase 20's 1-rank
+    two-block models (`ref_dir`; computed here in this process when phase
+    20 did not run)."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lg_"))
+    root = str(Path(__file__).resolve().parent)
+    docs, seconds, errs = {}, {}, []
+
+    def cluster(procs):
+        # both clusters at once (the script's time): 6 processes
+        try:
+            dump = tmp / f"m{procs}"
+            dump.mkdir()
+            path = tmp / f"m{procs}.json"
+            path.write_text(json.dumps({"dump": str(dump)}))
+            argv = [sys.executable, "-m", "fedml_tpu_torch.parallel.launch",
+                    "--procs", str(procs), "--timeout", str(MH_TIMEOUT_S),
+                    "--port", str(free_port_base(2 + procs)), "--",
+                    sys.executable, str(Path(__file__).resolve()),
+                    "--rank24", str(path)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                argv, capture_output=True, text=True, cwd=root,
+                timeout=MH_TIMEOUT_S + 60, env={
+                    **os.environ, "PYTHONPATH": root + os.pathsep
+                    + os.environ.get("PYTHONPATH", "")})
+            ranks = {}
+            for line in proc.stdout.splitlines():
+                m = re.match(r"\[rank (\d+)\] (\{.*\})$", line)
+                if m:
+                    ranks[int(m.group(1))] = json.loads(m.group(2))
+            if proc.returncode != 0 or sorted(ranks) != list(range(procs)):
+                raise AssertionError(
+                    f"24a: the {procs} x {LG_LOCAL} cluster failed: rc "
+                    f"{proc.returncode}\n{proc.stderr[-4000:]}")
+            docs[procs] = ranks
+            seconds[procs] = time.perf_counter() - t0
+        except Exception as e:       # re-raised below, after the joins
+            errs.append(e)
+
+    threads = [threading.Thread(target=cluster, args=(p,)) for p in (1, 2)]
+    for t in threads:
+        t.start()
+    if ref_dir is None:
+        # phase 20's 1-rank two-block runs, in this process meanwhile
+        ref_dir = str(tmp / "ref")
+        os.makedirs(ref_dir)
+        trainer, data, cfg = main_recipe(MH_SAMPLES)
+        for arm in ("fedavg", "norm_clip"):
+            kw = dict(chunk=MAIN_CHUNK, local_dtype=torch.bfloat16,
+                      streaming=True)
+            eng = (MeshRobustEngine(trainer, data, dataclasses.replace(
+                cfg, stddev=1e-3), defense="norm_clip", **kw)
+                if arm == "norm_clip"
+                else MeshFedAvgEngine(trainer, data, cfg, **kw))
+            v = deterministic(lambda: MultihostRunner(
+                eng, MultihostContext.single(), n_blocks=MH_BLOCKS).run(
+                variables=eng.init_variables(), rounds=MH_ROUNDS))
+            torch.save({k: t.to("cpu") for k, t in v.items()},
+                       Path(ref_dir) / f"{arm}.pt")
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    digests, launches = {}, {}
+    for procs in (1, 2):
+        for doc in docs[procs].values():
+            for d in [doc, *doc.get("local_ranks", [])]:
+                r, lr = d["rank"], d["local_rank"]
+                if d["group"] != LG_LOCAL:
+                    raise AssertionError(f"24a: rank {r}.{lr} trained on a "
+                                         f"mesh of {d['group']}")
+                for arm, rec in d["arms"].items():
+                    want = lg_expected(MH_BLOCKS // procs,
+                                       MH_ROUNDS if (r, lr) == (0, 0) else 0,
+                                       arm == "norm_clip")
+                    if rec["launches"] != want or not rec["finite"]:
+                        raise AssertionError(
+                            f"24a {arm}, {procs} x {LG_LOCAL}, rank {r}.{lr}"
+                            f": launches {rec['launches']} != {want} or a "
+                            f"non-finite model")
+                    digests.setdefault(arm, set()).add(rec["digest"])
+                    launches[f"local group {procs}x{LG_LOCAL} {arm} rank "
+                             f"{r}.{lr}"] = rec["launches"]
+                    folds = rec["group_fold_walls"]
+                    print(f"[24a] {arm}, {procs} member(s) x {LG_LOCAL} "
+                          f"ranks, rank {r}.{lr}: s/round "
+                          f"{[round(w, 3) for w in rec['round_walls']]}, "
+                          f"group folds {len(folds)} at "
+                          f"{statistics.median(folds) if folds else 0:.4f} s"
+                          f" median ({(rec['group_fold_bytes'] or [0])[0]} B"
+                          f" received a fold), exchange walls "
+                          f"{[round(w, 4) for w in rec['exchange_walls']]}; "
+                          f"launches {rec['launches']} == expected; digest "
+                          f"{rec['digest']}")
+    bad = {k: v for k, v in digests.items() if len(v) != 1}
+    trainer, data, cfg = main_recipe(MH_SAMPLES)
+    v0 = MeshFedAvgEngine(trainer, data, cfg, chunk=MAIN_CHUNK,
+                          local_dtype=torch.bfloat16,
+                          streaming=True).init_variables()
+    v0 = {k: t.to("cpu") for k, t in v0.items()}
+    dist = {}
+    for arm in ("fedavg", "norm_clip"):
+        got = torch.load(tmp / "m1" / f"{arm}.pt")
+        want = torch.load(Path(ref_dir) / f"{arm}.pt")
+        dist[arm] = update_distance(f"24a {arm}", v0, got, v0, want)
+        print(f"[24a] {arm}: the local-group commit against phase 20's "
+              f"1-rank two-block run: update distance {dist[arm][0]:.3e} "
+              f"(limit {LG_TOL:g}), worst leaves " + ", ".join(
+                  f"{k} {e:.3e}" for k, e in dist[arm][1]))
+    print(f"[24a] local groups on one card: FedAvg and norm_clip at 1 x "
+          f"{LG_LOCAL} and 2 x {LG_LOCAL} ranks, one digest each: "
+          f"{ {k: len(v) == 1 for k, v in digests.items()} }; cluster walls "
+          + ", ".join(f"{p} x {LG_LOCAL} {s:.1f} s"
+                      for p, s in seconds.items()) + f" ({card_line()})")
+    if bad:
+        raise AssertionError(f"24a: the ranks did not commit one model: "
+                             f"{bad}")
+    far = {k: d[0] for k, d in dist.items() if d[0] > LG_TOL}
+    if far:
+        raise AssertionError(f"24a: the local-group commit is further than "
+                             f"{LG_TOL} from phase 20's run: {far}")
+    return dict(docs=docs, cluster_s=seconds, launches=launches,
+                digests={k: next(iter(v)) for k, v in digests.items()},
+                distance={k: d[0] for k, d in dist.items()})
+
+
+def _cli_checkpoint(ckpt_dir: Path, template: dict) -> dict:
+    """The model a CLI run checkpointed last, on the card."""
+    mgr = FedCheckpointManager(str(ckpt_dir))
+    rnd, v, *_ = mgr.restore(template, (), round_idx=mgr.latest_round())
+    return v
+
+
+def cli_card_path() -> dict:
+    """24b: the port's CLI in this process on the main path's model at
+    full width (bf16 compute and local masters, the mesh engine of one
+    rank, streaming, chunk 2, 4 clients of 4 batches, 2 rounds, cuDNN
+    deterministic): its summary, its last checkpoint bitwise the engine
+    built by hand from the same recipe, launches exact; then the robust
+    CLI with norm_clip."""
+    from fedml_tpu_torch.cli import main as cli_main
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    data = load_data("cifar10", client_num_in_total=4, batch_size=BATCH,
+                     partition_method="homo", max_batches_per_client=4,
+                     seed=0, synthetic_scale=0.02)
+    cfg = FedConfig(model="resnet18_gn", dataset="cifar10",
+                    client_num_in_total=4, client_num_per_round=4,
+                    comm_round=2, batch_size=BATCH, lr=0.1,
+                    train_dtype="bfloat16", frequency_of_the_test=100,
+                    local_test_eval=False, max_batches_per_client=4,
+                    partition_method="homo", synthetic_scale=0.02)
+    steps = 2 * 4 * int(np.shape(data.client_shards["x"])[1])
+    folds = 2 * 4 // MAIN_CHUNK
+    # evaluations after round 0 and the last round, each a forward of
+    # every batch of the global train and test shards
+    evals = 2 * sum(int(np.shape(s["x"])[0])
+                    for s in (data.train_global, data.test_global))
+    out = {}
+    for tag, extra, want in (
+            ("fedavg", ["--algorithm", "fedavg"],
+             {"wsum": folds, "sqnorm": 0, "clip_agg": 0}),
+            ("fedavg_robust norm_clip",
+             ["--algorithm", "fedavg_robust", "--defense", "norm_clip"],
+             {"wsum": 0, "sqnorm": folds, "clip_agg": folds})):
+        want = {"gn_forward": 20 * (steps + evals), "gn_backward": 20 * steps,
+                **want}
+        name = tag.replace(" ", "_")
+        argv = [*CLI_ARGS, *extra, "--run_dir", str(tmp), "--run_name", name,
+                "--ckpt_dir", str(tmp / f"ck_{name}"), "--ckpt_every", "2"]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = deterministic(lambda: cli_main(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        with open(tmp / "fedml_tpu_torch" / name / "summary.json") as f:
+            summary = json.load(f)
+        print(f"[24b] CLI {tag} at full width: rc {rc}, {wall:.1f} s, "
+              f"summary {summary}, launches {counts}")
+        if rc != 0 or "test_acc" not in summary or counts != want:
+            raise AssertionError(f"24b {tag}: rc {rc}, summary {summary}, "
+                                 f"launches {counts} != {want}")
+        out[tag] = dict(summary=summary, launches=counts, wall_s=wall)
+    # the engine built by hand from the same recipe, against the CLI's
+    # FedAvg checkpoint
+    trainer = ClientTrainer(create_model("resnet18_gn", data.class_num),
+                            lr=0.1, train_dtype=torch.bfloat16)
+    eng = MeshFedAvgEngine(trainer, data, cfg, mesh=make_mesh(),
+                           streaming=True, chunk=MAIN_CHUNK,
+                           local_dtype=torch.bfloat16)
+    hand = deterministic(lambda: eng.run())
+    got = _cli_checkpoint(tmp / "ck_fedavg", hand)
+    same = same_model(got, hand)
+    print(f"[24b] the CLI's FedAvg model bitwise the hand-built engine's: "
+          f"{same} ({card_line()})")
+    if not same:
+        raise AssertionError("24b: the CLI's model is not the hand-built "
+                             "engine's")
+    out["bitwise_hand_built"] = same
+    return out
+
+
+def cli_cluster_path() -> dict:
+    """24c: the CLI's self-spawned cluster (``--multihost_procs 2 --mesh
+    --agg_blocks 2``: two rank processes on this card, a block each) and
+    the one-process ``--mesh --agg_blocks 2`` run (one rank, both blocks)
+    log the same summary, LR on the MNIST stand-in."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_mh_"))
+    root = str(Path(__file__).resolve().parent)
+    runs = {}
+    for tag, extra in (("one process", []),
+                       ("multihost_procs 2", ["--multihost_procs", "2"])):
+        # both from a fresh process, as a user starts them (earlier phases
+        # leave this process's matmuls in TF32)
+        argv = [sys.executable, "-m", "fedml_tpu_torch", *CLI_LR_ARGS,
+                *extra, "--run_dir", str(tmp / tag.split()[0]),
+                "--run_name", "t"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, capture_output=True, text=True, cwd=root,
+                              timeout=MH_TIMEOUT_S, env={
+                                  **os.environ, "PYTHONPATH": root
+                                  + os.pathsep
+                                  + os.environ.get("PYTHONPATH", "")})
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"24c {tag}: rc {proc.returncode}\n"
+                                 f"{proc.stderr[-3000:]}")
+        with open(tmp / tag.split()[0] / "fedml_tpu_torch" / "t"
+                  / "summary.json") as f:
+            runs[tag] = dict(rc=proc.returncode, summary=json.load(f),
+                             wall_s=wall)
+    one, two = (runs[t]["summary"] for t in runs)
+    same = sorted(one) == sorted(two) and all(
+        one[k] == two[k] for k in one if k != "round_time")
+    print(f"[24c] CLI two-level LR run, one process against "
+          f"--multihost_procs 2: the same summary {same} ({one}); walls "
+          + ", ".join(f"{t} {r['wall_s']:.1f} s" for t, r in runs.items()))
+    if not same or any(r["rc"] != 0 for r in runs.values()):
+        raise AssertionError(f"24c: {runs}")
+    return dict(runs=runs, same=same)
+
+
+def phase_slice6c_iii_7b(slice6a: Optional[dict] = None) -> dict:
+    """Phase 24: local groups and the entry points on the card; each
+    part's seconds.  With phase 20's record, its 1-rank two-block models
+    are 24a's reference."""
+    ref = None
+    if slice6a is not None:
+        ref = slice6a["20a two-level main path"]["dump"]
+    rec, seconds, errs = {}, {}, []
+
+    def part(key, fn):
+        t0 = time.perf_counter()
+        try:
+            rec[key] = fn()
+        except Exception as e:       # re-raised below, after the join
+            errs.append(e)
+        seconds[key] = time.perf_counter() - t0
+
+    # 24c's two CLI runs are processes of their own (no launches counted
+    # here): they run beside 24a's clusters, mostly waiting on their boots
+    side = threading.Thread(target=part,
+                            args=("24c cli cluster", cli_cluster_path))
+    side.start()
+    part("24a local groups", lambda: local_group_main_path(ref))
+    if not errs:
+        part("24b cli", cli_card_path)
+    side.join()
+    if errs:
+        raise errs[0]
+    rec["seconds"] = seconds
+    seconds["phase"] = sum(v for k, v in seconds.items()
+                           if k != "24c cli cluster")
+    print(f"[slices 6c-iii, 7b] phase 24 took {seconds['phase']:.1f} s: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()
+                      if k != "phase")
+          + f" (24c beside 24a; {card_line()})")
+    return rec
+
+
+def phase24_paths(rec: dict) -> dict:
+    """Phase 24's paths and their launch counts (each zeroed in its
+    process just before its run)."""
+    b = rec["24b cli"]
+    return {**rec["24a local groups"]["launches"],
+            "cli fedavg": b["fedavg"]["launches"],
+            "cli fedavg_robust norm_clip":
+                b["fedavg_robust norm_clip"]["launches"]}
+
+
 def phase21_paths(rec: dict) -> dict:
     """Phase 21's paths and their launch counts (each zeroed in its
     process just before its run)."""
@@ -6753,6 +7206,9 @@ def main() -> int:
         return rank20_main(sys.argv[2])
     if sys.argv[1:2] == ["--rank21"]:
         return rank21_main(sys.argv[2])
+    if sys.argv[1:2] == ["--rank24"]:
+        from fedml_tpu_torch.parallel.multihost import exit_rank
+        exit_rank(rank24_main(sys.argv[2]))
     card = card_line()
     print(card)
     phase_build()
@@ -6764,6 +7220,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--phase", "21"]:
         print(json.dumps({"slice6b": phase_slice6b()}, default=str))
+        return 0
+    if sys.argv[1:] == ["--phase", "24"]:
+        print(json.dumps({"slice6c_iii_7b": phase_slice6c_iii_7b()},
+                         default=str))
         return 0
     if sys.argv[1:] == ["--phase", "22"]:
         print(json.dumps({"slice6c_i": phase_slice6c_i()}, default=str))
@@ -6804,6 +7264,8 @@ def main() -> int:
     slice6b = clock("21 slice 6b", phase_slice6b)
     slice6c_i = clock("22 slice 6c-i", phase_slice6c_i, slice6a)
     slice6c_ii = clock("23 slice 6c-ii", phase_slice6c_ii, gen)
+    slice6c_iii_7b = clock("24 slices 6c-iii and 7b", phase_slice6c_iii_7b,
+                           slice6a)
     print(json.dumps({"zoo": zoo, "resnet56_path": {
         k: v for k, v in resnet56.items() if k != "fold"},
         "word_lstm": word_lstm, "c1": c1, "data_path": data_path,
@@ -6811,7 +7273,8 @@ def main() -> int:
         "slice5b_i": slice5b_i, "slice5b_ii": slice5b_ii,
         "slice4a": slice4a, "slice4b": slice4b, "slice6a": slice6a,
         "slice6b": slice6b, "slice6c_i": slice6c_i,
-        "slice6c_ii": slice6c_ii, "seconds": seconds}, default=str))
+        "slice6c_ii": slice6c_ii, "slice6c_iii_7b": slice6c_iii_7b,
+        "seconds": seconds}, default=str))
     print("[timing] seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {sum(seconds.values()):.1f} ({card})")
@@ -6831,7 +7294,8 @@ def main() -> int:
              **phase19_paths(slice4b), **phase20_paths(slice6a),
              **phase21_paths(slice6b), **slice6c_i["launches"],
              **{f"batch axis {k}": v
-                for k, v in slice6c_ii["launches"].items()}}
+                for k, v in slice6c_ii["launches"].items()},
+             **phase24_paths(slice6c_iii_7b)}
     print(json.dumps(kernel_line(gn_fwd, gn_bwd, fold_rec, robust_rec, counts,
                                  robust_counts, resnet56, paths,
                                  slice7a["gn_shapes"],

@@ -6,3 +6,5 @@ first use into fedml_tpu_torch/_build).  Entry points run on CUDA unless
 the caller passes device="cpu", where each kernel's plain PyTorch version
 runs instead.  The package imports neither JAX nor fedml_tpu.
 """
+
+__version__ = "0.1.0"

@@ -151,8 +151,8 @@ class FedAvgEngine:
         return None if int(first[0]) < 0 else int(first[0])
 
     def run(self, variables: Optional[dict] = None,
-            rounds: Optional[int] = None, ckpt=None, ckpt_every: int = 0,
-            resume: bool = False) -> dict:
+            rounds: Optional[int] = None, logger=None, ckpt=None,
+            ckpt_every: int = 0, resume: bool = False) -> dict:
         """The reference's train() loop (fedml_tpu/algorithms/fedavg.py
         ::run, fedavg_api.py:40-81), plus the round-level checkpoint and
         resume the reference lacks: `ckpt` is a
@@ -162,7 +162,9 @@ class FedAvgEngine:
         each client's generator is keyed on (seed, round, lane)).  Over a
         mesh of ranks every rank restores from `ckpt` and the first rank
         alone writes it (the ranks commit the same bits), so a fresh
-        cluster that resumes continues the uninterrupted run bitwise."""
+        cluster that resumes continues the uninterrupted run bitwise.
+        `logger` (utils/metrics.py::RunLogger) gets every evaluated
+        round's metrics, keyed by the round."""
         cfg = self.cfg
         variables = variables if variables is not None else self.init_variables()
         server_state = self.server_init(variables)
@@ -200,6 +202,8 @@ class FedAvgEngine:
                                  train_loss=float(m["train_loss"]),
                                  round_time=time.time() - t0)
                     self.metrics_history.append(stats)
+                    if logger is not None:
+                        logger.log(stats, step=round_idx)
                     log.info("round %d: %s", round_idx, stats)
                     if obs.enabled():       # live and peak device memory
                         obs.sample_device_memory()

@@ -208,10 +208,11 @@ class AsyncFedAvgEngine(FedAvgEngine):
 
     # -- the event-driven loop ------------------------------------------------
     def run(self, variables: Optional[dict] = None,
-            rounds: Optional[int] = None, ckpt=None, ckpt_every: int = 0,
-            resume: bool = False) -> dict:
+            rounds: Optional[int] = None, logger=None, ckpt=None,
+            ckpt_every: int = 0, resume: bool = False) -> dict:
         """Drive `rounds` commits of the async federation, with the base
-        run()'s eval cadence and metrics_history.  `ckpt` (a
+        run()'s eval cadence, metrics_history and `logger` (each evaluated
+        commit, keyed by its number).  `ckpt` (a
         utils.checkpoint.FedCheckpointManager) saves the variables and
         async_state() every `ckpt_every` commits; `resume` restores both
         from its latest save and runs on to the budget."""
@@ -375,6 +376,8 @@ class AsyncFedAvgEngine(FedAvgEngine):
                              buffer_fill=n_real / self.buffer_k,
                              wall_time=time.perf_counter() - t_wall0)
                 self.metrics_history.append(stats)
+                if logger is not None:
+                    logger.log(stats, step=c)
                 log.info("commit %d: %s", c, stats)
             if ckpt is not None and ckpt_every and \
                     self.version % ckpt_every == 0:

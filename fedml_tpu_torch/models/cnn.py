@@ -6,7 +6,8 @@ CNNOriginalFedAvg: 2 x (5x5 SAME conv + 2x2 max pool) + fc512 + head, the
 convs, one pool, dropout 0.25 and 0.5 around fc128.  Images come in NHWC
 ([N, H, W] is read as one channel); the features are flattened in NHWC
 order, as flax flattens them, before the first Dense, whose width flax
-infers from the first batch and which here is FEMNIST's 28x28 images'.
+infers from the first batch and which here comes from `in_channels` and
+`image_hw` (default FEMNIST's 28x28x1 images).
 flax's ``max_pool`` is VALID and floors odd sizes, as ``F.max_pool2d``.
 """
 from __future__ import annotations
@@ -25,11 +26,13 @@ def _images(x: torch.Tensor) -> torch.Tensor:
 
 
 class CNNOriginalFedAvg(nn.Module):
-    def __init__(self, num_classes: int = 62, only_digits: bool = False):
+    def __init__(self, num_classes: int = 62, only_digits: bool = False,
+                 in_channels: int = 1, image_hw: int = 28):
         super().__init__()
-        self.Conv_0 = SameConv2d(1, 32, 5, bias=True)
+        self.Conv_0 = SameConv2d(in_channels, 32, 5, bias=True)
         self.Conv_1 = SameConv2d(32, 64, 5, bias=True)
-        self.Dense_0 = Dense(7 * 7 * 64, 512)        # 28 -> 14 -> 7
+        side = image_hw // 2 // 2                    # 28 -> 14 -> 7
+        self.Dense_0 = Dense(side * side * 64, 512)
         self.Dense_1 = Dense(512, 10 if only_digits else num_classes)
 
     def forward(self, x: torch.Tensor, train: bool = False,
@@ -40,12 +43,14 @@ class CNNOriginalFedAvg(nn.Module):
 
 
 class CNNDropOut(nn.Module):
-    def __init__(self, num_classes: int = 62, only_digits: bool = False):
+    def __init__(self, num_classes: int = 62, only_digits: bool = False,
+                 in_channels: int = 1, image_hw: int = 28):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(1, 32, 3)
+        self.Conv_0 = nn.Conv2d(in_channels, 32, 3)
         self.Conv_1 = nn.Conv2d(32, 64, 3)
         self.Dropout_0 = Dropout(0.25)
-        self.Dense_0 = Dense(12 * 12 * 64, 128)      # 28 -> 26 -> 24 -> 12
+        side = (image_hw - 4) // 2                   # 28 -> 26 -> 24 -> 12
+        self.Dense_0 = Dense(side * side * 64, 128)
         self.Dropout_1 = Dropout(0.5)
         self.Dense_1 = Dense(128, 10 if only_digits else num_classes)
 

@@ -612,7 +612,9 @@ class MeshFedAvgEngine(FedAvgEngine):
                 round_idx=round_idx, restore_x=self._restore_chunk_x,
                 batch_shard=self.batch_shard.index if split else None, **kw)
 
-    def run(self, variables: Optional[dict] = None, *args, **kw) -> dict:
+    def run(self, variables: Optional[dict] = None,
+            rounds: Optional[int] = None, logger=None, ckpt=None,
+            ckpt_every: int = 0, resume: bool = False) -> dict:
         """FedAvgEngine.run, after refusing a model with collections under
         a batch axis unless `allow_batch_stats` (engine.py:976-985)."""
         if self.batch_axes and not self.allow_batch_stats \
@@ -625,7 +627,8 @@ class MeshFedAvgEngine(FedAvgEngine):
                 "(GroupNorm/LayerNorm), or sync_batch_norm(axis_name="
                 "'batch') (models/norms.py) and pass "
                 "allow_batch_stats=True")
-        return super().run(variables, *args, **kw)
+        return super().run(variables, rounds, logger=logger, ckpt=ckpt,
+                           ckpt_every=ckpt_every, resume=resume)
 
     def _fold_fn(self, g: torch.Tensor) -> Callable:
         """The chunk fold of this engine's linear sums (g: the round's model
@@ -703,12 +706,10 @@ class MeshFedAvgEngine(FedAvgEngine):
         programs (once)."""
         if getattr(self, "_twolevel_ready", False):
             return
-        if self.mesh.size > 1:
+        if self.batch_axes and self.mesh.size > 1:
             raise ValueError(
-                f"MultihostRunner needs an engine on this process alone "
-                f"(make_local_mesh): this engine's mesh spans "
-                f"{self.mesh.size} ranks, and the runner's cross-process "
-                f"tier is its HostChannel")
+                "MultihostRunner drives a client-axis local group; this "
+                "engine's mesh has a 'batch' axis")
         if self.stream_block is not None:
             raise ValueError(
                 "MultihostRunner does not drive block-streamed rounds "
@@ -732,12 +733,19 @@ class MeshFedAvgEngine(FedAvgEngine):
     def _twolevel_partial_impl(self, variables: dict, cohort: dict,
                                weights: torch.Tensor, round_idx: int,
                                lane0: int) -> np.ndarray:
-        """One block's partial from an uploaded block cohort (streaming
-        residency): its lanes are lanes lane0.. of the round, so the
-        clients' generators do not depend on which rank trains them."""
+        """One block's partial from an uploaded block cohort: its lanes are
+        lanes lane0.. of the round, so the clients' generators do not
+        depend on which rank trains them.  Over a local group of ranks
+        `cohort` is this rank's equal share of the block's (padded)
+        lanes, and the ranks' sums are folded left in mesh order on the
+        host (JAX psums them over its local mesh)."""
         g = self._local_flat(variables)
-        return sums_to_host(self.trainer, self._accumulate(
-            g, self._zero_sums(g), cohort, weights, round_idx, lane0=lane0))
+        carry = sums_to_host(self.trainer, self._accumulate(
+            g, self._zero_sums(g), cohort, weights, round_idx,
+            lane0=lane0 + self._lane0(weights)))
+        if self.n_shards > 1:
+            carry = self.exchange.fold(carry, self.client_axes)
+        return carry
 
     def _twolevel_partial_resident_impl(self, variables: dict, stack: dict,
                                         stack_w: torch.Tensor, ids,
@@ -745,9 +753,10 @@ class MeshFedAvgEngine(FedAvgEngine):
                                         lane0: int) -> np.ndarray:
         """Resident variant: this rank's id-range stack lives on the
         device and the block cohort is an index-select by LOCAL id; the
-        gathered values are the host gather's, bitwise.  (JAX's wmask,
-        which zeroes the lanes padding a cohort to the mesh, has no
-        counterpart: a rank drives one device.)"""
+        gathered values are the host gather's, bitwise.  A local group
+        of ranks shares its resident rows through the runner instead
+        (MultihostRunner._resident_share), so JAX's wmask has no
+        counterpart here."""
         idx = torch.as_tensor(np.asarray(ids), dtype=torch.long,
                               device=stack_w.device)
         cohort = {k: v.index_select(0, idx) for k, v in stack.items()}

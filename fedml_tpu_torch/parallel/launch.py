@@ -28,6 +28,9 @@ which each rank's `init_multihost` joins torch.distributed's gloo group
 
     python -m fedml_tpu_torch.parallel.launch --procs 2 --jax-distributed \\
         -- python -m fedml_tpu_torch.parallel.mesh_worker CASE.json
+
+--procs counts host-channel members: a worker with local_devices k > 1
+(mh_worker) starts its member's k - 1 further ranks itself.
 """
 from __future__ import annotations
 
@@ -58,6 +61,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "init_multihost joins torch.distributed's gloo "
                          "group there (the name is the JAX package's, so "
                          "one launch line drives both)")
+    ap.add_argument("--port", type=int, default=None,
+                    help="the host channel coordinator's port (default: a "
+                         "free one); --jax-distributed's rendezvous takes "
+                         "port + 1 and member m's local group (mh_worker "
+                         "local_devices > 1) port + 2 + m")
     ap.add_argument("cmd", nargs=argparse.REMAINDER,
                     help="worker command (prefix with --)")
     args = ap.parse_args(argv)
@@ -88,7 +96,8 @@ def main(argv=None) -> int:
         outs = spawn_cluster(args.cmd, args.procs, timeout_s=args.timeout,
                              echo=True, elastic=args.elastic,
                              respawn=args.respawn,
-                             jax_distributed=args.jax_distributed)
+                             jax_distributed=args.jax_distributed,
+                             coordinator_port=args.port)
     except MultihostLaunchError as e:
         print(f"launch: {e}", file=sys.stderr)
         return 1

@@ -123,24 +123,59 @@ class Mesh:
         mesh-coordinate order, as host numpy arrays.  The arrays must have
         one shape and dtype on every rank.  One rank: [array], no
         collective."""
+        ranks, group = self._axis_group(axes)
+        if group is None:
+            return [array]
+        import torch.distributed as dist
+        t = torch.from_numpy(np.require(array, requirements=("C", "W")))
+        out = [torch.empty_like(t) for _ in ranks]
+        dist.all_gather(out, t, group=group)
+        # a group's ranks are numbered in ascending global rank; hand them
+        # back in the mesh's coordinate order
+        by_global = sorted(ranks)
+        return [out[by_global.index(r)].numpy() for r in ranks]
+
+    def _axis_group(self, axes: Optional[Sequence[str]]):
+        """(ranks along `axes` (default: the whole mesh) in mesh order,
+        their process group or None for one rank)."""
         axes = tuple(axes) if axes is not None else self.axis_names
         ranks = self.axis_ranks(axes)
         if len(ranks) == 1:
-            return [array]
+            return ranks, None
         key = tuple(a for a in self.axis_names if a in axes)
         if key not in self._groups:
             raise RuntimeError(
                 f"mesh axes {key} span {len(ranks)} ranks but this mesh "
                 f"has no process group for them (a Mesh.layout view, or a "
                 f"mesh built before torch.distributed was initialized)")
+        return ranks, self._groups[key]
+
+    def broadcast_object(self, obj, axes: Optional[Sequence[str]] = None):
+        """The first rank's picklable `obj` (along `axes`, default the
+        whole mesh) on every rank of them; the others pass anything."""
+        ranks, group = self._axis_group(axes)
+        if group is None:
+            return obj
         import torch.distributed as dist
-        t = torch.from_numpy(np.require(array, requirements=("C", "W")))
-        out = [torch.empty_like(t) for _ in ranks]
-        dist.all_gather(out, t, group=self._groups[key])
-        # a group's ranks are numbered in ascending global rank; hand them
-        # back in the mesh's coordinate order
-        by_global = sorted(ranks)
-        return [out[by_global.index(r)].numpy() for r in ranks]
+        box = [obj]
+        dist.broadcast_object_list(box, src=ranks[0], group=group)
+        return box[0]
+
+    def broadcast(self, array: Optional[np.ndarray],
+                  axes: Optional[Sequence[str]] = None) -> np.ndarray:
+        """The first rank's host `array` (along `axes`) on every rank of
+        them, bit for bit; the others pass None."""
+        ranks, group = self._axis_group(axes)
+        if group is None:
+            return array
+        import torch.distributed as dist
+        first = self.rank == ranks[0]
+        head = self.broadcast_object(
+            (array.shape, array.dtype.str) if first else None, axes)
+        t = (torch.from_numpy(np.require(array, requirements=("C", "W")))
+             if first else torch.from_numpy(np.empty(head[0], head[1])))
+        dist.broadcast(t, src=ranks[0], group=group)
+        return t.numpy()
 
     def __repr__(self) -> str:
         return (f"Mesh(axes={self.axis_names}, shape={self.grid.shape}, "

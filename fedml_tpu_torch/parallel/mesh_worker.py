@@ -338,7 +338,6 @@ def main(argv=None) -> int:
     with open(argv[0]) as f:
         case = json.load(f)
     import torch
-    import torch.distributed as dist
 
     from fedml_tpu_torch.parallel.multihost import (MultihostContext,
                                                     init_multihost)
@@ -354,25 +353,24 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
     out = {"rank": ctx.rank, "world": ctx.world, "arms": {}}
     data_cache: dict = {}
-    try:
-        meshes = build_meshes(case["arms"])
-        for arm, mesh_rec in zip(case["arms"], meshes):
-            if mesh_rec[0] is None:         # not a rank of this arm's mesh
-                out["arms"][arm["tag"]] = {"skipped": True}
-                continue
-            t0 = time.perf_counter()
-            out["arms"][arm["tag"]] = run_arm(case, arm, ctx.rank,
-                                              data_cache, mesh_rec)
-            out["arms"][arm["tag"]]["arm_s"] = time.perf_counter() - t0
-        if case.get("mh_worker"):
-            out["mh_worker"] = run_mh_worker(case["mh_worker"], case["out"],
-                                             ctx.rank)
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+    meshes = build_meshes(case["arms"])
+    for arm, mesh_rec in zip(case["arms"], meshes):
+        if mesh_rec[0] is None:             # not a rank of this arm's mesh
+            out["arms"][arm["tag"]] = {"skipped": True}
+            continue
+        t0 = time.perf_counter()
+        out["arms"][arm["tag"]] = run_arm(case, arm, ctx.rank,
+                                          data_cache, mesh_rec)
+        out["arms"][arm["tag"]]["arm_s"] = time.perf_counter() - t0
+    if case.get("mh_worker"):
+        out["mh_worker"] = run_mh_worker(case["mh_worker"], case["out"],
+                                         ctx.rank)
+    # the gloo world ends with the process (exit_rank), not through a
+    # teardown in it
     print(json.dumps(out), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    from fedml_tpu_torch.parallel.multihost import exit_rank
+    exit_rank(main())

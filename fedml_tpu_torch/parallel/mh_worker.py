@@ -51,8 +51,29 @@ commits and exits rc=3), slo (bool), sparse_uplink (bool).
 jax_distributed (bool): each rank joins torch.distributed's gloo group
 (`init_multihost`, at the launcher's FEDML_MH_JAX_COORD) before it
 builds its engine; the runner and its digests do not change.
-local_devices > 1 (several ranks behind one host channel) is slice 6c-iii
-of the port and raises.
+
+local_devices (int, default 1): the ranks behind each host-channel
+member.  With k > 1 the process the launcher started is the member's
+first rank: it starts k - 1 further ranks of this worker
+(multihost.py::join_local_group), the group joins a gloo world of its own
+(with jax_distributed, one world over every member's ranks at the
+launcher's rendezvous), and every engine trains on the member's local
+mesh: each rank trains its share of a block's lanes, the group folds the
+shares in mesh order, the first rank ships the carry through the channel,
+and the whole group commits the same bits.  `--procs` still counts
+members, and each member prints one JSON line, with its further ranks'
+lines under "local_ranks".  A member's further ranks end with it; an
+elastic run's survivors re-adopt a dead member's blocks, and a respawned
+member with a local group is refused (it does not rejoin).
+
+algorithms (list, default ["fedavg"]: "fedavg", "fedprox", "fedopt",
+"fednova", "norm_clip") and carry_codecs (list, default [carry_codec])
+add arms: every (algorithm, codec, mode) runs over the one channel, and
+an arm other than the first algorithm and codec is keyed
+"algorithm/codec/mode" in "digests".  init_npz (a .npz of the model's
+leaves by the trainer's names) starts every arm from those weights;
+dump_dir makes member 0's first rank write each arm's committed model
+there as "<key with '/' as '_'>.npz".
 """
 import json
 import os
@@ -70,16 +91,22 @@ DEFAULTS = {
     "hang_s": 20.0, "hb_timeout_s": 2.0, "hb_interval_s": 0.25,
     "round_sleep_s": 0.0, "round_sleep_mode": None,
     "serve_cluster": None, "jax_distributed": False, "local_devices": 1,
+    "algorithms": ["fedavg"], "carry_codecs": None,
+    "init_npz": None, "dump_dir": None,
 }
+
+ALGORITHMS = ("fedavg", "fedprox", "fedopt", "fednova", "norm_clip")
 
 
 def check_config(cfg: dict) -> None:
-    """Refuse the keys of the tier the port does not carry yet, by name."""
-    if cfg.get("local_devices", 1) != 1:
-        raise NotImplementedError(
-            "mh_worker: local_devices > 1 (several ranks behind one host "
-            "channel) belongs to slice 6c-iii of the port; a rank drives "
-            "one device")
+    """Refuse a configuration the worker cannot run, by name."""
+    if int(cfg.get("local_devices", 1)) < 1:
+        raise ValueError(f"local_devices must be >= 1, got "
+                         f"{cfg['local_devices']}")
+    for algo in cfg.get("algorithms") or ["fedavg"]:
+        if algo not in ALGORITHMS:
+            raise ValueError(f"unknown algorithm {algo!r} (one of "
+                             f"{ALGORITHMS})")
     for mode in cfg["modes"]:
         if mode not in ("streaming", "resident"):
             raise ValueError(f"unknown residency mode {mode!r}")
@@ -97,7 +124,8 @@ def config_digest(cfg: dict) -> str:
 
 def build_case(cfg: dict):
     """The synthetic separable-LR federated case (the JAX worker's, same
-    numbers from RandomState(7)); returns make_engine(streaming)."""
+    numbers from RandomState(7)); returns make_engine(streaming,
+    algorithm), the engine on this member's local mesh."""
     import numpy as np
 
     from fedml_tpu_torch.core.trainer import ClientTrainer
@@ -105,7 +133,7 @@ def build_case(cfg: dict):
                                                 build_client_shards,
                                                 build_eval_shard)
     from fedml_tpu_torch.models import create_model
-    from fedml_tpu_torch.parallel.engine import MeshFedAvgEngine
+    from fedml_tpu_torch.parallel import engine as E
     from fedml_tpu_torch.utils.config import FedConfig
 
     C, spc, dim, classes = (cfg["clients"], cfg["spc"], cfg["dim"],
@@ -129,13 +157,22 @@ def build_case(cfg: dict):
                        client_num_per_round=cfg["k_per_round"],
                        comm_round=cfg["rounds"], epochs=1,
                        batch_size=bs, lr=cfg["lr"], seed=cfg["seed"],
-                       frequency_of_the_test=10_000)
+                       frequency_of_the_test=10_000, prox_mu=0.1,
+                       server_optimizer="adam", server_lr=0.01,
+                       norm_bound=1.0, stddev=1e-3)
 
-    def make_engine(streaming: bool):
+    def make_engine(streaming: bool, algorithm: str = "fedavg"):
         model = create_model("lr", classes, input_dim=dim)
-        return MeshFedAvgEngine(ClientTrainer(model, lr=fedcfg.lr), data,
-                                fedcfg, streaming=streaming,
-                                device=cfg["device"])
+        trainer = ClientTrainer(model, lr=fedcfg.lr)
+        # the engines' default mesh is this member's local mesh
+        kw = dict(streaming=streaming, device=cfg["device"])
+        if algorithm == "norm_clip":
+            return E.MeshRobustEngine(trainer, data, fedcfg,
+                                      defense="norm_clip", **kw)
+        cls = {"fedavg": E.MeshFedAvgEngine, "fedprox": E.MeshFedProxEngine,
+               "fedopt": E.MeshFedOptEngine,
+               "fednova": E.MeshFedNovaEngine}[algorithm]
+        return cls(trainer, data, fedcfg, **kw)
 
     return make_engine
 
@@ -209,21 +246,64 @@ def main(argv=None) -> int:
     with open(argv[0]) as f:
         cfg = {**DEFAULTS, **json.load(f)}
     check_config(cfg)
+    from fedml_tpu_torch.parallel.multihost import (LocalGroup,
+                                                    MultihostContext,
+                                                    init_multihost,
+                                                    join_local_group)
+    ctx = MultihostContext.from_env() or MultihostContext.single()
+    local = LocalGroup([])
+    if int(cfg["local_devices"]) > 1 and ctx.rank != 0 \
+            and os.environ.get("FEDML_MH_REJOIN") == "1":
+        print(f"rank {ctx.rank}: a member with a local group "
+              f"(local_devices {cfg['local_devices']}) does not rejoin",
+              file=sys.stderr, flush=True)
+        return 5
+    if int(cfg["local_devices"]) > 1:
+        # the member's further ranks (started by its first rank) and the
+        # gloo world they train in; collectives wait out the leader's
+        # channel exchange, so their deadline is the channel's, and more
+        ctx, local = join_local_group(
+            int(cfg["local_devices"]),
+            [sys.executable, "-m", "fedml_tpu_torch.parallel.mh_worker",
+             argv[0]],
+            timeout_s=4 * float(cfg["channel_timeout_s"]) + 60.0,
+            over_members=bool(cfg["jax_distributed"]
+                              and ctx.jax_coordinator))
+    elif cfg["jax_distributed"] and ctx.jax_coordinator:
+        init_multihost(coordinator_address=ctx.jax_coordinator,
+                       num_processes=ctx.world, process_id=ctx.rank,
+                       required=True, timeout_s=cfg["channel_timeout_s"])
+    try:
+        return _train_main(ctx, cfg, local)
+    except BaseException:
+        local.kill()
+        raise
+
+
+def _arms(cfg: dict) -> list:
+    """(key, algorithm, codec, mode) of every arm, in run order."""
+    algos = list(cfg["algorithms"] or ["fedavg"])
+    codecs = list(cfg["carry_codecs"] or [cfg["carry_codec"]])
+    arms = []
+    for algo in algos:
+        for codec in codecs:
+            for mode in cfg["modes"]:
+                key = (mode if (algo, codec) == (algos[0], codecs[0])
+                       else f"{algo}/{codec}/{mode}")
+                arms.append((key, algo, codec, mode))
+    return arms
+
+
+def _train_main(ctx, cfg: dict, local) -> int:
     from fedml_tpu_torch import obs
     from fedml_tpu_torch.obs import cluster as cluster_mod
     from fedml_tpu_torch.parallel.multihost import (DeadRankError,
                                                     ElasticChannel,
                                                     ElasticRunner,
                                                     HostChannel,
-                                                    MultihostContext,
                                                     MultihostRunner,
-                                                    init_multihost,
                                                     variables_digest)
-    ctx = MultihostContext.from_env() or MultihostContext.single()
-    if cfg["jax_distributed"] and ctx.jax_coordinator:
-        init_multihost(coordinator_address=ctx.jax_coordinator,
-                       num_processes=ctx.world, process_id=ctx.rank,
-                       required=True, timeout_s=cfg["channel_timeout_s"])
+    leads = ctx.local_rank == 0
     n_blocks = cfg["n_blocks"] or ctx.world
     rejoining = (os.environ.get("FEDML_MH_REJOIN") == "1"
                  and ctx.rank != 0)
@@ -237,6 +317,8 @@ def main(argv=None) -> int:
         # channel without the observatory
         sub = (f"rank{ctx.rank}-pid{os.getpid()}" if rejoining
                else f"rank{ctx.rank}")
+        if ctx.local_rank:
+            sub += f"-local{ctx.local_rank}"
         obs.configure(os.path.join(obs_root, sub))
     if cfg["serve_cluster"]:
         return _serve_cluster_main(ctx, cfg)
@@ -256,7 +338,7 @@ def main(argv=None) -> int:
             print(f"rank {ctx.rank}: injected crash at round "
                   f"{round_idx}", file=sys.stderr, flush=True)
             os._exit(3)
-        if (cfg["hang_rank"] == ctx.rank
+        if (cfg["hang_rank"] == ctx.rank and leads
                 and cfg["hang_at_round"] == round_idx and not rejoining):
             # a stopped process's shape without stopping it (a stopped
             # child never exits and would wedge the launcher): the
@@ -269,8 +351,11 @@ def main(argv=None) -> int:
             channel.hb_paused = False
 
     # ONE channel for the whole worker: every residency mode rides it
-    # (re-binding the coordinator port between modes would race peers)
-    if cfg["elastic"]:
+    # (re-binding the coordinator port between modes would race peers);
+    # a member's further ranks reach it through their leader only
+    if not leads:
+        channel = None
+    elif cfg["elastic"]:
         channel = ElasticChannel(
             ctx, n_items=n_blocks, config_digest=config_digest(cfg),
             timeout_s=cfg["channel_timeout_s"],
@@ -280,8 +365,11 @@ def main(argv=None) -> int:
         channel = HostChannel(ctx, timeout_s=cfg["channel_timeout_s"])
     out = {"rank": ctx.rank, "world": ctx.world, "n_blocks": n_blocks,
            "elastic": bool(cfg["elastic"]), "rejoined": bool(rejoining),
+           "local_rank": ctx.local_rank,
+           "local_devices": int(cfg["local_devices"]),
            "digests": {}, "per_mode": {}}
-    modes = list(cfg["modes"])
+    arms = _arms(cfg)
+    modes = [a[0] for a in arms]
     rejoin_state = None
     try:
         if cfg["elastic"] and rejoining:
@@ -298,15 +386,24 @@ def main(argv=None) -> int:
                           f"skipping completed mode(s) {skipped}",
                           file=sys.stderr, flush=True)
             rejoin_state = (blob, resume_round)
-        for mi, mode in enumerate(modes):
-            current_mode["mode"] = mode
-            engine = make_engine(streaming=(mode == "streaming"))
+        arms = [a for a in arms if a[0] in modes]
+        for mi, (mode, algo, codec, res) in enumerate(arms):
+            current_mode["mode"] = res
+            engine = make_engine(streaming=(res == "streaming"),
+                                 algorithm=algo)
             kw = dict(n_blocks=n_blocks, channel=channel,
                       timeout_s=cfg["channel_timeout_s"],
-                      carry_codec=cfg["carry_codec"],
+                      carry_codec=codec,
                       carry_chunk=cfg["carry_chunk"],
                       overlap_exchange=cfg["overlap_exchange"],
                       on_round_end=on_round_end)
+            start = None
+            if cfg["init_npz"]:
+                import numpy as np
+                import torch
+                with np.load(cfg["init_npz"]) as z:
+                    start = {k: torch.from_numpy(z[k]).to(engine.device)
+                             for k in engine.init_variables()}
             t0 = time.perf_counter()
             if cfg["elastic"]:
                 runner = ElasticRunner(
@@ -316,7 +413,7 @@ def main(argv=None) -> int:
                     # only the first run of a respawned process resumes
                     # mid-run; later modes start as a member
                     variables = runner.run(
-                        rounds=cfg["rounds"], rejoin=False,
+                        variables=start, rounds=cfg["rounds"], rejoin=False,
                         rejoin_state=rejoin_state if mi == 0 else None)
                 except DeadRankError as e:
                     if cfg["hang_rank"] == ctx.rank and not rejoining:
@@ -328,12 +425,18 @@ def main(argv=None) -> int:
                     raise
             else:
                 runner = MultihostRunner(engine, ctx, **kw)
-                variables = runner.run(rounds=cfg["rounds"])
+                variables = runner.run(variables=start, rounds=cfg["rounds"])
             rep = runner.report(warmup_rounds=cfg["warmup"])
             rep["total_wall_s"] = time.perf_counter() - t0
             out["digests"][mode] = variables_digest(variables)
+            if cfg["dump_dir"] and ctx.rank == 0 and leads:
+                import numpy as np
+                np.savez(os.path.join(cfg["dump_dir"],
+                                      mode.replace("/", "_") + ".npz"),
+                         **{k: v.detach().to("cpu").float().numpy()
+                            for k, v in variables.items()})
             out["per_mode"][mode] = rep
-            if cfg["eval"] and ctx.rank == 0:
+            if cfg["eval"] and ctx.rank == 0 and leads:
                 out.setdefault("eval", {})[mode] = \
                     engine.evaluate(variables)["test_acc"]
         # headline numbers: the streaming mode when run, else the first
@@ -345,16 +448,23 @@ def main(argv=None) -> int:
                   "carry_payload_bytes_per_round",
                   "carry_raw_bytes_per_round", "overlap_fraction"):
             out[k] = out["per_mode"][head][k]
-        if ctx.rank == 0:
+        if ctx.rank == 0 and leads:
             # the coordinator's barrier ledger and cluster SLO verdict
             # (always-on local bookkeeping)
             out["straggler"] = cluster_mod.straggler_summary()
             out["cluster_slo"] = cluster_mod.cluster_slo_report()
+        if local.procs:
+            out["local_ranks"] = [
+                json.loads(o.strip().splitlines()[-1])
+                for o in local.collect(timeout_s=float(
+                    cfg["channel_timeout_s"]) + 60.0)]
         print(json.dumps(out, default=str), flush=True)
     finally:
-        channel.close()
+        if channel is not None:
+            channel.close()
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    from fedml_tpu_torch.parallel.multihost import exit_rank
+    exit_rank(main())

@@ -83,6 +83,10 @@ ENV_RANK = "FEDML_MH_RANK"
 ENV_WORLD = "FEDML_MH_WORLD"
 ENV_COORD = "FEDML_MH_COORD"           # host:port of the HostChannel
 ENV_JAX_COORD = "FEDML_MH_JAX_COORD"   # host:port of the mesh's rendezvous
+# a member's local group (several ranks behind one host-channel member):
+ENV_LOCAL_RANK = "FEDML_MH_LOCAL_RANK"     # this process's rank in it
+ENV_LOCAL_WORLD = "FEDML_MH_LOCAL_WORLD"   # its size
+ENV_LOCAL_COORD = "FEDML_MH_LOCAL_COORD"   # host:port of its rendezvous
 
 # ---------------------------------------------------------------------------
 # process context + cluster spawning
@@ -96,6 +100,8 @@ class MultihostContext:
     world: int
     coordinator: str                    # "host:port" of the HostChannel
     jax_coordinator: Optional[str] = None   # the mesh's rendezvous, when wired
+    local_rank: int = 0                 # rank in the member's local group
+    local_world: int = 1                # ranks behind this member
 
     @classmethod
     def from_env(cls) -> Optional["MultihostContext"]:
@@ -106,9 +112,15 @@ class MultihostContext:
         if not 0 <= rank < world:
             raise ValueError(f"{ENV_RANK}={rank} outside world "
                              f"{world}")
+        local_world = int(os.environ.get(ENV_LOCAL_WORLD, "1"))
+        local_rank = int(os.environ.get(ENV_LOCAL_RANK, "0"))
+        if not 0 <= local_rank < local_world:
+            raise ValueError(f"{ENV_LOCAL_RANK}={local_rank} outside the "
+                             f"local group of {local_world}")
         return cls(rank=rank, world=world,
                    coordinator=os.environ.get(ENV_COORD, "localhost:0"),
-                   jax_coordinator=os.environ.get(ENV_JAX_COORD))
+                   jax_coordinator=os.environ.get(ENV_JAX_COORD),
+                   local_rank=local_rank, local_world=local_world)
 
     @classmethod
     def single(cls) -> "MultihostContext":
@@ -215,8 +227,9 @@ def spawn_cluster_report(cmd: list[str], procs: int, *,
     coord = f"{coordinator_host}:{port}"
     base_env = {**os.environ, **(env or {}),
                 ENV_WORLD: str(procs), ENV_COORD: coord}
-    base_env.pop("FEDML_MH_REJOIN", None)
-    base_env.pop(ENV_JAX_COORD, None)
+    for key in ("FEDML_MH_REJOIN", ENV_JAX_COORD, ENV_LOCAL_RANK,
+                ENV_LOCAL_WORLD, ENV_LOCAL_COORD):
+        base_env.pop(key, None)
     if jax_distributed:
         dist_port = (free_port() if coordinator_port is None
                      else coordinator_port + 1)
@@ -446,12 +459,167 @@ def make_global_mesh(axis_name: str = CLIENT_AXIS) -> Mesh:
     return make_mesh(axis_name=axis_name)
 
 
+def member_ranks(ctx: Optional[MultihostContext] = None) -> list:
+    """The ranks of torch.distributed's world that sit behind this
+    process's host-channel member: the member's local group.  Its world is
+    either the group alone (the ranks a member started, `join_local_group`)
+    or every member's group (launched with ``--jax-distributed``: member m
+    holds ranks m*k .. m*k + k - 1); without a local group, this rank."""
+    ctx = ctx if ctx is not None else (MultihostContext.from_env()
+                                       or MultihostContext.single())
+    n_world, rank = mesh_world()
+    k = ctx.local_world
+    if n_world == k:
+        return list(range(n_world))
+    if k == 1:
+        return [rank]
+    if n_world != ctx.world * k:
+        raise ValueError(
+            f"a torch.distributed world of {n_world} ranks is neither one "
+            f"member's local group ({k}) nor every member's ({ctx.world} "
+            f"x {k})")
+    m = rank // k
+    return list(range(m * k, (m + 1) * k))
+
+
 def make_local_mesh(axis_name: str = CLIENT_AXIS) -> Mesh:
-    """1-D mesh of THIS process alone (a rank drives one device): the
-    intra-host tier of the two-level runner, which exchanges across
-    processes through its HostChannel instead.  No group, no collective."""
-    rank = mesh_world()[1]
-    return Mesh((axis_name,), np.array([rank], dtype=np.int64), rank)
+    """1-D mesh of this host-channel member's local group (`member_ranks`):
+    the intra-member tier of the two-level runner, which exchanges across
+    members through its HostChannel instead.  Without a local group it is
+    this process alone (no group, no collective).  Over every member's
+    ranks each member's mesh is built on every rank, in member order
+    (group creation is collective over the world)."""
+    ctx = MultihostContext.from_env() or MultihostContext.single()
+    n_world, rank = mesh_world()
+    k = ctx.local_world
+    if k == 1 or n_world == 1:
+        return Mesh((axis_name,), np.array([rank], dtype=np.int64), rank)
+    if n_world == k:
+        return make_mesh(axis_name=axis_name)
+    member_ranks(ctx)           # names a world that fits neither layout
+    mine = None
+    for m in range(n_world // k):
+        mesh = make_mesh(axis_name=axis_name,
+                         devices=range(m * k, (m + 1) * k))
+        mine = mesh if mesh is not None else mine
+    return mine
+
+
+def exit_rank(rc: int) -> None:
+    """End a rank process of a gloo world: run the atexit handlers (obs's
+    export), flush, and leave without the interpreter's teardown, where
+    gloo's threads may abort the process (std::terminate, "terminate
+    called without an active exception") after its work is done."""
+    import atexit
+    atexit._run_exitfuncs()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)
+
+
+class LocalGroup:
+    """The further ranks a member's first rank started (`join_local_group`):
+    `collect` waits for them and returns their stdout, `kill` ends them."""
+
+    def __init__(self, procs: list):
+        self.procs = procs
+
+    def collect(self, timeout_s: float = 600.0) -> list:
+        outs = []
+        for i, p in enumerate(self.procs, start=1):
+            out, _ = p.communicate(timeout=timeout_s)
+            if p.returncode != 0:
+                raise MultihostLaunchError(
+                    f"local rank {i} of this member failed "
+                    f"({_rank_outcome(p.returncode)})")
+            outs.append(out)
+        return outs
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def _exit_with_parent(ppid: int) -> None:
+    """A local rank ends when the member's first rank (its parent) is
+    gone: a member dies as a whole."""
+    def watch():
+        while os.getppid() == ppid:
+            time.sleep(0.25)
+        os._exit(3)
+    threading.Thread(target=watch, daemon=True,
+                     name="local-group-parent-watch").start()
+
+
+def join_local_group(local_devices: int, cmd: list, *,
+                     timeout_s: float = 300.0,
+                     over_members: bool = False
+                     ) -> tuple[MultihostContext, LocalGroup]:
+    """Make this process one of `local_devices` ranks behind its
+    host-channel member, joined by torch.distributed over gloo.
+
+    The member's first rank (the process the launcher started) starts the
+    k - 1 further ranks as `cmd` with FEDML_MH_LOCAL_RANK/WORLD/COORD in
+    their env and the member's FEDML_MH_RANK; each of those ends when the
+    first rank does.  The group's rendezvous is the host channel's port +
+    2 + the member's rank (keep that many ports free above the
+    coordinator's; `spawn_cluster(jax_distributed=True)` takes port + 1),
+    and its world is the group alone.  With `over_members` the world is
+    every member's ranks at the launcher's FEDML_MH_JAX_COORD instead
+    (member m holds ranks m*k .. m*k + k - 1), so a mesh may span members;
+    the two-level runner refuses one that does.
+
+    Returns (this rank's context, the ranks it started: none unless it
+    is the member's first rank)."""
+    k = int(local_devices)
+    ctx = MultihostContext.from_env() or MultihostContext.single()
+    if k == 1:
+        return ctx, LocalGroup([])
+    procs = []
+    if ctx.local_world == 1:
+        if over_members:
+            if not ctx.jax_coordinator:
+                raise RuntimeError(
+                    f"a world over every member's local group needs the "
+                    f"launcher's {ENV_JAX_COORD} (launch --jax-distributed)")
+            coord = ctx.jax_coordinator
+        else:
+            host, port = ctx.coordinator.rsplit(":", 1)
+            coord = f"{host}:{int(port) + 2 + ctx.rank}"
+        os.environ.update({ENV_LOCAL_WORLD: str(k), ENV_LOCAL_COORD: coord,
+                           ENV_LOCAL_RANK: "0"})
+        try:
+            for i in range(1, k):
+                procs.append(subprocess.Popen(
+                    cmd, env={**os.environ, ENV_LOCAL_RANK: str(i)},
+                    text=True, stdout=subprocess.PIPE))
+        except BaseException:
+            LocalGroup(procs).kill()
+            raise
+        ctx = MultihostContext.from_env()
+    else:
+        _exit_with_parent(os.getppid())
+        if ctx.local_world != k:
+            raise ValueError(f"local rank {ctx.local_rank} started for a "
+                             f"group of {ctx.local_world}, configured {k}")
+    group = LocalGroup(procs)
+    coord = os.environ[ENV_LOCAL_COORD]
+    try:
+        if over_members:
+            init_multihost(coordinator_address=coord,
+                           num_processes=ctx.world * k,
+                           process_id=ctx.rank * k + ctx.local_rank,
+                           required=True, timeout_s=timeout_s)
+        else:
+            init_multihost(coordinator_address=coord, num_processes=k,
+                           process_id=ctx.local_rank, required=True,
+                           timeout_s=timeout_s)
+    except BaseException:
+        group.kill()
+        raise
+    return ctx, group
 
 
 def host_mesh_layout(hosts: list, silos: Optional[int] = None
@@ -2118,10 +2286,27 @@ class MultihostRunner:
             raise ValueError(
                 f"MultihostRunner drives the flat FedAvg-family chunked "
                 f"engines, not {type(engine).__name__}")
-        engine._ensure_twolevel()
-        self.engine = engine
         self.ctx = ctx if ctx is not None else (
             MultihostContext.from_env() or MultihostContext.single())
+        # the engine's mesh must be this member's local group: the
+        # cross-member tier is the HostChannel, never a mesh collective
+        mine = member_ranks(self.ctx)
+        k = self.ctx.local_world
+        for r in engine.mesh.grid.reshape(-1).tolist():
+            if r not in mine:
+                raise ValueError(
+                    f"MultihostRunner needs the engine's mesh inside this "
+                    f"member's local group (build it with "
+                    f"make_local_mesh()): its rank {r} belongs to "
+                    f"host-channel member {r // k}, and this process is "
+                    f"member {self.ctx.rank} (ranks {mine})")
+        engine._ensure_twolevel()
+        self.engine = engine
+        # several ranks behind this member: they train each block's lanes
+        # together, and the first of them (the leader) ships the carry
+        self.group = engine.mesh if engine.mesh.size > 1 else None
+        self.leads = self.group is None or engine.mesh.is_first
+        self._share_stacks: dict[int, dict] = {}
         self.timeout_s = float(timeout_s)
         self.on_round_end = on_round_end
         world = self.ctx.world
@@ -2175,13 +2360,13 @@ class MultihostRunner:
     def _config_doc(self) -> bytes:
         """The canonical cross-rank config document: the quantities the
         bitwise contract depends on, in the JAX runner's schema
-        (`n_shards` is 1: one device per rank)."""
+        (`n_shards`: the ranks of the member's local group)."""
         eng = self.engine
         return json.dumps({
             "n_blocks": self.n_blocks,
             "k_per_block": self.sampler.k_per_block,
             "population": self.sampler.population,
-            "n_shards": 1,
+            "n_shards": self.engine.n_shards,
             "chunk": eng.chunk,
             "seed": eng.cfg.seed,
             "family": eng.program_family,
@@ -2272,6 +2457,10 @@ class MultihostRunner:
         """(block, host f32 carry) in owned-block order, so each block's
         carry can ship while the next one computes."""
         eng = self.engine
+        if self.group is not None:
+            for b in self.owned_blocks:
+                yield b, self._group_partial(variables, round_idx, b)
+            return
         if eng.streaming:
             for b, cohort, weights in self._streaming_blocks(round_idx,
                                                              rounds):
@@ -2284,6 +2473,155 @@ class MultihostRunner:
                      - self.range_lo)
             yield b, eng._twolevel_partial_resident(
                 variables, stack, stack_w, local, round_idx, self._lane0(b))
+
+    # -- the member's local group --------------------------------------------
+    # Each rank of the group trains its share of a block's lanes (the
+    # block's cohort padded to the group with zero-weight repeats of its
+    # first client, rank i taking the i-th equal range, lanes keyed on the
+    # global lane), and the group folds the per-rank sums left in mesh
+    # order on the host (the engine's `_twolevel_partial`).  The leader
+    # drives: it names every block before the group computes it (the
+    # elastic tier re-tasks blocks mid-round) and hands the folded carry of
+    # every member to the others for the commit, so the followers need no
+    # channel and the group commits one set of bits.
+    def _announce(self, cmd) -> None:
+        if self.group is not None and self.leads:
+            self.group.broadcast_object(cmd, self.engine.client_axes)
+
+    def _block_ids(self, round_idx: int, b: int) -> tuple:
+        """This rank's (ids, wmask, position range) of block b's cohort."""
+        ids = self.sampler.sample_block(round_idx, b)
+        pad = (-len(ids)) % self.engine.n_shards
+        wmask = np.concatenate([np.ones(len(ids), np.float32),
+                                np.zeros(pad, np.float32)])
+        ids = np.concatenate([ids, np.repeat(ids[:1], pad)])
+        return ids, wmask, self.engine.shard.rows(len(ids))
+
+    def _share_bounds(self, b: int) -> list:
+        """Population ids where each group rank's share of block b's id
+        range starts (and the range's end)."""
+        rs, k = self.sampler.range_size, self.engine.n_shards
+        return [b * rs + (i * rs) // k for i in range(k + 1)]
+
+    def _share_stack(self, b: int) -> dict:
+        """Resident mode: this rank's share of block b's id range on the
+        device (cached while the block is this member's)."""
+        hit = self._share_stacks.get(b)
+        if hit is None:
+            bounds = self._share_bounds(b)
+            i = self.engine.shard.index
+            hit = self._share_stacks[b] = self._upload_id_range(
+                bounds[i], bounds[i + 1])[0]
+        return hit
+
+    def _resident_share(self, b: int, ids: np.ndarray,
+                        rows: slice) -> dict:
+        """This rank's lanes of block b from the group's resident shares:
+        every rank copies the rows it holds to the host, the group
+        gathers them, and each rank uploads its lanes' rows (the bytes,
+        not sums, so the cohort is the host gather's bit for bit)."""
+        eng = self.engine
+        bounds = self._share_bounds(b)
+        holder = np.searchsorted(bounds, ids, side="right") - 1
+        held = [np.nonzero(holder == r)[0] for r in range(eng.n_shards)]
+        slot = np.empty(len(ids), np.int64)
+        for h in held:
+            slot[h] = np.arange(len(h))
+        width = max(len(h) for h in held)
+        me = eng.shard.index
+        stack = self._share_stack(b)
+        local = torch.as_tensor(ids[held[me]] - bounds[me], dtype=torch.long,
+                                device=eng.device)
+        from fedml_tpu_torch.parallel.prefetch import upload
+        cohort = {}
+        for key, v in stack.items():
+            part = v.index_select(0, local).to("cpu")
+            send = part.new_zeros((width,) + tuple(part.shape[1:]))
+            send[:len(part)] = part
+            wire = (send.view(torch.int16) if send.element_size() == 2
+                    and send.is_floating_point() else send)
+            got = eng.exchange.gather(wire.numpy(), eng.client_axes)
+            mine = np.stack([got[holder[p]][slot[p]]
+                             for p in range(rows.start, rows.stop)])
+            t = torch.from_numpy(mine)
+            if wire is not send:
+                t = t.view(send.dtype)
+            eng.transfer_stats.add_h2d_bytes(t.numel() * t.element_size())
+            cohort[key] = upload(t, eng.device)
+        return cohort
+
+    def _group_partial(self, variables, round_idx: int,
+                       b: int) -> np.ndarray:
+        """Block b's host f32 carry, computed with the group (the leader
+        names the block first)."""
+        self._announce(("compute", int(b)))
+        eng = self.engine
+        ids, wmask, rows = self._block_ids(round_idx, b)
+        if eng.streaming:
+            cohort, weights = eng._stream_gather(ids[rows], wmask[rows])
+        else:
+            cohort = self._resident_share(b, ids, rows)
+            weights = eng._upload_weights(np.take(np.asarray(
+                eng.data.client_num_samples, np.float32), ids[rows])
+                * wmask[rows])
+        return eng._twolevel_partial(variables, cohort, weights, round_idx,
+                                     self._lane0(b))
+
+    def _group_commit(self, variables, server_state, total):
+        """The leader's commit: its group's followers get the folded carry
+        first and commit the same bits."""
+        if self.group is not None:
+            self._announce(("commit",))
+            self.group.broadcast(total, self.engine.client_axes)
+        return self.engine._twolevel_commit(variables, server_state, total)
+
+    def _keep_shares(self, blocks) -> None:
+        """Drop the resident shares of blocks this member no longer owns."""
+        for b in list(self._share_stacks):
+            if b not in blocks:
+                del self._share_stacks[b]
+
+    def _follow_compute(self, variables, round_idx: int, b: int) -> None:
+        self._group_partial(variables, round_idx, b)
+
+    def _run_follower(self, variables, server_state, rounds: int) -> dict:
+        """A follower's loop: compute the blocks the leader names, keep
+        only the resident shares of the blocks it says this member owns,
+        and commit the carry it hands over."""
+        axes = self.engine.client_axes
+        for round_idx in range(rounds):
+            t0 = time.perf_counter()
+            while True:
+                cmd = self.group.broadcast_object(None, axes)
+                if cmd[0] == "compute":
+                    self._follow_compute(variables, round_idx, cmd[1])
+                elif cmd[0] == "round":
+                    self._keep_shares(cmd[1])
+                elif cmd[0] == "commit":
+                    break
+                else:
+                    raise RuntimeError(f"local group: unknown command "
+                                       f"{cmd!r} from the leader")
+            total = self.group.broadcast(None, axes)
+            variables, server_state, _m = self.engine._twolevel_commit(
+                variables, server_state, total)
+            if self.engine.device.type == "cuda":
+                torch.cuda.synchronize(self.engine.device)
+            self.round_walls.append(time.perf_counter() - t0)
+            if self.on_round_end is not None:
+                self.on_round_end(round_idx)
+        return variables
+
+    def _group_handshake(self) -> None:
+        """The group's ranks run one configuration (the leader's)."""
+        if self.group is None:
+            return
+        doc = self._config_doc()
+        lead = self.group.broadcast_object(doc, self.engine.client_axes)
+        if lead != doc:
+            raise RuntimeError(
+                f"local group config mismatch: rank {self.group.rank} runs "
+                f"{doc.decode()!r} vs the leader's {lead.decode()!r}")
 
     # -- codec plumbing ------------------------------------------------------
     def _encode_block(self, block: int, vec: np.ndarray) -> bytes:
@@ -2399,16 +2737,20 @@ class MultihostRunner:
 
     # -- the loop ------------------------------------------------------------
     def run(self, variables: Optional[dict] = None,
-            rounds: Optional[int] = None) -> dict:
+            rounds: Optional[int] = None, logger=None) -> dict:
         """Drive `rounds` two-level rounds; returns the trained variables
-        (the same bits on every process).  Only rank 0 evaluates and
-        appends metrics_history."""
+        (the same bits on every process).  Only rank 0 (its local group's
+        leader) evaluates, appends metrics_history and logs each evaluated
+        round to `logger` (utils/metrics.py::RunLogger)."""
         eng = self.engine
         cfg = eng.cfg
         rounds = rounds if rounds is not None else cfg.comm_round
         if variables is None:
             variables = eng.init_variables()
         server_state = eng.server_init(variables)
+        self._group_handshake()
+        if not self.leads:
+            return self._run_follower(variables, server_state, rounds)
         self._handshake()
         try:
             for round_idx in range(rounds):
@@ -2419,7 +2761,7 @@ class MultihostRunner:
                     self.channel.round_hint = round_idx
                     total = self._round_exchange(variables, round_idx,
                                                  rounds)
-                    variables, server_state, m = eng._twolevel_commit(
+                    variables, server_state, m = self._group_commit(
                         variables, server_state, total)
                 if eng.device.type == "cuda":
                     torch.cuda.synchronize(eng.device)
@@ -2436,6 +2778,8 @@ class MultihostRunner:
                                  train_loss=float(m["train_loss"]),
                                  round_time=self.round_walls[-1])
                     eng.metrics_history.append(stats)
+                    if logger is not None:
+                        logger.log(stats, step=round_idx)
                     log.info("round %d: %s", round_idx, stats)
                 if self.on_round_end is not None:
                     self.on_round_end(round_idx)
@@ -2627,7 +2971,9 @@ class ElasticRunner(MultihostRunner):
         for b in blocks:
             b = int(b)
             ids = self.sampler.sample_block(round_idx, b)
-            if eng.streaming:
+            if self.group is not None:
+                parts[b] = self._group_partial(variables, round_idx, b)
+            elif eng.streaming:
                 cohort, weights = eng._stream_gather(ids)
                 parts[b] = eng._twolevel_partial(
                     variables, cohort, weights, round_idx, self._lane0(b))
@@ -2639,6 +2985,9 @@ class ElasticRunner(MultihostRunner):
                     self._lane0(b))
             self.computed.append((round_idx, b))
         return parts
+
+    def _follow_compute(self, variables, round_idx: int, b: int) -> None:
+        self._compute_partials(variables, round_idx, [b])
 
     def _readopt_compute(self, blocks) -> dict[int, bytes]:
         """The re-adoption callback the channel calls on a view change
@@ -2699,7 +3048,7 @@ class ElasticRunner(MultihostRunner):
     # -- the elastic loop ----------------------------------------------------
     def run(self, variables: Optional[dict] = None,
             rounds: Optional[int] = None, rejoin: Optional[bool] = None,
-            rejoin_state: Optional[tuple] = None) -> dict:
+            rejoin_state: Optional[tuple] = None, logger=None) -> dict:
         """Drive the elastic two-level loop.  `rejoin=True` (by default
         from FEDML_MH_REJOIN, which the launcher's respawn sets) makes
         this process re-enter a running cluster: the digest handshake,
@@ -2714,6 +3063,19 @@ class ElasticRunner(MultihostRunner):
         if rejoin is None:
             rejoin = (os.environ.get("FEDML_MH_REJOIN") == "1"
                       and rank != 0)
+        if self.group is not None and (rejoin or rejoin_state is not None):
+            raise NotImplementedError(
+                "elastic rejoin of a member with a local group "
+                "(local_devices > 1): a dead member's group stays down and "
+                "the survivors re-adopt its blocks; respawn members of one "
+                "rank")
+        if not self.leads:
+            if variables is None:
+                variables = eng.init_variables()
+            self._group_handshake()
+            return self._run_follower(variables, eng.server_init(variables),
+                                      rounds)
+        self._group_handshake()
         ch = self.channel
         if rank == 0:
             ch.wait_members()
@@ -2749,6 +3111,8 @@ class ElasticRunner(MultihostRunner):
                     for b in list(self._block_stacks):
                         if b not in mine:
                             del self._block_stacks[b]
+                    self._keep_shares(mine)
+                    self._announce(("round", list(mine)))
                     # error-feedback residuals follow ownership too
                     self.codec.retain_blocks(mine)
                     ch.mark_round()
@@ -2785,7 +3149,7 @@ class ElasticRunner(MultihostRunner):
                         self.exchange_walls.append(wait)
                     self._finish_round_bytes()
                     total = self._decode_fold(all_parts)
-                    variables, server_state, m = eng._twolevel_commit(
+                    variables, server_state, m = self._group_commit(
                         variables, server_state, total)
                 if eng.device.type == "cuda":
                     torch.cuda.synchronize(eng.device)
@@ -2810,6 +3174,8 @@ class ElasticRunner(MultihostRunner):
                                  train_loss=float(m["train_loss"]),
                                  round_time=self.round_walls[-1])
                     eng.metrics_history.append(stats)
+                    if logger is not None:
+                        logger.log(stats, step=round_idx)
                     log.info("round %d: %s", round_idx, stats)
                 if self.on_round_end is not None:
                     self.on_round_end(round_idx)
@@ -2836,7 +3202,8 @@ class ElasticRunner(MultihostRunner):
             "computed": [list(x) for x in self.computed],
             "readopted": [list(x) for x in self.readopted],
             "readopt_s": list(self.readopt_walls),
-            "resident_blocks": sorted(self._block_stacks),
+            "resident_blocks": sorted(set(self._block_stacks)
+                                      | set(self._share_stacks)),
         })
         return rep
 

@@ -16,10 +16,10 @@ package's parallel/mesh.py on the 8 forced CPU devices:
   FedNova, norm_clip and median (ResNet-18-GN at num_filters 4, 2
   rounds), and launches no collective;
 * the refusals: MultihostRunner refuses MeshHierarchicalEngine and an
-  engine whose mesh spans ranks; `stream_block` over ranks needs a block
-  that splits over the client shards (the two-phase order statistics
-  refuse a mesh of ranks), and mh_worker's `local_devices` > 1 names
-  slice 6c-iii.
+  engine whose mesh reaches another host-channel member's rank, naming
+  it; `stream_block` over ranks needs a block that splits over the
+  client shards (the two-phase order statistics refuse a mesh of ranks),
+  and mh_worker accepts `local_devices` > 1.
 """
 import logging
 
@@ -304,5 +304,7 @@ def test_what_waits_for_6c_ii_and_the_runner_refuse_by_name():
                          mesh=tmesh.make_mesh_2d(1, 1), device="cpu")
     base = {**mh_worker.DEFAULTS}
     mh_worker.check_config({**base, "jax_distributed": True})
-    with pytest.raises(NotImplementedError, match="slice 6c-iii"):
-        mh_worker.check_config({**base, "local_devices": 2})
+    mh_worker.check_config({**base, "local_devices": 2})
+    # the runner refuses a mesh reaching another member's rank, by name
+    with pytest.raises(ValueError, match="belongs to host-channel member 1"):
+        tmh.MultihostRunner(eng, tmh.MultihostContext.single())

@@ -412,8 +412,10 @@ def test_mh_worker_refuses_later_slices():
     mh_worker.check_config({**base, "elastic": True, "hang_rank": 2})
     with pytest.raises(ValueError, match="elastic"):
         mh_worker.check_config({**base, "hang_rank": 2})
-    with pytest.raises(NotImplementedError, match="slice 6c-iii"):
-        mh_worker.check_config({**base, "local_devices": 2})
+    # several ranks behind one member (local_devices > 1) are ported
+    mh_worker.check_config({**base, "local_devices": 2})
+    with pytest.raises(ValueError, match="local_devices"):
+        mh_worker.check_config({**base, "local_devices": 0})
     with pytest.raises(ValueError, match="residency mode"):
         mh_worker.check_config({**base, "modes": ["mesh"]})
     proc = subprocess.run([sys.executable, "-m",
